@@ -1,0 +1,34 @@
+// Host build of a generated scene source, for tests without a card: the same
+// generated HD functions the kernels inline, driven by plain loops.  Built with
+// a host C++ compiler after the scene code (and march.cuh, for the renderer).
+
+// The bank arrays are interleaved as a kernel's shared copy is:
+// BANK_STRIDE floats per object.
+extern "C" void host_point_eval(const float* pts, float* out, long long n, const float* bank,
+                                const float* ad) {
+    for (long long i = 0; i < n; ++i) {
+        out[i] = field_sdf(pts[3 * i], pts[3 * i + 1], pts[3 * i + 2], bank, ad);
+    }
+}
+
+#ifdef HOST_RENDER
+extern "C" void host_render(float* out, int height, int width, const float* cam_host,
+                            const float* bank, const float* ad) {
+    Cam cam;
+    for (int k = 0; k < 3; ++k) {
+        cam.o[k] = cam_host[k];
+        cam.rgt[k] = cam_host[3 + k];
+        cam.upp[k] = cam_host[6 + k];
+        cam.fwd[k] = cam_host[9 + k];
+    }
+    for (int iy = 0; iy < height; ++iy) {
+        for (int ix = 0; ix < width; ++ix) {
+            const Rgb c = render_pixel(ix, iy, width, height, cam, bank, ad);
+            float* px = out + 3 * ((long long)iy * width + ix);
+            px[0] = c.r;
+            px[1] = c.g;
+            px[2] = c.b;
+        }
+    }
+}
+#endif

@@ -1,0 +1,98 @@
+"""CUDA kernels of the port against their plain versions, on the card.
+
+Marked ``cuda``; each test takes the ``cuda_device`` fixture, which skips when
+no CUDA device is present.  Run on a machine with a card:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda -p no:cacheprovider -n 0
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from designcsg_tpu_torch.camera import Camera
+from designcsg_tpu_torch.config import RenderConfig
+from designcsg_tpu_torch.designs import get_design
+from designcsg_tpu_torch.evaluator import BatchEvaluator
+from designcsg_tpu_torch.export.pipeline import export_mesh
+from designcsg_tpu_torch.ops.cuda import build as kbuild
+from designcsg_tpu_torch.ops.cuda.march_kernel import make_cuda_renderer
+from designcsg_tpu_torch.ops.cuda.sdf_kernel import make_grid_eval, make_point_eval
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode; plain versions are "
+                    "tested in test_torch_kernels.py)")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def design1(cuda_device):
+    scene = get_design("design1")
+    return scene, scene.arrays.to_torch(cuda_device)
+
+
+def _close(got, ref):
+    # Point/grid kernels: FMA contraction against separately rounded torch ops.
+    return bool(((got - ref).abs() <= 1e-5 + 1e-6 * ref.abs()).all())
+
+
+def test_point_eval_kernel(design1, cuda_device):
+    scene, arrays = design1
+    pe = make_point_eval(scene)
+    pts = torch.from_numpy(np.random.default_rng(0).uniform(-6, 6, (100_003, 3)).astype(np.float32))
+    pts = pts.to(cuda_device)
+    before = kbuild.LAUNCHES["point_eval"]
+    got = pe(pts, arrays)
+    torch.cuda.synchronize()
+    assert kbuild.LAUNCHES["point_eval"] == before + 1
+    assert _close(got, pe.plain(pts, arrays))
+
+
+def test_grid_eval_kernel(design1, cuda_device):
+    scene, arrays = design1
+    ge = make_grid_eval(scene)
+    lo = np.array([-4.0, -3.0, -2.5], np.float32)
+    got = ge(arrays, lo, np.float32(0.05), np.float32(7.0), 9, 70, 130)
+    torch.cuda.synchronize()
+    assert got.shape == (9, 70, 130)
+    assert _close(got, ge.plain(arrays, lo, np.float32(0.05), np.float32(7.0), 9, 70, 130))
+
+
+@pytest.mark.parametrize("size", [(128, 32), (640, 480)])
+def test_renderer_kernel(design1, size):
+    scene, arrays = design1
+    config = RenderConfig(width=size[0], height=size[1])
+    render = make_cuda_renderer(scene, config)
+    cam = Camera.initial().orbit(0.2, -0.1).as_arrays()
+    got = render(arrays, *cam)
+    diff = (got - render.plain(arrays, *cam)).abs()
+    assert diff.max() < 1e-3
+    assert (diff > 1e-4).float().mean() < 0.01
+
+
+def test_wrappers_refuse_bad_input(design1, cuda_device):
+    scene, arrays = design1
+    pe = make_point_eval(scene)
+    with pytest.raises(ValueError):
+        pe(torch.zeros((4, 3), dtype=torch.float64, device=cuda_device), arrays)
+    with pytest.raises(ValueError):
+        pe(torch.zeros((4, 3), device=cuda_device), scene.arrays.to_torch("cpu"))
+
+
+def test_small_export_matches_cpu(cuda_device):
+    scene = get_design("design1")
+    cfg = dataclasses.replace(scene.export_config, grid_level=5, gradient_descent_steps=5)
+    kw = dict(export_config=cfg, autodetect_resolution=32, strategy="dense")
+    m_dev, r_dev = export_mesh(scene, device="cuda", **kw)
+    m_cpu, r_cpu = export_mesh(scene, device="cpu", **kw)
+    assert r_dev.stats["sdf_field"] == "cuda-exact"
+    np.testing.assert_allclose(r_dev.bounding_box_center, r_cpu.bounding_box_center, atol=1e-5)
+    assert m_dev.num_faces == m_cpu.num_faces > 0
+    assert BatchEvaluator(scene).eval_sdf_at_points(np.zeros((1, 3)))[0] < 0

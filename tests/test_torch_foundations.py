@@ -1,0 +1,83 @@
+"""Foundations of the PyTorch port against the JAX package: constants, config,
+transform algebra and camera arrays must be equal."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+from designcsg_tpu import camera as jcamera
+from designcsg_tpu import config as jconfig
+from designcsg_tpu import constants as jconstants
+from designcsg_tpu import transforms as jtf
+from designcsg_tpu_torch import camera as tcamera
+from designcsg_tpu_torch import config as tconfig
+from designcsg_tpu_torch import constants as tconstants
+from designcsg_tpu_torch import transforms as ttf
+
+
+def test_constants_equal():
+    names = [n for n in dir(jconstants) if n.isupper()]
+    assert names
+    for name in names:
+        assert getattr(tconstants, name) == getattr(jconstants, name), name
+
+
+def test_render_config_fields_and_defaults_equal():
+    jf = [(f.name, f.default) for f in dataclasses.fields(jconfig.RenderConfig)]
+    tf = [(f.name, f.default) for f in dataclasses.fields(tconfig.RenderConfig)]
+    assert tf == jf
+
+
+@pytest.mark.parametrize(
+    "knob",
+    [
+        dict(march_overrelax=1.6),
+        dict(march_hierarchical=True),
+        dict(march_cull=True),
+        dict(differentiable=True),
+        dict(soft_silhouette_bandwidth=0.02),
+        dict(march_proxy=True),
+    ],
+)
+def test_unported_knobs_raise_naming_roadmap(knob):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tconfig.RenderConfig(**knob)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_transforms_equal(seed):
+    rng = np.random.default_rng(seed)
+    pos = rng.normal(size=3)
+    yaw, pitch, roll = rng.uniform(-np.pi, np.pi, 3)
+    scale = rng.uniform(0.2, 3.0, 3)
+    for name, args in [
+        ("initial", (pos, yaw, pitch, roll, scale)),
+        ("rotation", (yaw, pitch, roll)),
+        ("translation", (pos,)),
+        ("scaling", (scale,)),
+        ("scaling", (float(scale[0]),)),
+        ("eulerX", (pitch,)),
+        ("eulerY", (yaw,)),
+        ("eulerZ", (roll,)),
+        ("reciprocal_vector", (pos,)),
+        ("normalized", (pos,)),
+        ("axes", (pos, scale, pos * 2)),
+        ("homogenize", (pos,)),
+        ("to_homogenous", (pos,)),
+    ]:
+        ours = getattr(ttf.Transform, name)(*args)
+        ref = getattr(jtf.Transform, name)(*args)
+        np.testing.assert_array_equal(ours, ref, err_msg=name)
+    np.testing.assert_array_equal(ttf.identity(), jtf.identity())
+
+
+@pytest.mark.parametrize("orbit", [None, (0.3, -0.2), (-1.1, 0.7)])
+def test_camera_arrays_equal(orbit):
+    t, j = tcamera.Camera.initial(), jcamera.Camera.initial()
+    if orbit is not None:
+        t.orbit(*orbit).zoom(1.5)
+        j.orbit(*orbit).zoom(1.5)
+    for ours, ref in zip(t.as_arrays(), j.as_arrays()):
+        assert ours.dtype == np.float32
+        np.testing.assert_array_equal(ours, ref)
