@@ -3,19 +3,29 @@
 
     python3 chip_smoke.py
 
-Builds Design1's three CUDA kernels (point eval, grid eval, fused renderer)
-from the sources in this checkout, holds each against its plain PyTorch
-version at the main path's shapes, drives the main path once through the
-user entry points (render the 640x480 viewport, evaluate points, export the
-dense 256^3 mesh to STL/PLY) with launch counts read around it, times every
-kernel and its plain version with CUDA events (and the renderer built with
-and without FMA contraction against each other), and prints:
+Builds the CUDA kernels of Design1 and Design2 (point eval, grid eval, the
+fused renderer exact and fast, the cone prepass) from the sources in this
+checkout, all nvcc runs at once, and holds each against its plain PyTorch
+version at the main paths' shapes.  Then it drives three main paths through
+the user entry points, with launch counts set to 0 before each and read after:
+
+* Design1's viewport, a k2 query and the dense 256^3 export to STL/PLY;
+* Design1's fast viewport: ``cli render design1 --fast`` (cone prepass +
+  over-relaxed renderer from its t0 plane) and the over-relaxed renderer
+  alone (``RenderConfig(march_overrelax=1.6)``);
+* Design2: the same two fast renders, its exact viewport, a k2 query and the
+  export's bounding-box scan on the card.
+
+It times every kernel and its plain version with CUDA events (and Design1's
+renderer built with and without FMA contraction against each other), and
+prints:
 
 * the ``-Xptxas -v`` report of the build;
-* a ``{"kernels": [...]}`` JSON line (launches on the main path, error against
-  the plain version, times, the card's lower bound).  ``ms`` is the mean time
-  per call by CUDA events over back-to-back calls (launch overhead included),
-  ``device_ms`` the kernel's own time from torch.profiler;
+* a ``{"kernels": [...]}`` JSON line, one entry per kernel, mode and design
+  (launches on its main path, error against the plain version, times, the
+  card's lower bound).  ``ms`` is the mean time per call by CUDA events over
+  back-to-back calls (launch overhead included), ``device_ms`` the kernel's
+  own time from torch.profiler;
 * the card's name and power limit, as nvidia-smi reports them;
 * last, ``{"ok": true, "device": {...}}``.
 
@@ -36,21 +46,38 @@ import time
 import numpy as np
 import torch
 
+from designcsg_tpu_torch import cli
 from designcsg_tpu_torch.camera import Camera
 from designcsg_tpu_torch.config import RenderConfig
 from designcsg_tpu_torch.designs import get_design
 from designcsg_tpu_torch.evaluator import BatchEvaluator
 from designcsg_tpu_torch.export import writers
-from designcsg_tpu_torch.export.pipeline import export_mesh
+from designcsg_tpu_torch.export.pipeline import autodetect_bounding_box_device, export_mesh
 from designcsg_tpu_torch.ops.cuda import build as kbuild
-from designcsg_tpu_torch.ops.cuda.march_kernel import make_cuda_renderer
+from designcsg_tpu_torch.ops.cuda.march_kernel import (
+    make_cuda_cone_march,
+    make_cuda_hierarchical_renderer,
+    make_cuda_renderer,
+)
 from designcsg_tpu_torch.ops.cuda.sdf_kernel import make_grid_eval, make_point_eval
-from designcsg_tpu_torch.ops.cuda.tape import march_kernel_source, sdf_kernel_source
-from designcsg_tpu_torch.ops.raymarch import camera_rows, make_march, project, ray_directions
-from designcsg_tpu_torch.ops.raymarch import render_scene, to_u8
+from designcsg_tpu_torch.ops.cuda.tape import (
+    cone_kernel_source,
+    march_kernel_source,
+    sdf_kernel_source,
+)
+from designcsg_tpu_torch.ops.interpreter import gizmo_sdf
+from designcsg_tpu_torch.ops.raymarch import (
+    camera_rows,
+    coarse_ray_uv,
+    make_march,
+    project,
+    ray_directions,
+    render_scene,
+    to_u8,
+)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-GOLDEN = os.path.join(ROOT, "tests", "goldens", "design1_160x120.npy")
+DESIGNS = ("design1", "design2")
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
 PEAK_FP32 = 67e12
@@ -62,13 +89,21 @@ PEAK_BYTES = 3.35e12
 FRAME_OPS = 3 + 15  # 3 subtractions + a 3x3 matrix-vector product (9 mul, 6 add)
 GIZMO_OPS = 3 + 3 * 9 + 2  # 3 divisions, 3 cylinders, 2 mins
 
+EXACT = RenderConfig()
+OVERRELAX = RenderConfig(march_overrelax=1.6)
+HIERARCHICAL = RenderConfig(march_overrelax=1.6, march_hierarchical=True)
+HIERARCHICAL_EXACT = RenderConfig(march_hierarchical=True)
+
+MARCH_PY = "designcsg_tpu/ops/pallas/march_kernel.py"
 SOURCES = {
     "point_eval": ("designcsg_tpu_torch/csrc/sdf_kernels.cu",
                    "designcsg_tpu/ops/pallas/sdf_kernel.py:76"),
     "grid_eval": ("designcsg_tpu_torch/csrc/sdf_kernels.cu",
                   "designcsg_tpu/ops/pallas/sdf_kernel.py:185"),
-    "renderer": ("designcsg_tpu_torch/csrc/march_kernel.cu",
-                 "designcsg_tpu/ops/pallas/march_kernel.py:339"),
+    "renderer": ("designcsg_tpu_torch/csrc/march_kernel.cu", f"{MARCH_PY}:339"),
+    "renderer_overrelax": ("designcsg_tpu_torch/csrc/march_kernel.cu", f"{MARCH_PY}:565"),
+    "renderer_t0": ("designcsg_tpu_torch/csrc/march_kernel.cu", f"{MARCH_PY}:447"),
+    "cone_march": ("designcsg_tpu_torch/csrc/cone_kernel.cu", f"{MARCH_PY}:202"),
 }
 
 
@@ -136,6 +171,66 @@ def phase(name: str) -> None:
     print(f"== {name}", flush=True)
 
 
+def check_render(name: str, got, ref) -> float:
+    """The rule of tests/test_pallas.py:115-116,133-134 against the plain
+    version; returns max|d|."""
+    err = (got - ref).abs()
+    check(bool(torch.isfinite(got).all()) and got.shape == ref.shape,
+          f"{name} finite, shape {tuple(got.shape)}")
+    check(float(err.max()) < 1e-3, f"{name} max|d| = {float(err.max()):.3g} < 1e-3")
+    frac = float((err > 1e-4).float().mean())
+    check(frac < 0.01, f"{name} share of |d| > 1e-4 = {frac:.4%} < 1%")
+    return float(err.max())
+
+
+def check_handoffs(name: str, got, ref, far: float) -> float:
+    """Cone t_safe against its plain version: the same hit/miss handoff
+    (t_safe > max_d) on >= 99% of rays, |dt| <= 1e-4 on the rest; returns
+    max|dt| over rays whose handoffs agree."""
+    same = (got > far) == (ref > far)
+    share = float(same.float().mean())
+    check(share >= 0.99, f"{name} equal handoffs on {share:.4%} of rays >= 99%")
+    both = (got <= far) & (ref <= far)
+    err = float((got - ref).abs()[both].max()) if bool(both.any()) else 0.0
+    check(err <= 1e-4, f"{name} max|dt| = {err:.3g} <= 1e-4 where both stay in the scene")
+    return float((got - ref).abs()[same].max())
+
+
+def hit_rules(fast, exact, miss_color):
+    """tests/test_pallas.py:266-276's numbers for a hierarchical image against
+    an exact one: hit-mask disagreement, median |d| and the share above
+    0.05 on pixels both hit."""
+    miss = torch.tensor(miss_color, device=fast.device)
+    fast_hit, exact_hit = (fast != miss).any(-1), (exact != miss).any(-1)
+    diff = (fast - exact).abs().amax(-1)[fast_hit & exact_hit]
+    return (float((fast_hit != exact_hit).float().mean()), float(diff.median()),
+            float((diff > 0.05).float().mean()))
+
+
+def check_hit_preserving(name: str, fast, exact, plain_fast, plain_exact, miss_color) -> None:
+    """The hierarchical kernel against the exact kernel by
+    tests/test_pallas.py:266-276's rules: hit masks differ on < 0.2% of
+    pixels, median |d| < 1e-4 on pixels both hit, and < 1% of those above
+    0.05 -- or, where the plain versions themselves differ more than that
+    (Design2's creases, PERF.md), no more than 0.25 points above the plain
+    pair's share."""
+    mask, med, share = hit_rules(fast, exact, miss_color)
+    plain_share = hit_rules(plain_fast, plain_exact, miss_color)[2]
+    check(mask < 0.002, f"{name} hit-mask disagreement {mask:.4%} < 0.2%")
+    check(med < 1e-4, f"{name} median |d| on pixels both hit = {med:.3g} < 1e-4")
+    limit = max(0.01, plain_share + 0.0025)
+    check(share < limit, f"{name} share of both-hit pixels above 0.05 = {share:.4%} < "
+                         f"{limit:.4%} (plain versions: {plain_share:.4%})")
+
+
+def coarse_rays(config, cam, device):
+    """(o_proj f32[3] on the host, the block-centre rays f32[H/F, W/F, 3] on
+    ``device``), formed as the hierarchical renderer forms them."""
+    rows = camera_rows(*cam)
+    frame = torch.as_tensor(rows[1:], device=device)
+    return rows[0], project(torch.from_numpy(coarse_ray_uv(config)).to(device), *frame)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -151,67 +246,111 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(f"  {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
-    phase("2. build Design1's kernels (nvcc, sm_90a)")
-    scene = get_design("design1")
-    config = RenderConfig()
+    phase("2. build both designs' kernels (nvcc, sm_90a, one process per unit)")
+    scenes = {name: get_design(name) for name in DESIGNS}
+    units = {}
+    for name, scene in scenes.items():
+        units[f"{name} sdf"] = ("sdf", sdf_kernel_source(scene))
+        units[f"{name} march exact"] = ("march", march_kernel_source(scene, EXACT))
+        units[f"{name} march omega=1.6"] = ("march", march_kernel_source(scene, HIERARCHICAL))
+        units[f"{name} cone"] = ("cone", cone_kernel_source(scene, HIERARCHICAL))
+        units[f"{name} cone omega=1"] = ("cone", cone_kernel_source(scene, HIERARCHICAL_EXACT))
+    # Timing phase only: Design1's renderer with FMA contraction.
+    units["design1 march_fma"] = ("march_fma", march_kernel_source(scenes["design1"], EXACT))
     t0 = time.time()
-    logs = kbuild.build({
-        "sdf": sdf_kernel_source(scene),
-        "march": march_kernel_source(scene, config),
-        "march_fma": march_kernel_source(scene, config),  # timing phase only
-    })
-    print(f"  built in {time.time() - t0:.1f} s")
-    for name, log in logs.items():
-        print(f"  -- ptxas report, {name}:")
+    logs = kbuild.build(units)
+    print(f"  built {len(units)} units in {time.time() - t0:.1f} s")
+    for label, log in logs.items():
+        print(f"  -- ptxas report, {label}:")
         for line in log.strip().splitlines():
             print(f"     {line}")
-    arrays = scene.arrays.to_torch(dev)
-    results = {}
 
-    phase("3. point eval kernel vs plain, 2^20 points")
-    point_eval = make_point_eval(scene)
-    half = scene.export_config.bounding_box_half_diameter / 2.0
-    rng = np.random.default_rng(0)
-    pts = torch.from_numpy(rng.uniform(-half, half, (1 << 20, 3)).astype(np.float32)).to(dev)
-    got = point_eval(pts, arrays)
-    ref = point_eval.plain(pts, arrays)
-    torch.cuda.synchronize()
-    err = (got - ref).abs()
-    results["point_eval"] = dict(max_abs_err=float(err.max()))
-    check(bool((err <= 1e-5 + 1e-6 * ref.abs()).all()),
-          f"point eval max|d| = {float(err.max()):.3g} within 1e-5 + 1e-6|ref|")
-
-    phase("4. grid eval kernel vs plain, one 33x257x257 slab")
-    grid_eval = make_grid_eval(scene)
-    glo, gcell, gz0 = np.full(3, -3.5, np.float32), np.float32(7.0 / 256), 112.0
-    got = grid_eval(arrays, glo, gcell, gz0, 33, 257)
-    ref = grid_eval.plain(arrays, glo, gcell, gz0, 33, 257)
-    torch.cuda.synchronize()
-    check(tuple(got.shape) == (33, 257, 257), "grid eval shape (33, 257, 257)")
-    err = (got - ref).abs()
-    results["grid_eval"] = dict(max_abs_err=float(err.max()))
-    check(bool((err <= 1e-5 + 1e-6 * ref.abs()).all()),
-          f"grid eval max|d| = {float(err.max()):.3g} within 1e-5 + 1e-6|ref|")
-
-    phase("5. renderer kernel vs plain, 640x480; u8 at 160x120 vs golden")
+    results = {}  # (kernel, design) -> numbers
+    arrays = {name: scene.arrays.to_torch(dev) for name, scene in scenes.items()}
     cam = Camera.initial().as_arrays()
-    renderer = make_cuda_renderer(scene, config)
-    got = renderer(arrays, *cam)
-    render_ref = renderer.plain(arrays, *cam)
-    torch.cuda.synchronize()
-    err = (got - render_ref).abs()
-    results["renderer"] = dict(max_abs_err=float(err.max()))
-    check(bool(torch.isfinite(got).all()) and tuple(got.shape) == (480, 640, 3),
-          "render finite, shape (480, 640, 3)")
-    check(float(err.max()) < 1e-3, f"render max|d| = {float(err.max()):.3g} < 1e-3")
-    frac = float((err > 1e-4).float().mean())
-    check(frac < 0.01, f"render share of |d| > 1e-4 = {frac:.4%} < 1%")
-    small = to_u8(render_scene(scene, config=RenderConfig(width=160, height=120)))
-    diff = np.abs(small.cpu().numpy().astype(int) - np.load(GOLDEN).astype(int))
-    frac = float((diff.max(axis=-1) > 2).mean())
-    check(frac < 0.002, f"160x120 u8 pixels off the golden by > 2 levels: {frac:.4%} < 0.2%")
+    rng = np.random.default_rng(0)
+    glo, gcell, gz0 = np.full(3, -3.5, np.float32), np.float32(7.0 / 256), 112.0
+    kernels = {}
+    for name, scene in scenes.items():
+        kernels[name] = dict(
+            point_eval=make_point_eval(scene),
+            grid_eval=make_grid_eval(scene),
+            renderer=make_cuda_renderer(scene, EXACT),
+            renderer_overrelax=make_cuda_renderer(scene, OVERRELAX),
+            renderer_t0=make_cuda_renderer(scene, HIERARCHICAL),
+            cone_march=make_cuda_cone_march(scene, HIERARCHICAL),
+            hierarchical=make_cuda_hierarchical_renderer(scene, HIERARCHICAL),
+            hierarchical_exact=make_cuda_hierarchical_renderer(scene, HIERARCHICAL_EXACT),
+        )
+    inputs = {}
+    images = {}
 
-    phase("6. small dense export on the card vs the plain CPU path")
+    for step, (name, scene) in enumerate(scenes.items()):
+        k, a = kernels[name], arrays[name]
+        phase(f"{3 + step}a. {name}: point eval (2^20 points) and grid eval (33x257x257) vs plain")
+        half = scene.export_config.bounding_box_half_diameter / 2.0
+        pts = torch.from_numpy(rng.uniform(-half, half, (1 << 20, 3)).astype(np.float32)).to(dev)
+        inputs[name] = dict(pts=pts)
+        for kernel, got, ref in (
+            ("point_eval", k["point_eval"](pts, a), k["point_eval"].plain(pts, a)),
+            ("grid_eval", k["grid_eval"](a, glo, gcell, gz0, 33, 257),
+             k["grid_eval"].plain(a, glo, gcell, gz0, 33, 257)),
+        ):
+            torch.cuda.synchronize()
+            err = (got - ref).abs()
+            results[(kernel, name)] = dict(max_abs_err=float(err.max()))
+            check(bool((err <= 1e-5 + 1e-6 * ref.abs()).all()),
+                  f"{name} {kernel} {tuple(got.shape)} max|d| = {float(err.max()):.3g} "
+                  f"within 1e-5 + 1e-6|ref|")
+
+        phase(f"{3 + step}b. {name}: renderers vs plain at 640x480; u8 160x120 vs golden")
+        exact, exact_plain = k["renderer"](a, *cam), k["renderer"].plain(a, *cam)
+        results[("renderer", name)] = dict(
+            max_abs_err=check_render(f"{name} exact", exact, exact_plain))
+        over = k["renderer_overrelax"](a, *cam)
+        results[("renderer_overrelax", name)] = dict(max_abs_err=check_render(
+            f"{name} over-relaxed", over, k["renderer_overrelax"].plain(a, *cam)))
+        o_proj, rays = coarse_rays(HIERARCHICAL, cam, dev)
+        t_safe = k["cone_march"](a, o_proj, rays)
+        t_plain = k["cone_march"].plain(a, o_proj, rays)
+        torch.cuda.synchronize()
+        results[("cone_march", name)] = dict(max_abs_err=check_handoffs(
+            f"{name} cone {tuple(t_safe.shape)}", t_safe, t_plain, HIERARCHICAL.max_distance))
+        f = HIERARCHICAL.hierarchical_factor
+        t0_plane = t_plain.repeat_interleave(f, 0).repeat_interleave(f, 1).contiguous()
+        inputs[name].update(o_proj=o_proj, rays=rays, t0=t0_plane)
+        results[("renderer_t0", name)] = dict(max_abs_err=check_render(
+            f"{name} t0 renderer (plain cone's t0)", k["renderer_t0"](a, *cam, t0=t0_plane),
+            k["renderer_t0"].plain(a, *cam, t0=t0_plane)))
+        # Safety: every covered fine ray's start point is epsilon-clear, by
+        # the point kernel (the k2 field) and the gizmo, i.e. the k1 field.
+        t0_cuda = t_safe.repeat_interleave(f, 0).repeat_interleave(f, 1)
+        frame = torch.as_tensor(camera_rows(*cam)[1:], device=dev)
+        starts = torch.as_tensor(o_proj, device=dev) + t0_cuda[..., None] * project(
+            ray_directions(HIERARCHICAL, dev), *frame)
+        starts = starts.reshape(-1, 3).contiguous()
+        field = torch.minimum(k["point_eval"](starts, a), gizmo_sdf(starts))
+        inside = t0_cuda.reshape(-1) < HIERARCHICAL.max_distance
+        low = float(field[inside].min())
+        check(low >= HIERARCHICAL.sdf_epsilon - 1e-6,
+              f"{name} cone safety: min sdf at covered start points {low:.4g} >= eps")
+        hier, hier_plain = k["hierarchical"](a, *cam), k["hierarchical"].plain(a, *cam)
+        check_render(f"{name} hierarchical", hier, hier_plain)
+        check_hit_preserving(f"{name} hierarchical vs exact", hier, exact, hier_plain,
+                             exact_plain, EXACT.miss_color)
+        # Reported, not checked: how far each fast mode alone moves the image
+        # from the exact one (hit-mask disagreement, median |d|, share > 0.05).
+        print(f"  {name} over-relaxed vs exact {hit_rules(over, exact, EXACT.miss_color)}; "
+              f"cone prepass at omega = 1 vs exact "
+              f"{hit_rules(k['hierarchical_exact'](a, *cam), exact, EXACT.miss_color)}")
+        images[name] = dict(hierarchical=hier, overrelax=over)
+        small = to_u8(render_scene(scene, config=RenderConfig(width=160, height=120)))
+        golden = np.load(os.path.join(ROOT, "tests", "goldens", f"{name}_160x120.npy"))
+        frac = float((np.abs(small.cpu().numpy().astype(int) - golden.astype(int)).max(-1) > 2).mean())
+        check(frac < 0.002, f"{name} 160x120 u8 pixels off the golden by > 2 levels: {frac:.4%} < 0.2%")
+
+    phase("5. small dense export of Design1 on the card vs the plain CPU path")
+    scene = scenes["design1"]
     small_cfg = dataclasses.replace(scene.export_config, grid_level=5, gradient_descent_steps=5)
     kw = dict(export_config=small_cfg, autodetect_resolution=32, strategy="dense")
     m_dev, r_dev = export_mesh(scene, device="cuda", **kw)
@@ -225,7 +364,9 @@ def main() -> int:
     vc = np.sort(m_cpu.triangle_soup().reshape(-1, 9), axis=0)
     check(np.abs(vd - vc).max() < 1e-3, f"refined triangles agree, max|d| = {np.abs(vd - vc).max():.3g}")
 
-    phase("7. main path: render, point eval, dense 256^3 export (launches counted)")
+    launches = {}  # (kernel, design) -> launches on its main path
+
+    phase("6. main path A, Design1: render, point eval, dense 256^3 export (launches counted)")
     kbuild.LAUNCHES.clear()
     t0 = time.time()
     image = render_scene(scene)
@@ -240,8 +381,8 @@ def main() -> int:
         ply_back = writers.read_ply(ply)
     torch.cuda.synchronize()
     main_s = time.time() - t0
-    launches = dict(kbuild.LAUNCHES)
-    print(f"  main path {main_s:.2f} s; launches {launches}")
+    counted = dict(kbuild.LAUNCHES)
+    print(f"  main path {main_s:.2f} s; launches {counted}")
     check(bool(torch.isfinite(image).all()) and tuple(image.shape) == (480, 640, 3),
           "viewport finite, (480, 640, 3)")
     check(probe[0] < 0, f"sdf at the origin {probe[0]:.4f} < 0 (inside Design1)")
@@ -249,63 +390,158 @@ def main() -> int:
           f"STL/PLY read back: {back.num_faces} triangles")
     check(bool(np.isfinite(mesh.vertices).all()) and mesh.signed_volume() > 0,
           f"mesh finite, volume {mesh.signed_volume():.3f} > 0")
-    for name in SOURCES:
-        check(launches.get(name, 0) > 0, f"{name} launched {launches.get(name, 0)} times")
+    for kernel in ("point_eval", "grid_eval", "renderer"):
+        check(counted.get(kernel, 0) > 0, f"{kernel} launched {counted.get(kernel, 0)} times")
+        launches[(kernel, "design1")] = counted[kernel]
     print(f"  export stage_seconds {json.dumps(report.stage_seconds)}; "
           f"{report.num_vertices} vertices, {report.num_triangles} triangles, "
           f"box center {report.bounding_box_center.tolist()}, half {report.bounding_box_half_diameter}")
 
+    for path, name in (("B", "design1"), ("C", "design2")):
+        scene = scenes[name]
+        extra = ", exact viewport, k2 query, bounding-box scan" if name == "design2" else ""
+        phase(f"7{path}. main path {path}, {name}: `cli render {name} --fast`, "
+              f"over-relaxed viewport{extra} (launches counted)")
+        kbuild.LAUNCHES.clear()
+        t0 = time.time()
+        with tempfile.TemporaryDirectory() as tmp:
+            png = os.path.join(tmp, f"{name}_fast.png")
+            cli.main(["render", name, "--fast", "-o", png])
+            back = cli.read_png(png)
+        over = render_scene(scene, config=OVERRELAX)
+        if name == "design2":
+            exact = render_scene(scene)
+            probe = BatchEvaluator(scene).eval_sdf_at_points(np.full((1, 3), 0.5, np.float32))
+            center, half_box = autodetect_bounding_box_device(
+                BatchEvaluator(scene), scene.export_config.bounding_box_half_diameter
+            )
+        torch.cuda.synchronize()
+        main_s = time.time() - t0
+        counted = dict(kbuild.LAUNCHES)
+        print(f"  main path {main_s:.2f} s; launches {counted}")
+        check(back.shape == (480, 640, 3), f"{name} --fast PNG read back, {back.shape}")
+        same = float((back == to_u8(images[name]["hierarchical"]).cpu().numpy()).all(-1).mean())
+        check(same == 1.0, f"{name} --fast PNG equals the checked hierarchical render, "
+                           f"{same:.4%} of pixels")
+        check(torch.equal(over, images[name]["overrelax"]),
+              f"{name} over-relaxed viewport equals the checked over-relaxed render")
+        check(counted.get("cone_march") == 1 and counted.get("renderer_t0") == 1,
+              f"{name} --fast: one cone_march and one renderer_t0 launch per frame")
+        expect = ["cone_march", "renderer_t0", "renderer_overrelax"]
+        if name == "design2":
+            check(bool(torch.isfinite(exact).all()), "design2 exact viewport finite")
+            ref = kernels[name]["point_eval"].plain(torch.full((1, 3), 0.5, device=dev), arrays[name])
+            check(abs(probe[0] - float(ref[0])) <= 1e-5,
+                  f"design2 k2 query {probe[0]:.6f} equals the plain SDF {float(ref[0]):.6f}")
+            check(np.isfinite(center).all() and 0 < half_box < scene.export_config.bounding_box_half_diameter,
+                  f"design2 bounding box centre {center.tolist()}, half {half_box:.4f}")
+            expect += ["renderer", "point_eval", "grid_eval"]
+        for kernel in expect:
+            check(counted.get(kernel, 0) > 0, f"{name} {kernel} launched {counted.get(kernel, 0)} times")
+            launches[(kernel, name)] = counted[kernel]
+
     phase("8. timing (CUDA events, after warm-up)")
-    ops = tape_ops(scene)
-    n_pts = pts.shape[0]
-    results["point_eval"].update(
-        ms=cuda_ms(lambda: point_eval(pts, arrays), 100),
-        device_ms=device_ms(lambda: point_eval(pts, arrays), "point_eval_kernel"),
-        plain_ms=cuda_ms(lambda: point_eval.plain(pts, arrays), 3),
-    )
-    results["point_eval"].update(zip(("bound_ms", "bound_by"), bound_ms(16 * n_pts, ops * n_pts)))
-    n_grid = 33 * 257 * 257
-    results["grid_eval"].update(
-        ms=cuda_ms(lambda: grid_eval(arrays, glo, gcell, gz0, 33, 257), 100),
-        device_ms=device_ms(lambda: grid_eval(arrays, glo, gcell, gz0, 33, 257), "grid_eval_kernel"),
-        plain_ms=cuda_ms(lambda: grid_eval.plain(arrays, glo, gcell, gz0, 33, 257), 3),
-    )
-    results["grid_eval"].update(zip(("bound_ms", "bound_by"), bound_ms(4 * n_grid, ops * n_grid)))
-    results["renderer"].update(
-        ms=cuda_ms(lambda: renderer(arrays, *cam), 20),
-        device_ms=device_ms(lambda: renderer(arrays, *cam), "render_kernel"),
-        plain_ms=cuda_ms(lambda: renderer.plain(arrays, *cam), 2),
-    )
-    # The renderer's work: the march steps this image takes, 6 normal evals
-    # per shaded pixel, each a tape + gizmo evaluation.
-    rows = torch.as_tensor(camera_rows(*cam), device=dev)
-    r_proj = project(ray_directions(config, dev), *rows[1:])
-    d, steps = make_march(scene, config)(rows[0], r_proj, arrays, return_steps=True)
-    evals = int(steps.sum()) + 6 * int((d > 0).sum())
-    n_px = config.width * config.height
-    results["renderer"].update(zip(("bound_ms", "bound_by"),
-                                   bound_ms(12 * n_px, evals * (ops + GIZMO_OPS))))
-    print(f"  tape {ops} FP32 ops/point; render {evals} tape evals "
-          f"({evals / n_px:.1f}/pixel); Mrays/s {n_px / results['renderer']['ms'] / 1e3:.2f}")
-    # The renderer ships built with -fmad=false; the same source with nvcc's
-    # default FMA contraction is timed beside it (alternating, A B A B) and
-    # its error against the plain version reported, not checked.
-    renderer_fma = make_cuda_renderer(scene, config, fmad=True)
-    err = (renderer_fma(arrays, *cam) - render_ref).abs()
+    frames = {}
+    for name, scene in scenes.items():
+        k, a, x = kernels[name], arrays[name], inputs[name]
+        ops = tape_ops(scene)
+        pts, n_pts = x["pts"], x["pts"].shape[0]
+        n_grid = 33 * 257 * 257
+        n_px = EXACT.width * EXACT.height
+        r = results
+        r[("point_eval", name)].update(
+            ms=cuda_ms(lambda: k["point_eval"](pts, a), 100),
+            device_ms=device_ms(lambda: k["point_eval"](pts, a), "point_eval_kernel"),
+            plain_ms=cuda_ms(lambda: k["point_eval"].plain(pts, a), 3),
+        )
+        r[("point_eval", name)].update(zip(("bound_ms", "bound_by"), bound_ms(16 * n_pts, ops * n_pts)))
+        grid = (a, glo, gcell, gz0, 33, 257)
+        r[("grid_eval", name)].update(
+            ms=cuda_ms(lambda: k["grid_eval"](*grid), 100),
+            device_ms=device_ms(lambda: k["grid_eval"](*grid), "grid_eval_kernel"),
+            plain_ms=cuda_ms(lambda: k["grid_eval"].plain(*grid), 3),
+        )
+        r[("grid_eval", name)].update(zip(("bound_ms", "bound_by"), bound_ms(4 * n_grid, ops * n_grid)))
+
+        # A renderer's work: the march steps this image takes (read from the
+        # plain version's step counts), 6 normal evaluations per shaded
+        # pixel, each a tape + gizmo evaluation; 12 B/pixel written (+4 B of
+        # t0 read).  The cone's: its steps, 16 B/ray.
+        rows = torch.as_tensor(camera_rows(*cam), device=dev)
+        r_proj = project(ray_directions(EXACT, dev), *rows[1:])
+        t0_plane = x["t0"]
+        for kernel, config, call, t0 in (
+            ("renderer", EXACT, lambda: k["renderer"](a, *cam), None),
+            ("renderer_overrelax", OVERRELAX, lambda: k["renderer_overrelax"](a, *cam), None),
+            ("renderer_t0", HIERARCHICAL, lambda: k["renderer_t0"](a, *cam, t0=t0_plane), t0_plane),
+        ):
+            plain = k[kernel].plain
+            r[(kernel, name)].update(
+                ms=cuda_ms(call, 20),
+                device_ms=device_ms(call, "render_kernel"),
+                plain_ms=cuda_ms(lambda: plain(a, *cam, t0=t0), 2),
+            )
+            d, steps = make_march(scene, config)(rows[0], r_proj, a, return_steps=True, t0=t0)
+            evals = int(steps.sum()) + 6 * int((d > 0).sum())
+            n_bytes = (12 + (4 if t0 is not None else 0)) * n_px
+            r[(kernel, name)].update(zip(("bound_ms", "bound_by"),
+                                         bound_ms(n_bytes, evals * (ops + GIZMO_OPS))))
+            print(f"  {name} {kernel}: {evals} tape evals ({evals / n_px:.1f}/pixel), "
+                  f"{n_px / r[(kernel, name)]['ms'] / 1e3:.2f} Mrays/s")
+        o_proj, rays = x["o_proj"], x["rays"]
+        cone = k["cone_march"]
+        r[("cone_march", name)].update(
+            ms=cuda_ms(lambda: cone(a, o_proj, rays), 50),
+            device_ms=device_ms(lambda: cone(a, o_proj, rays), "cone_march_kernel"),
+            plain_ms=cuda_ms(lambda: cone.plain(a, o_proj, rays), 2),
+        )
+        _, steps = cone.plain(a, o_proj, rays, return_steps=True)
+        n_rays = rays.numel() // 3
+        r[("cone_march", name)].update(zip(("bound_ms", "bound_by"), bound_ms(
+            16 * n_rays, int(steps.sum()) * (ops + GIZMO_OPS))))
+        print(f"  {name} cone_march: {int(steps.sum())} tape evals over {n_rays} rays "
+              f"({int(steps.sum()) / n_rays:.1f}/ray)")
+        hier = k["hierarchical"]
+        frame_ms = cuda_ms(lambda: hier(a, *cam), 20)
+        frames[name] = dict(
+            exact_ms=r[("renderer", name)]["ms"],
+            overrelax_ms=r[("renderer_overrelax", name)]["ms"],
+            hierarchical_frame_ms=frame_ms,
+            hierarchical_device_ms=(device_ms(lambda: hier(a, *cam), "render_kernel") or 0.0)
+            + (device_ms(lambda: hier(a, *cam), "cone_march_kernel") or 0.0),
+            hierarchical_plain_ms=cuda_ms(lambda: hier.plain(a, *cam), 2),
+        )
+        frames[name]["mrays_per_s"] = {
+            mode: n_px / frames[name][key] / 1e3
+            for mode, key in (("exact", "exact_ms"), ("overrelax", "overrelax_ms"),
+                              ("hierarchical", "hierarchical_frame_ms"))
+        }
+        print(f"  {name} frames: {json.dumps(frames[name])}")
+
+    # Design1's renderer ships built with -fmad=false; the same source with
+    # nvcc's default FMA contraction is timed beside it (alternating, A B A
+    # B) and its error against the plain version reported, not checked.
+    a = arrays["design1"]
+    renderer = kernels["design1"]["renderer"]
+    renderer_fma = make_cuda_renderer(scenes["design1"], EXACT, fmad=True)
+    err = (renderer_fma(a, *cam) - renderer.plain(a, *cam)).abs()
     ab = {"fmad_false": [], "fma": []}
     for _ in range(2):
         for key, fn in (("fmad_false", renderer), ("fma", renderer_fma)):
-            ab[key].append(device_ms(lambda: fn(arrays, *cam), "render_kernel", iters=20))
-    print(f"  renderer -fmad=false vs FMA contraction, device ms (A B A B): "
+            ab[key].append(device_ms(lambda: fn(a, *cam), "render_kernel", iters=20))
+    print(f"  design1 renderer -fmad=false vs FMA contraction, device ms (A B A B): "
           f"{json.dumps(ab)}; FMA build max|d| vs plain {float(err.max()):.3g}, "
           f"share of |d| > 1e-4 {float((err > 1e-4).float().mean()):.4%}")
 
-    kernels = [
-        dict(name=name, route="cuda", source=SOURCES[name][0], replaces=SOURCES[name][1],
-             launches=launches[name], library_ms=None, **results[name])
-        for name in SOURCES
+    line = [
+        dict(name=kernel, design=name, route="cuda", source=SOURCES[kernel][0],
+             replaces=SOURCES[kernel][1], launches=launches[(kernel, name)], library_ms=None,
+             **results[(kernel, name)])
+        for name in DESIGNS
+        for kernel in SOURCES
+        if (kernel, name) in launches
     ]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,255 @@
+"""Command-line interface of the PyTorch/CUDA port.
+
+Mirrors the JAX package's ``designcsg_tpu.cli`` for the commands the port
+has::
+
+    python -m designcsg_tpu_torch.cli render design1 -o out.png
+    python -m designcsg_tpu_torch.cli render design2 --fast
+    python -m designcsg_tpu_torch.cli render path/to/mydesign.py --orbit -0.785 0.785
+    python -m designcsg_tpu_torch.cli export design1 --stl out.stl --ply out.ply
+    python -m designcsg_tpu_torch.cli artifacts design1 -d build/   # reference IR
+
+Every command runs on the card; ``--device cpu`` takes the plain PyTorch
+path (the JAX CLI's ``--backend`` choice).  A design is a builtin name
+(design1 | design2) or the path of a Python design script that either defines
+``build() -> CompiledScene`` or calls the port's module-level API
+(``designcsg_tpu_torch.api``: ``new_design() ... commit()``) when imported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import importlib.util
+import os
+import struct
+import sys
+import time
+import zlib
+
+import numpy as np
+
+BUILTIN = ("design1", "design2", "logo")
+
+# Commands of the JAX CLI not ported yet, with the ROADMAP.md item that
+# brings each.
+UNPORTED = {
+    "watch": "queue 1, item 11 (shells)",
+    "fit": "queue 1, item 9 (differentiable path, K4)",
+    "preview": "queue 1, item 8 (export/preview.py)",
+    "bench": "queue 1, item 11 (no benchmark of the port yet)",
+    "studio": "queue 1, item 11 (shells)",
+}
+
+
+def load_design(spec: str):
+    """Resolve a design spec (builtin name or script path) to a CompiledScene."""
+    from . import api
+    from .designs import get_design
+
+    if spec.lower() in BUILTIN:
+        return get_design(spec)
+    if not os.path.exists(spec):
+        raise FileNotFoundError(f"design {spec!r}: not a builtin name or a file")
+    module_name = os.path.splitext(os.path.basename(spec))[0]
+    sys.path.insert(0, os.path.dirname(os.path.abspath(spec)) or ".")
+    spec_obj = importlib.util.spec_from_file_location(module_name, spec)
+    module = importlib.util.module_from_spec(spec_obj)
+    api.new_design()
+    spec_obj.loader.exec_module(module)
+    if hasattr(module, "build"):
+        return module.build()
+    # Script-style design: it drew into the current compiler (committing
+    # again is idempotent: the tree is intact).
+    return api.commit()
+
+
+def _camera(args):
+    from .camera import Camera
+
+    cam = Camera.initial(apply_default_orbit=not getattr(args, "no_default_orbit", False))
+    if getattr(args, "orbit", None):
+        cam.orbit(args.orbit[0], args.orbit[1])
+    if getattr(args, "zoom", 0.0):
+        cam.zoom(args.zoom)
+    return cam
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """Write u8[H, W, 3] (or u8[H, W]) as an 8-bit PNG with the standard
+    library's zlib: one IHDR, one IDAT of unfiltered rows, IEND."""
+    rgb = np.ascontiguousarray(rgb, np.uint8)
+    height, width = rgb.shape[:2]
+    color = 2 if rgb.ndim == 3 else 0
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + kind + data + struct.pack(
+            ">I", zlib.crc32(kind + data) & 0xFFFFFFFF
+        )
+
+    rows = np.concatenate([np.zeros((height, 1), np.uint8), rgb.reshape(height, -1)], axis=1)
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, color, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        f.write(chunk(b"IEND", b""))
+
+
+def read_png(path: str) -> np.ndarray:
+    """Read back an 8-bit RGB or grey PNG with unfiltered rows, as
+    :func:`write_png` writes it."""
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path} is not a PNG file")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos : pos + 4])
+        kind, body = data[pos + 4 : pos + 8], data[pos + 8 : pos + 8 + length]
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + length
+    width, height, depth, color = header[:4]
+    channels = {0: 1, 2: 3}[color]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(height, 1 + width * channels)
+    if depth != 8 or rows[:, 0].any():
+        raise ValueError(f"{path}: only 8-bit PNGs with unfiltered rows are read")
+    img = rows[:, 1:].reshape(height, width, channels)
+    return img if channels == 3 else img[..., 0]
+
+
+def fast_config(config):
+    """``render --fast``: over-relaxed stepping at omega = 1.6, plus the
+    hierarchical cone prepass when the viewport divides by its factor (both
+    hit-preserving; cli.py:70-85 of the JAX package)."""
+    config = dataclasses.replace(config, march_overrelax=1.6)
+    f = config.hierarchical_factor
+    if config.width % f == 0 and config.height % f == 0:
+        config = dataclasses.replace(config, march_hierarchical=True)
+    return config
+
+
+def cmd_render(args):
+    from .config import RenderConfig
+    from .ops.raymarch import render_scene, to_u8
+
+    scene = load_design(args.design)
+    config = RenderConfig(width=args.width, height=args.height, gizmo=not args.no_gizmo)
+    if args.fast:
+        config = fast_config(config)
+    cam = _camera(args)
+    t0 = time.time()
+    img = render_scene(scene, camera=cam, config=config, device=args.device)
+    u8 = to_u8(img).cpu().numpy()
+    print(f"rendered {config.width}x{config.height} in {time.time() - t0:.2f}s")
+    write_png(args.output, u8)
+    print(f"wrote {args.output}")
+
+
+def cmd_export(args):
+    from .compiler import ExportConfig
+    from .evaluator import BatchEvaluator
+    from .export.pipeline import export_mesh
+
+    scene = load_design(args.design)
+    config = scene.export_config
+    if args.grid_level is not None:
+        config = dataclasses.replace(config or ExportConfig(), grid_level=args.grid_level)
+    stl = args.stl or (os.path.splitext(args.design)[0].replace("/", "_") + ".stl")
+    t0 = time.time()
+    mesh, report = export_mesh(
+        scene,
+        config,
+        stl_path=stl,
+        ply_path=args.ply,
+        evaluator=BatchEvaluator(scene, device=args.device),
+        resume_dir=args.resume_dir,
+        strategy=args.strategy,
+    )
+    print(
+        f"exported {report.num_triangles} triangles ({report.num_vertices} vertices) in "
+        f"{time.time() - t0:.1f}s (sdf field: {report.stats.get('sdf_field', 'tape-exact')})"
+    )
+    for stage, secs in report.stage_seconds.items():
+        print(f"  {stage:<14s} {secs:7.2f}s")
+    print(f"wrote {stl}" + (f" and {args.ply}" if args.ply else ""))
+
+
+def cmd_artifacts(args):
+    from . import api
+    from .designs import design_module
+
+    # Build through the compiler so that its artifacts can be written.
+    if args.design.lower() in BUILTIN:
+        c = api.new_design()
+        design_module(args.design).build(compiler=c)
+    else:
+        load_design(args.design)
+        c = api.current()
+    os.makedirs(args.directory, exist_ok=True)
+    c.write_artifacts(args.directory)
+    print(f"wrote scene.txt / buildprocedure.txt / arbitrary_data.hex to {args.directory}")
+
+
+def _unported(name):
+    def cmd(args):
+        raise SystemExit(
+            f"designcsg_tpu_torch: '{name}' is not ported yet (ROADMAP.md {UNPORTED[name]})"
+        )
+
+    return cmd
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(prog="designcsg_tpu_torch")
+    sub = parser.add_subparsers(dest="command", required=True)
+
+    def device_arg(p):
+        p.add_argument(
+            "--device", choices=["cuda", "cpu"], default="cuda",
+            help="cuda: the CUDA kernels (default); cpu: the plain PyTorch path",
+        )
+
+    p = sub.add_parser("render", help="sphere-trace a design to a PNG")
+    p.add_argument("design")
+    p.add_argument("-o", "--output", default="render.png")
+    p.add_argument("--width", type=int, default=640)
+    p.add_argument("--height", type=int, default=480)
+    p.add_argument("--orbit", type=float, nargs=2, metavar=("DA", "DB"))
+    p.add_argument("--zoom", type=float, default=0.0)
+    p.add_argument("--no-gizmo", action="store_true")
+    p.add_argument("--no-default-orbit", action="store_true")
+    p.add_argument("--fast", action="store_true",
+                   help="over-relaxed + hierarchical cone-prepass march")
+    device_arg(p)
+    p.set_defaults(fn=cmd_render)
+
+    p = sub.add_parser("export", help="mesh-export a design (STL/PLY)")
+    p.add_argument("design")
+    p.add_argument("--stl")
+    p.add_argument("--ply")
+    p.add_argument("--grid-level", type=int)
+    p.add_argument("--resume-dir")
+    p.add_argument("--strategy", choices=["dense"], default="dense",
+                   help="dense is the port's one export strategy (active, compact and "
+                   "adaptive: ROADMAP.md queue 1, item 8)")
+    device_arg(p)
+    p.set_defaults(fn=cmd_export)
+
+    p = sub.add_parser("artifacts", help="emit reference-format IR files")
+    p.add_argument("design")
+    p.add_argument("-d", "--directory", default=".")
+    p.set_defaults(fn=cmd_artifacts)
+
+    for name in UNPORTED:
+        p = sub.add_parser(name, help=f"not ported yet (ROADMAP.md {UNPORTED[name]})")
+        p.add_argument("rest", nargs=argparse.REMAINDER)
+        p.set_defaults(fn=_unported(name))
+
+    args = parser.parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

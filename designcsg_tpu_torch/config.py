@@ -51,10 +51,6 @@ class RenderConfig:
 
     def __post_init__(self):
         unported = [
-            (self.march_overrelax > 1.0, "march_overrelax > 1",
-             "queue 2, K2 over-relaxed mode"),
-            (self.march_hierarchical, "march_hierarchical",
-             "queue 2, K5 cone prepass"),
             (bool(self.march_cull), "march_cull", "queue 2, K7 interval culler"),
             (self.differentiable, "differentiable", "queue 1, item 9"),
             (self.soft_silhouette_bandwidth > 0, "soft_silhouette_bandwidth > 0",

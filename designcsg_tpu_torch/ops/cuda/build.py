@@ -19,7 +19,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -30,14 +30,14 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Flags for one kernel only.  The renderer rounds every product and sum on
-# its own (no FMA contraction), as its plain version does: a sphere trace is
-# chaotic at creases, where one ulp decides the step a ray stops at, and with
-# contraction a 640x480 Design1 frame had a pixel 1.16e-3 off its plain
-# version on an H100 (PERF.md).  The point and grid kernels keep contraction,
-# and so does ``march_fma``, the same renderer source built with contraction
-# so that chip_smoke.py can time both.
-EXTRA_FLAGS = {"march": ("-fmad=false",)}
+# Flags for some kernels only.  The renderer and the cone prepass round every
+# product and sum on their own (no FMA contraction), as their plain versions
+# do: a sphere trace is chaotic at creases, where one ulp decides the step a
+# ray stops at, and with contraction a 640x480 Design1 frame had a pixel
+# 1.16e-3 off its plain version on an H100 (PERF.md).  The point and grid
+# kernels keep contraction, and so does ``march_fma``, the same renderer
+# source built with contraction so that chip_smoke.py can time both.
+EXTRA_FLAGS = {"march": ("-fmad=false",), "cone": ("-fmad=false",)}
 
 LAUNCHES: collections.Counter = collections.Counter()
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -63,36 +63,37 @@ def _stem(name: str, source: str) -> Path:
     return BUILD_DIR / f"{name}_{hashlib.sha256(key.encode()).hexdigest()[:16]}"
 
 
-def build(sources: Dict[str, str]) -> Dict[str, str]:
-    """Compile each ``name -> source`` not yet on disk, all at once; returns
-    ``name -> nvcc output`` (the ``-Xptxas -v`` register/spill report).
-    Raises with the compiler's output if one fails."""
+def build(units: Dict[str, Tuple[str, str]]) -> Dict[str, str]:
+    """Compile each ``label -> (name, source)`` not yet on disk, all at once
+    (``name`` picks the library's flags, ``EXTRA_FLAGS``); returns ``label ->
+    nvcc output`` (the ``-Xptxas -v`` register/spill report).  Raises with
+    the compiler's output if one fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = {}
-    for name, source in sources.items():
+    for label, (name, source) in units.items():
         stem = _stem(name, source)
-        if stem.with_suffix(".so").exists():
+        if stem.with_suffix(".so").exists() or stem in running:
             continue
         cu = stem.with_suffix(".cu")
         cu.write_text(source)
         tmp = f"{stem}.{os.getpid()}.so.tmp"
         cmd = [nvcc(), *_flags(name), "-o", tmp, str(cu)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, tmp, stem)
+        running[stem] = (label, proc, tmp)
     failures = []
-    for name, (proc, tmp, stem) in running.items():
+    for stem, (label, proc, tmp) in running.items():
         out, _ = proc.communicate()
         stem.with_suffix(".log").write_text(out)
         if proc.returncode != 0:
-            failures.append(f"nvcc failed for {name} ({stem}.cu):\n{out}")
+            failures.append(f"nvcc failed for {label} ({stem}.cu):\n{out}")
         else:
             os.replace(tmp, stem.with_suffix(".so"))
     if failures:
         raise RuntimeError("\n".join(failures))
     logs = {}
-    for name, source in sources.items():
+    for label, (name, source) in units.items():
         log = _stem(name, source).with_suffix(".log")
-        logs[name] = log.read_text() if log.exists() else ""
+        logs[label] = log.read_text() if log.exists() else ""
     return logs
 
 
@@ -100,7 +101,7 @@ def load(name: str, source: str) -> ctypes.CDLL:
     """The built library of ``source`` (building it first if needed)."""
     so = str(_stem(name, source).with_suffix(".so"))
     if so not in _LOADED:
-        build({name: source})
+        build({name: (name, source)})
         _LOADED[so] = ctypes.CDLL(so)
     return _LOADED[so]
 

@@ -1,10 +1,18 @@
-"""Fused k1 viewport renderer: CUDA kernel and its plain version.
+"""Fused k1 viewport renderer and cone prepass: CUDA kernels and their plain
+versions.
 
-Counterpart of the JAX package's ops/pallas/march_kernel.py
-``make_pallas_renderer`` (exact march; no ``t0`` input, no cull).  Kernel
-source: csrc/march_kernel.cu + csrc/march.cuh plus the scene code generated
-by ops/cuda/tape.py.  The plain version is ops/raymarch.py's
-:func:`make_renderer`.
+Counterparts of the JAX package's ops/pallas/march_kernel.py
+``make_pallas_renderer`` (exact and over-relaxed march, optional ``t0``
+input; no cull), ``make_pallas_cone_march`` and
+``make_hierarchical_renderer``.  Kernel sources: csrc/march_kernel.cu,
+csrc/cone_kernel.cu and csrc/march.cuh plus the scene code generated by
+ops/cuda/tape.py.  The plain versions are ops/raymarch.py's
+:func:`make_renderer`, :func:`make_cone_march` and
+:func:`make_hierarchical_renderer`.
+
+Launch counts: ``renderer`` (exact march from the camera),
+``renderer_overrelax`` (over-relaxed, from the camera), ``renderer_t0``
+(from a start plane, either march) and ``cone_march``.
 """
 
 from __future__ import annotations
@@ -17,43 +25,110 @@ import torch
 
 from ...compiler import CompiledScene, SceneArrays
 from ...config import RenderConfig
-from ..raymarch import camera_rows, make_renderer
-from .build import bank_pointers, check_launch, load, on_cuda, ptr, stream_handle
-from .tape import march_kernel_source
+from ..raymarch import (
+    camera_rows,
+    compose_hierarchical,
+    make_cone_march,
+    make_hierarchical_renderer,
+    make_renderer,
+)
+from .build import bank_pointers, check_launch, load, on_cuda, ptr, require_cuda_f32, stream_handle
+from .tape import cone_kernel_source, march_kernel_source
 
 _P = ctypes.c_void_p
+_F = ctypes.c_float
 
 
 def make_cuda_renderer(
     scene: CompiledScene, config: Optional[RenderConfig] = None, fmad: bool = False
 ):
-    """``render(arrays, campos, rgt, upp, fwd) -> f32[H, W, 3]`` on the device
-    of ``arrays``: the fused kernel on a CUDA device, the plain renderer on
-    the CPU.  ``render.plain`` is the plain version.  ``fmad=True`` takes a
-    build of the kernel with nvcc's default FMA contraction (library
+    """``render(arrays, campos, rgt, upp, fwd, t0=None) -> f32[H, W, 3]`` on
+    the device of ``arrays``: the fused kernel on a CUDA device, the plain
+    renderer on the CPU.  The march is exact, or over-relaxed when
+    ``config.march_overrelax > 1``; ``t0`` f32[H, W] starts each pixel's
+    march there.  ``render.plain`` is the plain version.  ``fmad=True`` takes
+    a build of the kernel with nvcc's default FMA contraction (library
     ``march_fma``) instead of the ``-fmad=false`` one; chip_smoke.py times
     both."""
     config = config or RenderConfig()
     plain = make_renderer(scene, config)
+    mode = "renderer_overrelax" if config.march_overrelax > 1.0 else "renderer"
     libs = {}
 
-    def render(arrays: SceneArrays, campos, rgt, upp, fwd) -> torch.Tensor:
+    def render(arrays: SceneArrays, campos, rgt, upp, fwd, t0=None) -> torch.Tensor:
         if not on_cuda(arrays.ad):
-            return plain(arrays, campos, rgt, upp, fwd)
+            return plain(arrays, campos, rgt, upp, fwd, t0=t0)
         device = arrays.ad.device
+        if t0 is not None:
+            require_cuda_f32("t0", t0, device)
+            if tuple(t0.shape) != (config.height, config.width):
+                raise ValueError(f"t0 must be [{config.height}, {config.width}], got {tuple(t0.shape)}")
         if "lib" not in libs:
             lib = load("march_fma" if fmad else "march", march_kernel_source(scene, config))
-            lib.launch_render.argtypes = [_P, ctypes.c_int, ctypes.c_int] + [_P] * 7
+            lib.launch_render.argtypes = [_P, ctypes.c_int, ctypes.c_int] + [_P] * 8
             lib.launch_render.restype = ctypes.c_int
             libs["lib"] = lib
         cam = np.ascontiguousarray(camera_rows(campos, rgt, upp, fwd), np.float32)
         out = torch.empty((config.height, config.width, 3), dtype=torch.float32, device=device)
         rc = libs["lib"].launch_render(
             ptr(out), config.height, config.width, _P(cam.ctypes.data),
-            *bank_pointers(arrays, device), stream_handle(device),
+            *bank_pointers(arrays, device), None if t0 is None else ptr(t0),
+            stream_handle(device),
         )
-        check_launch("renderer", rc)
+        check_launch(mode if t0 is None else "renderer_t0", rc)
         return out
 
     render.plain = plain
+    return render
+
+
+def make_cuda_cone_march(scene: CompiledScene, config: Optional[RenderConfig] = None):
+    """``cone_march(arrays, o_proj f32[3], rays f32[..., 3]) -> t_safe
+    f32[...]`` on the device of ``arrays``, with the slope of
+    :func:`~designcsg_tpu_torch.ops.raymarch.cone_slope` and
+    ``config.cone_strict``.  ``cone_march.plain`` is the plain version."""
+    config = config or RenderConfig()
+    plain = make_cone_march(scene, config)
+    libs = {}
+
+    def cone_march(arrays: SceneArrays, o_proj, rays: torch.Tensor) -> torch.Tensor:
+        if not on_cuda(arrays.ad):
+            return plain(arrays, o_proj, rays)
+        device = arrays.ad.device
+        require_cuda_f32("rays", rays, device)
+        if rays.shape[-1] != 3:
+            raise ValueError(f"rays must be [..., 3], got {tuple(rays.shape)}")
+        if "lib" not in libs:
+            lib = load("cone", cone_kernel_source(scene, config))
+            lib.launch_cone_march.argtypes = [_P, ctypes.c_longlong, _P, _F, _F, _F] + [_P] * 6
+            lib.launch_cone_march.restype = ctypes.c_int
+            libs["lib"] = lib
+        if isinstance(o_proj, torch.Tensor):
+            o_proj = o_proj.cpu()
+        ox, oy, oz = (float(v) for v in np.asarray(o_proj, np.float32).reshape(3))
+        out = torch.empty(rays.shape[:-1], dtype=torch.float32, device=device)
+        rc = libs["lib"].launch_cone_march(
+            ptr(out), out.numel(), ptr(rays), ox, oy, oz,
+            *bank_pointers(arrays, device), stream_handle(device),
+        )
+        check_launch("cone_march", rc)
+        return out
+
+    cone_march.plain = plain
+    return cone_march
+
+
+def make_cuda_hierarchical_renderer(scene: CompiledScene, config: Optional[RenderConfig] = None):
+    """``render(arrays, campos, rgt, upp, fwd) -> f32[H, W, 3]``: the cone
+    kernel on the block-centre rays, then the fused renderer from the
+    resulting ``t0`` plane: two launches per frame on a CUDA device, the
+    plain hierarchical renderer on the CPU.  ``render.plain`` is the plain
+    version."""
+    config = config or RenderConfig()
+    # On the CPU both wrappers take their plain versions, so this composition
+    # is then the plain hierarchical renderer.
+    render = compose_hierarchical(
+        config, make_cuda_cone_march(scene, config), make_cuda_renderer(scene, config)
+    )
+    render.plain = make_hierarchical_renderer(scene, config)
     return render

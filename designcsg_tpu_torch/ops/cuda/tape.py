@@ -18,6 +18,7 @@ import numpy as np
 from ...compiler import CompiledScene
 from ...config import RenderConfig
 from ...constants import OP_EXPORT, OP_IDENTITY, OP_IMPORT, OP_MAX, OP_MIN, OP_NEGATE
+from ..raymarch import cone_slope
 from .brushes_kernel import brush_functions, material_functions, used_brushes, used_materials
 from .build import csrc
 
@@ -141,8 +142,11 @@ def _march_constants(config: RenderConfig) -> str:
         MISS_G=config.miss_color[1],
         MISS_B=config.miss_color[2],
     )
-    return f"constexpr int MAX_STEPS = {int(config.max_steps)};\n" + "".join(
-        f"constexpr float {k} = {f32_literal(v)};\n" for k, v in floats.items()
+    floats.update(OMEGA=config.march_overrelax, CONE_SLOPE=cone_slope(config))
+    return (
+        f"constexpr int MAX_STEPS = {int(config.max_steps)};\n"
+        f"constexpr bool CONE_STRICT = {'true' if config.cone_strict else 'false'};\n"
+        + "".join(f"constexpr float {k} = {f32_literal(v)};\n" for k, v in floats.items())
     )
 
 
@@ -150,7 +154,7 @@ def scene_source(scene: CompiledScene, render_config: Optional[RenderConfig] = N
     """The generated scene code: constants, common.cuh, brush functions and the
     unrolled tape (the k2 field, no gizmo).  With ``render_config``: the k1
     field (with the gizmo iff the config says so), the material and shading
-    functions and march.cuh's ``render_pixel``."""
+    functions and march.cuh's ``render_pixel`` and ``cone_ray``."""
     parts = [
         "// Generated from the scene tape by designcsg_tpu_torch/ops/cuda/tape.py.\n"
         f"constexpr int N_OBJ = {scene.num_objects};\n"
@@ -172,5 +176,11 @@ def sdf_kernel_source(scene: CompiledScene) -> str:
 
 
 def march_kernel_source(scene: CompiledScene, config: RenderConfig) -> str:
-    """Translation unit of the fused renderer kernel."""
+    """Translation unit of the fused renderer kernel (march mode and cone
+    constants from ``config``)."""
     return scene_source(scene, render_config=config) + "\n" + csrc("march_kernel.cu")
+
+
+def cone_kernel_source(scene: CompiledScene, config: RenderConfig) -> str:
+    """Translation unit of the cone prepass kernel."""
+    return scene_source(scene, render_config=config) + "\n" + csrc("cone_kernel.cu")

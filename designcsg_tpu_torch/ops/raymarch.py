@@ -1,17 +1,21 @@
 """Sphere-traced viewport renderer (kernel k1 semantics), forward only.
 
 Reference: k1.cl:280-580.  :func:`make_renderer` is the plain PyTorch
-renderer: the whole pixel grid marches in lockstep as a masked loop that ends
-when every ray has hit or missed, shading scans the object bank with
-last-match material attribution, and the gizmo/background rules match the
-viewport kernel.  It is the plain version of the fused CUDA renderer
-(ops/cuda/march_kernel.py), which :func:`render_scene` takes on the card.
+renderer: every pixel marches in one loop that evaluates the SDF at the rays
+still marching and ends when each has hit or missed, shading scans the
+object bank with last-match material attribution, and the gizmo/background
+rules match the viewport kernel.  The march is exact or over-relaxed and may
+start from a per-pixel ``t0`` plane; :func:`make_cone_march` and
+:func:`make_hierarchical_renderer` are the cone prepass and the two-pass
+fast viewport built on it.  These are the plain versions of the CUDA kernels
+of ops/cuda/march_kernel.py, which :func:`render_scene` takes on the card.
 
 Replicated quirks:
   * ray directions are *not* normalized (the march steps along ``uv,IFOV``
     projected onto the camera frame, k1.cl:444-448);
   * a hit at march step 0 returns d == 0.0, which renders the miss color
-    (``if (d > 0.0)``, k1.cl:552);
+    (``if (d > 0.0)``, k1.cl:552); a ray that stops at its ``t0 > 0`` is
+    shaded (the JAX package's hierarchical renderer);
   * material attribution is the *last* object in bank order within
     2*SDF_EPSILON (k1.cl:319-322);
   * pixel bytes are ``clip(trunc(255*c))`` (C float->int cast truncates).
@@ -19,6 +23,7 @@ Replicated quirks:
 
 from __future__ import annotations
 
+import logging
 from typing import Optional
 
 import numpy as np
@@ -29,7 +34,7 @@ from ..brushes import EvalContext
 from ..camera import Camera
 from ..compiler import CompiledScene, SceneArrays
 from ..config import RenderConfig
-from ..constants import AXES_SHADE_RADIUS, INITIAL_SCALE
+from ..constants import AXES_SHADE_RADIUS, INITIAL_SCALE, MAX_DISTANCE
 from .interpreter import (
     axes_cylinder_sdf,
     dot3,
@@ -37,6 +42,8 @@ from .interpreter import (
     make_normal_fn,
     make_primary_sdf,
 )
+
+logger = logging.getLogger("designcsg_tpu_torch")
 
 
 def ray_directions(config: RenderConfig, device=None):
@@ -68,38 +75,129 @@ def camera_rows(campos, rgt, upp, fwd) -> np.ndarray:
 
 
 def make_march(scene: CompiledScene, config: RenderConfig):
-    """``march(origins, dirs, arrays, return_steps=False) -> d``: signed hit
-    distance along the (unnormalized) ray, -1 on a miss (k1.cl:420-470).
-    With ``return_steps`` also the number of SDF evaluations of each ray."""
+    """``march(origins, dirs, arrays, return_steps=False, t0=None) -> d``:
+    signed hit distance along the (unnormalized) ray, -1 on a miss
+    (k1.cl:420-470).  With ``return_steps`` also the number of SDF
+    evaluations of each ray.
+
+    ``t0`` (one start parameter per ray, the cone prepass's handoff) starts
+    each ray at ``o + t0*r`` with ``d = t0``, and a ray with ``t0 > max_d``
+    is a miss before its first step (march_kernel.py:447-460 of the JAX
+    package).  With ``config.march_overrelax > 1`` the march is over-relaxed
+    (Keinert et al. 2014): it steps by ``omega*s`` and, when consecutive
+    bounding spheres stop overlapping (``|s| + prev_|s| < last_step``),
+    retracts the last step and drops that ray to plain sphere tracing
+    (raymarch.py:252-336 and march_kernel.py:565-632 of the JAX package)."""
     sdf = make_primary_sdf(scene, gizmo=config.gizmo)
     eps = config.sdf_epsilon
     tol = config.march_tolerance
     max_d = config.max_distance
+    omega = float(config.march_overrelax)
+    if omega > 1.0:
+        warn_if_not_lipschitz(scene, "over-relaxed march")
 
-    def march(origins, dirs, arrays: SceneArrays, return_steps: bool = False):
+    def march(origins, dirs, arrays: SceneArrays, return_steps: bool = False, t0=None):
         batch = dirs.shape[:-1]
-        v = torch.broadcast_to(origins, dirs.shape).to(dirs.dtype)
-        d = torch.zeros(batch, dtype=dirs.dtype, device=dirs.device)
-        hit = torch.zeros(batch, dtype=torch.bool, device=dirs.device)
-        miss = torch.zeros_like(hit)
-        steps = torch.zeros(batch, dtype=torch.int32, device=dirs.device)
+        r = dirs.reshape(-1, 3)
+        v = torch.broadcast_to(origins, r.shape).to(r.dtype).clone()
+        d = torch.zeros(r.shape[0], dtype=r.dtype, device=r.device)
+        if t0 is not None:
+            # A copy: the march updates d in place.
+            d = torch.broadcast_to(torch.as_tensor(t0, device=r.device), batch).to(r.dtype).flatten().clone()
+            v = v + d[:, None] * r
+        hit = torch.zeros(d.shape, dtype=torch.bool, device=r.device)
+        steps = torch.zeros(d.shape, dtype=torch.int32, device=r.device)
+        prev_r = torch.zeros_like(d)
+        step_len = torch.zeros_like(d)
+        omg = torch.full_like(d, omega)
+        # The rays still marching; each step evaluates the SDF at these only.
+        live = torch.nonzero(~(d > max_d)).squeeze(1)
         for _ in range(config.max_steps):
-            active = ~(hit | miss)
-            if not bool(active.any()):
+            if live.numel() == 0:
                 break
-            steps += active.to(torch.int32)
-            s = sdf(v, arrays) * tol
-            new_hit = active & (s < eps)
-            advance = active & ~new_hit
-            v = torch.where(advance[..., None], v + s[..., None] * dirs, v)
-            d = torch.where(advance, d + s, d)
-            miss = miss | (advance & (d > max_d))
-            hit = hit | new_hit
-        # Rays still active after max_steps are misses (k1.cl:469).
-        d_out = torch.where(hit, d, torch.full_like(d, -1.0))
-        return (d_out, steps) if return_steps else d_out
+            steps[live] += 1
+            s = sdf(v[live], arrays) * tol
+            if omega > 1.0:
+                sl, om = step_len[live], omg[live]
+                sor_ok = ~((om > 1.0) & (torch.abs(s) + prev_r[live] < sl))
+                new_hit = sor_ok & (s < eps)
+                sl = torch.where(sor_ok, om * s, sl * (1.0 - om))
+                omg[live] = torch.where(sor_ok, om, torch.ones_like(om))
+                step_len[live] = sl
+                prev_r[live] = torch.abs(s)
+                step = sl
+            else:
+                new_hit = s < eps
+                step = s
+            hit[live[new_hit]] = True
+            adv, step = live[~new_hit], step[~new_hit]
+            v[adv] = v[adv] + step[:, None] * r[adv]
+            d_adv = d[adv] + step
+            d[adv] = d_adv
+            live = adv[~(d_adv > max_d)]
+        # Rays still marching after max_steps are misses (k1.cl:469).
+        d_out = torch.where(hit, d, torch.full_like(d, -1.0)).reshape(batch)
+        return (d_out, steps.reshape(batch)) if return_steps else d_out
 
     return march
+
+
+def cone_slope(config: RenderConfig) -> float:
+    """The cone prepass's slope: ``cone_safety`` times the largest uv
+    distance of a fine ray from its FxF block's centre ray,
+    ``((F-1)/2)*sqrt(2) / (W/2)`` (march_kernel.py:809-818 of the JAX
+    package)."""
+    half = (config.hierarchical_factor - 1) / 2.0
+    return config.cone_safety * (half * float(np.sqrt(2.0)) / (config.width / 2.0))
+
+
+def make_cone_march(scene: CompiledScene, config: RenderConfig):
+    """Cone prepass (the semantics of K5, march_kernel.py:209-294 of the JAX
+    package): ``cone_march(arrays, o_proj f32[3], rays f32[..., 3],
+    return_steps=False) -> t_safe f32[...]``.
+
+    Each ray marches with the cone-inflated stop test
+    ``s < eps + d*slope`` on ``s = sdf*tol`` (``slope`` from
+    :func:`cone_slope`) and returns the parameter of the last point it
+    stepped past (committed just before stepping past it), so every fine ray
+    its cone covers is epsilon-clear up to ``t_safe``.  A ray that leaves the
+    scene (``d > max_d``) returns that ``d`` unless ``config.cone_strict``;
+    one that runs out of steps returns its last committed point."""
+    sdf = make_primary_sdf(scene, gizmo=config.gizmo)
+    eps = config.sdf_epsilon
+    tol = config.march_tolerance
+    max_d = config.max_distance
+    slope = cone_slope(config)
+    strict = config.cone_strict
+
+    def cone_march(arrays: SceneArrays, o_proj, rays, return_steps: bool = False):
+        batch = rays.shape[:-1]
+        r = rays.reshape(-1, 3)
+        v = torch.broadcast_to(torch.as_tensor(o_proj, device=r.device), r.shape).to(r.dtype).clone()
+        d = torch.zeros(r.shape[0], dtype=r.dtype, device=r.device)
+        tprev = torch.zeros_like(d)
+        steps = torch.zeros(d.shape, dtype=torch.int32, device=r.device)
+        live = torch.arange(d.shape[0], device=r.device)
+        for _ in range(config.max_steps):
+            if live.numel() == 0:
+                break
+            steps[live] += 1
+            s = sdf(v[live], arrays) * tol
+            go = ~(s < eps + d[live] * slope)
+            adv, s = live[go], s[go]
+            # Commit the point just before stepping past it.
+            tprev[adv] = d[adv]
+            v[adv] = v[adv] + s[:, None] * r[adv]
+            d_adv = d[adv] + s
+            d[adv] = d_adv
+            out = d_adv > max_d
+            if not strict:
+                tprev[adv[out]] = d_adv[out]
+            live = adv[~out]
+        tprev = tprev.reshape(batch)
+        return (tprev, steps.reshape(batch)) if return_steps else tprev
+
+    return cone_march
 
 
 def make_shade(scene: CompiledScene, config: RenderConfig):
@@ -148,9 +246,10 @@ def make_shade(scene: CompiledScene, config: RenderConfig):
 
 
 def make_renderer(scene: CompiledScene, config: Optional[RenderConfig] = None):
-    """``render(arrays, campos, rgt, upp, fwd) -> f32[H, W, 3]`` linear RGB on
-    the device of ``arrays``; wrap with :func:`to_u8` for the reference's byte
-    pixels."""
+    """``render(arrays, campos, rgt, upp, fwd, t0=None) -> f32[H, W, 3]``
+    linear RGB on the device of ``arrays``; wrap with :func:`to_u8` for the
+    reference's byte pixels.  ``t0`` f32[H, W] is a per-pixel start parameter
+    (see :func:`make_march`); a ray that stops at its ``t0 > 0`` is shaded."""
     config = config or RenderConfig()
     march = make_march(scene, config)
     normal_fn = make_normal_fn(
@@ -158,11 +257,11 @@ def make_renderer(scene: CompiledScene, config: Optional[RenderConfig] = None):
     )
     shade = make_shade(scene, config)
 
-    def render(arrays: SceneArrays, campos, rgt, upp, fwd):
+    def render(arrays: SceneArrays, campos, rgt, upp, fwd, t0=None):
         device = arrays.ad.device
         o_proj, rgt, upp, fwd = torch.as_tensor(camera_rows(campos, rgt, upp, fwd), device=device)
         r_proj = project(ray_directions(config, device), rgt, upp, fwd)
-        d = march(o_proj, r_proj, arrays)
+        d = march(o_proj, r_proj, arrays, t0=t0)
         p = o_proj + d[..., None] * r_proj
         ctx = EvalContext(ad=arrays.ad, rgt=rgt, upp=upp, fwd=fwd)
         color = shade(p, normal_fn(p, arrays), arrays, ctx)
@@ -170,6 +269,65 @@ def make_renderer(scene: CompiledScene, config: Optional[RenderConfig] = None):
         return torch.where((d > 0.0)[..., None], color, miss_color)
 
     return render
+
+
+def coarse_ray_uv(config: RenderConfig) -> np.ndarray:
+    """f32[H/F, W/F, 3]: ``(uv.x, uv.y, IFOV)`` of the ray through the centre
+    pixel of each FxF block, made on the host in float64 and rounded once, as
+    the JAX package makes them (march_kernel.py:824-837).  Asserts an odd F
+    (a centre pixel exists) that divides the viewport."""
+    f = config.hierarchical_factor
+    assert f % 2 == 1, "hierarchical_factor must be odd (centre ray exists)"
+    assert config.width % f == 0 and config.height % f == 0, (
+        f"viewport {config.width}x{config.height} must divide by hierarchical_factor {f}"
+    )
+    w2, h2, half = config.width / 2.0, config.height / 2.0, (f - 1) / 2.0
+    hc, wc = config.height // f, config.width // f
+    uvx = (np.arange(wc) * f + half - w2) / w2
+    uvy = -(np.arange(hc) * f + half - h2) / w2
+    return np.stack(
+        [
+            np.broadcast_to(uvx[None, :], (hc, wc)),
+            np.broadcast_to(uvy[:, None], (hc, wc)),
+            np.full((hc, wc), config.ifov),
+        ],
+        axis=-1,
+    ).astype(np.float32)
+
+
+def compose_hierarchical(config: RenderConfig, cone, fine):
+    """Two-pass render (march_kernel.py:782-860 of the JAX package): ``cone``
+    (``(arrays, o_proj, rays) -> t_safe``) marches the block-centre rays,
+    each block's ``t_safe`` is repeated over its FxF pixels, and ``fine``
+    (``(arrays, campos, rgt, upp, fwd, t0) -> image``) marches every pixel
+    from there.  The coarse rays are projected as the fine rays are,
+    ``(uvx*a0 + uvy*a1) + IFOV*a2`` per frame axis ``a``."""
+    f = config.hierarchical_factor
+    uv = {"cpu": torch.from_numpy(coarse_ray_uv(config))}  # per device, copied once
+
+    def render(arrays: SceneArrays, campos, rgt, upp, fwd):
+        device = arrays.ad.device
+        if str(device) not in uv:
+            uv[str(device)] = uv["cpu"].to(device)
+        rows = camera_rows(campos, rgt, upp, fwd)
+        frame = torch.as_tensor(rows[1:], device=device)
+        t_safe = cone(arrays, rows[0], project(uv[str(device)], *frame))
+        t0 = t_safe.repeat_interleave(f, dim=0).repeat_interleave(f, dim=1).contiguous()
+        return fine(arrays, campos, rgt, upp, fwd, t0)
+
+    return render
+
+
+def make_hierarchical_renderer(scene: CompiledScene, config: Optional[RenderConfig] = None):
+    """``render(arrays, campos, rgt, upp, fwd) -> f32[H, W, 3]``: the cone
+    prepass (:func:`make_cone_march`, slope :func:`cone_slope`) at
+    1/``hierarchical_factor`` resolution hands each pixel a safe start
+    parameter, from which :func:`make_renderer` marches.  The plain version
+    of the CUDA hierarchical renderer."""
+    config = config or RenderConfig()
+    warn_if_not_lipschitz(scene, "hierarchical cone prepass")
+    cone = make_cone_march(scene, config)
+    return compose_hierarchical(config, cone, make_renderer(scene, config))
 
 
 def to_u8(image):
@@ -185,13 +343,67 @@ def render_scene(
     arrays: Optional[SceneArrays] = None,
     device=None,
 ):
-    """One-shot viewport render with the default camera: the fused CUDA
-    renderer on the card (the default), the plain renderer with
-    ``device="cpu"``.  ``arrays`` defaults to the scene's own banks."""
-    from .cuda.march_kernel import make_cuda_renderer
+    """One-shot viewport render with the default camera: the CUDA renderers
+    on the card (the default), their plain versions with ``device="cpu"``.
+    ``config.march_hierarchical`` takes the cone prepass + ``t0`` renderer,
+    otherwise the fused renderer marches exactly or, with
+    ``march_overrelax > 1``, over-relaxed.  ``arrays`` defaults to the
+    scene's own banks."""
+    from .cuda.march_kernel import make_cuda_hierarchical_renderer, make_cuda_renderer
 
     device = resolve_device(device)
     camera = camera or Camera.initial()
+    config = config or RenderConfig()
     arrays = (arrays or scene.arrays).to_torch(device)
-    renderer = make_cuda_renderer(scene, config or RenderConfig())
-    return renderer(arrays, *camera.as_arrays())
+    factory = make_cuda_hierarchical_renderer if config.march_hierarchical else make_cuda_renderer
+    return factory(scene, config)(arrays, *camera.as_arrays())
+
+
+def check_scene_lipschitz(
+    scene: CompiledScene,
+    radius: float = MAX_DISTANCE / 4.0,
+    samples: int = 8192,
+    probe: float = 1e-2,
+    seed: int = 0,
+) -> float:
+    """Sampled estimate of the scene SDF's Lipschitz constant,
+    ``max |f(a)-f(b)| / |a-b|`` over random short segments in the world
+    domain (raymarch.py:658-687 of the JAX package), with the plain SDF on
+    the CPU.  The over-relaxed march's retraction and the cone prepass's
+    clearance both assume a (<=1)-Lipschitz tape; a sampled max is a lower
+    bound of the true constant."""
+    sdf = make_primary_sdf(scene)
+    arrays = scene.arrays.to_torch("cpu")
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(-radius, radius, size=(samples, 3)).astype(np.float32)
+    step = rng.normal(size=(samples, 3)).astype(np.float32)
+    step /= np.linalg.norm(step, axis=-1, keepdims=True)
+    b = a + probe * radius * step
+    fa = sdf(torch.from_numpy(a), arrays).numpy()
+    fb = sdf(torch.from_numpy(b), arrays).numpy()
+    d = np.linalg.norm(b - a, axis=-1)
+    return float(np.max(np.abs(fa - fb) / d))
+
+
+_LIPSCHITZ_CACHE: dict = {}
+
+
+def warn_if_not_lipschitz(scene: CompiledScene, where: str, threshold: float = 1.02) -> float:
+    """Run :func:`check_scene_lipschitz` and log a warning when the estimate
+    exceeds ``threshold``: called by the over-relaxed and hierarchical
+    builders so their safety assumptions are checked per scene.  Cached by
+    scene content (tape, banks, arbitrary data)."""
+    key = scene.arrays.content_digest()
+    if key not in _LIPSCHITZ_CACHE:
+        est = _LIPSCHITZ_CACHE[key] = check_scene_lipschitz(scene, samples=4096)
+        if est > threshold:
+            logger.warning(
+                "%s: scene SDF Lipschitz estimate %.2f > 1; the over-relaxed "
+                "retraction and the cone clearance assume a distance-like "
+                "(<=1-Lipschitz) tape, so the approximate march modes may drop "
+                "thin features of this scene. Use exact semantics "
+                "(march_overrelax=1, march_hierarchical=False) for final renders.",
+                where,
+                est,
+            )
+    return _LIPSCHITZ_CACHE[key]

@@ -3,7 +3,7 @@
 Marked ``cuda``; each test takes the ``cuda_device`` fixture, which skips when
 no CUDA device is present.  Run on a machine with a card:
 
-    python -m pytest tests/test_torch_cuda.py -m cuda -p no:cacheprovider -n 0
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -o addopts="" -p no:cacheprovider
 """
 
 import dataclasses
@@ -18,8 +18,13 @@ from designcsg_tpu_torch.designs import get_design
 from designcsg_tpu_torch.evaluator import BatchEvaluator
 from designcsg_tpu_torch.export.pipeline import export_mesh
 from designcsg_tpu_torch.ops.cuda import build as kbuild
-from designcsg_tpu_torch.ops.cuda.march_kernel import make_cuda_renderer
+from designcsg_tpu_torch.ops.cuda.march_kernel import (
+    make_cuda_cone_march,
+    make_cuda_hierarchical_renderer,
+    make_cuda_renderer,
+)
 from designcsg_tpu_torch.ops.cuda.sdf_kernel import make_grid_eval, make_point_eval
+from designcsg_tpu_torch.ops.raymarch import camera_rows, coarse_ray_uv, project
 
 pytestmark = pytest.mark.cuda
 
@@ -96,3 +101,58 @@ def test_small_export_matches_cpu(cuda_device):
     np.testing.assert_allclose(r_dev.bounding_box_center, r_cpu.bounding_box_center, atol=1e-5)
     assert m_dev.num_faces == m_cpu.num_faces > 0
     assert BatchEvaluator(scene).eval_sdf_at_points(np.zeros((1, 3)))[0] < 0
+
+
+@pytest.fixture(scope="module")
+def design2(cuda_device):
+    scene = get_design("design2")
+    return scene, scene.arrays.to_torch(cuda_device)
+
+
+def _render_close(got, ref):
+    # The rule of tests/test_pallas.py:115-116,133-134.
+    diff = (got - ref).abs()
+    return float(diff.max()) < 1e-3 and float((diff > 1e-4).float().mean()) < 0.01
+
+
+def test_design2_point_eval_kernel(design2, cuda_device):
+    scene, arrays = design2
+    pe = make_point_eval(scene)
+    pts = torch.from_numpy(np.random.default_rng(0).uniform(-2.5, 2.5, (65_537, 3)).astype(np.float32))
+    pts = pts.to(cuda_device)
+    assert _close(pe(pts, arrays), pe.plain(pts, arrays))
+
+
+@pytest.mark.parametrize("name", ["design1", "design2"])
+def test_cone_kernel(name, design1, design2):
+    scene, arrays = design1 if name == "design1" else design2
+    config = RenderConfig(march_overrelax=1.6, march_hierarchical=True)
+    cone = make_cuda_cone_march(scene, config)
+    rows = camera_rows(*Camera.initial().orbit(0.2, -0.1).as_arrays())
+    rays = project(torch.from_numpy(coarse_ray_uv(config)), *torch.from_numpy(rows[1:]))
+    rays = rays.to(arrays.ad.device)
+    before = kbuild.LAUNCHES["cone_march"]
+    got = cone(arrays, rows[0], rays)
+    torch.cuda.synchronize()
+    assert kbuild.LAUNCHES["cone_march"] == before + 1
+    ref = cone.plain(arrays, rows[0], rays)
+    far = config.max_distance
+    assert float(((got > far) == (ref > far)).float().mean()) >= 0.99
+    both = (got <= far) & (ref <= far)
+    assert float((got - ref).abs()[both].max()) <= 1e-4
+
+
+@pytest.mark.parametrize("name", ["design1", "design2"])
+@pytest.mark.parametrize("hierarchical", [False, True])
+def test_fast_renderer_kernels(name, hierarchical, design1, design2):
+    scene, arrays = design1 if name == "design1" else design2
+    config = RenderConfig(march_overrelax=1.6, march_hierarchical=hierarchical)
+    factory = make_cuda_hierarchical_renderer if hierarchical else make_cuda_renderer
+    render = factory(scene, config)
+    cam = Camera.initial().orbit(0.2, -0.1).as_arrays()
+    kinds = ("cone_march", "renderer_t0") if hierarchical else ("renderer_overrelax",)
+    before = {k: kbuild.LAUNCHES[k] for k in kinds}
+    got = render(arrays, *cam)
+    torch.cuda.synchronize()
+    assert all(kbuild.LAUNCHES[k] == before[k] + 1 for k in kinds)
+    assert _render_close(got, render.plain(arrays, *cam))

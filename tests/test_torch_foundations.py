@@ -32,8 +32,8 @@ def test_render_config_fields_and_defaults_equal():
 @pytest.mark.parametrize(
     "knob",
     [
-        dict(march_overrelax=1.6),
-        dict(march_hierarchical=True),
+        dict(normal_mode="analytic"),
+        dict(march_cull="dynamic"),
         dict(march_cull=True),
         dict(differentiable=True),
         dict(soft_silhouette_bandwidth=0.02),
@@ -43,6 +43,12 @@ def test_render_config_fields_and_defaults_equal():
 def test_unported_knobs_raise_naming_roadmap(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tconfig.RenderConfig(**knob)
+
+
+def test_fast_viewport_knobs_build():
+    config = tconfig.RenderConfig(march_overrelax=1.6, march_hierarchical=True,
+                                  hierarchical_factor=5, cone_strict=True, cone_safety=1.5)
+    assert config.march_overrelax == 1.6 and config.march_hierarchical
 
 
 @pytest.mark.parametrize("seed", range(4))

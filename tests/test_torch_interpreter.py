@@ -24,6 +24,10 @@ def scenes():
     return jscene, tscene, arrays
 
 
+def _copy(arrays):
+    return scene_arrays_from_numpy({f: getattr(arrays, f) for f in SCENE_ARRAY_FIELDS})
+
+
 def _points(n=4096, seed=0, half=6.0):
     return np.random.default_rng(seed).uniform(-half, half, (n, 3)).astype(np.float32)
 
@@ -31,10 +35,15 @@ def _points(n=4096, seed=0, half=6.0):
 @pytest.mark.parametrize("gizmo", [False, True])
 def test_primary_sdf_matches_jax(scenes, gizmo):
     jscene, tscene, arrays = scenes
-    pts = _points()
-    ref = np.asarray(jinterp.make_primary_sdf(jscene, gizmo=gizmo)(jnp.asarray(pts), jscene.arrays))
-    ours = tinterp.make_primary_sdf(tscene, gizmo=gizmo)(torch.from_numpy(pts), arrays.to_torch("cpu"))
-    np.testing.assert_allclose(ours.numpy(), ref, atol=1e-5)
+    # Each framework gets its own copy of the points and of the banks, and
+    # each result is copied out at once, so no buffer is shared between JAX
+    # (which may alias a numpy array on the CPU) and torch.
+    ours = tinterp.make_primary_sdf(tscene, gizmo=gizmo)(
+        torch.from_numpy(_points()), _copy(arrays).to_torch("cpu")
+    ).numpy().copy()
+    jarrays = jscene.arrays.replace(**{f: np.array(getattr(arrays, f)) for f in SCENE_ARRAY_FIELDS})
+    ref = np.array(jinterp.make_primary_sdf(jscene, gizmo=gizmo)(jnp.asarray(_points()), jarrays))
+    np.testing.assert_allclose(ours, ref, atol=1e-5)
 
 
 def test_fd_normals_match_jax(scenes):
