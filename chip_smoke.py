@@ -4,17 +4,23 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of Design1 and Design2 (point eval, grid eval, the
-fused renderer exact and fast, the cone prepass) from the sources in this
-checkout, all nvcc runs at once, and holds each against its plain PyTorch
-version at the main paths' shapes.  Then it drives three main paths through
-the user entry points, with launch counts set to 0 before each and read after:
+fused renderer exact and fast, the cone prepass, the fit's ray march) from the
+sources in this checkout, all nvcc runs at once, and holds each against its
+plain PyTorch version at the main paths' shapes.  Then it drives five main
+paths through the user entry points, with launch counts set to 0 before each
+and read after:
 
 * Design1's viewport, a k2 query and the dense 256^3 export to STL/PLY;
 * Design1's fast viewport: ``cli render design1 --fast`` (cone prepass +
   over-relaxed renderer from its t0 plane) and the over-relaxed renderer
   alone (``RenderConfig(march_overrelax=1.6)``);
 * Design2: the same two fast renders, its exact viewport, a k2 query and the
-  export's bounding-box scan on the card.
+  export's bounding-box scan on the card;
+* D: Design1's differentiable fit at 640x480 (bench.py's fit configuration):
+  ``make_fit_harness``, ``render_target`` and 10 Adam steps, 11 ray-march
+  launches; one step is held against the same step with the plain march;
+* D': ``cli fit design1`` at its defaults (64x48, 150 steps), whose printed
+  position error must fall.
 
 It times every kernel and its plain version with CUDA events (and Design1's
 renderer built with and without FMA contraction against each other), and
@@ -26,6 +32,9 @@ prints:
   card's lower bound).  ``ms`` is the mean time per call by CUDA events over
   back-to-back calls (launch overhead included), ``device_ms`` the kernel's
   own time from torch.profiler;
+* a ``fit_step`` JSON line: one fit step's time by events, split into the
+  ray march, the gradient reattachment (forward and backward) and Adam, its
+  peak device memory and effective Mrays/s;
 * the card's name and power limit, as nvidia-smi reports them;
 * last, ``{"ok": true, "device": {...}}``.
 
@@ -35,9 +44,12 @@ It needs a CUDA device and the CUDA toolkit (nvcc); it imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -57,15 +69,17 @@ from designcsg_tpu_torch.ops.cuda import build as kbuild
 from designcsg_tpu_torch.ops.cuda.march_kernel import (
     make_cuda_cone_march,
     make_cuda_hierarchical_renderer,
+    make_cuda_ray_march,
     make_cuda_renderer,
 )
 from designcsg_tpu_torch.ops.cuda.sdf_kernel import make_grid_eval, make_point_eval
 from designcsg_tpu_torch.ops.cuda.tape import (
     cone_kernel_source,
     march_kernel_source,
+    ray_march_kernel_source,
     sdf_kernel_source,
 )
-from designcsg_tpu_torch.ops.interpreter import gizmo_sdf
+from designcsg_tpu_torch.ops.interpreter import dot3, gizmo_sdf, make_primary_sdf
 from designcsg_tpu_torch.ops.raymarch import (
     camera_rows,
     coarse_ray_uv,
@@ -75,6 +89,7 @@ from designcsg_tpu_torch.ops.raymarch import (
     render_scene,
     to_u8,
 )
+from designcsg_tpu_torch.parallel.fit import make_fit_harness
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DESIGNS = ("design1", "design2")
@@ -93,6 +108,9 @@ EXACT = RenderConfig()
 OVERRELAX = RenderConfig(march_overrelax=1.6)
 HIERARCHICAL = RenderConfig(march_overrelax=1.6, march_hierarchical=True)
 HIERARCHICAL_EXACT = RenderConfig(march_hierarchical=True)
+# The fit (bench.py:284-342): 640x480, exact march of 512 steps, no gizmo.
+FIT = RenderConfig(differentiable=True, soft_silhouette_bandwidth=0.02, gizmo=False)
+FIT_OVERRELAX = dataclasses.replace(FIT, march_overrelax=1.6)
 
 MARCH_PY = "designcsg_tpu/ops/pallas/march_kernel.py"
 SOURCES = {
@@ -104,6 +122,7 @@ SOURCES = {
     "renderer_overrelax": ("designcsg_tpu_torch/csrc/march_kernel.cu", f"{MARCH_PY}:565"),
     "renderer_t0": ("designcsg_tpu_torch/csrc/march_kernel.cu", f"{MARCH_PY}:447"),
     "cone_march": ("designcsg_tpu_torch/csrc/cone_kernel.cu", f"{MARCH_PY}:202"),
+    "ray_march": ("designcsg_tpu_torch/csrc/ray_march_kernel.cu", f"{MARCH_PY}:45"),
 }
 
 
@@ -158,6 +177,22 @@ def device_ms(fn, kernel: str, iters: int = 10):
         for e in prof.key_averages()
         if kernel in e.key
     )
+    return total / iters / 1e3 if total > 0 else None
+
+
+def busy_ms(fn, iters: int = 5):
+    """Mean device time per call of every CUDA kernel under ``fn()`` (the
+    device's busy time), from torch.profiler; None when it records none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
     return total / iters / 1e3 if total > 0 else None
 
 
@@ -223,6 +258,51 @@ def check_hit_preserving(name: str, fast, exact, plain_fast, plain_exact, miss_c
                          f"{limit:.4%} (plain versions: {plain_share:.4%})")
 
 
+def check_ray_march(name: str, got, ref) -> float:
+    """The fit's ray march against its plain version by the rule of
+    tests/test_pallas.py:153-156: identical hit sets, d and vmin within
+    1e-5.  Where crease rays break it, the count is printed and the
+    renderer's full-frame rule (max|d| < 1e-3, < 1% above 1e-4) holds d and
+    vmin instead.  Returns the largest |d| over d and vmin."""
+    (d, vmin), (d_ref, vmin_ref) = got, ref
+    check(bool(torch.isfinite(d).all() and torch.isfinite(vmin).all())
+          and d.shape == d_ref.shape and vmin.shape == vmin_ref.shape,
+          f"{name} finite, d {tuple(d.shape)}, vmin {tuple(vmin.shape)}")
+    other = int(((d > 0) != (d_ref > 0)).sum())
+    errs = {"d": (d - d_ref).abs(), "vmin": (vmin - vmin_ref).abs()}
+    err = max(float(e.max()) for e in errs.values())
+    if other == 0 and err <= 1e-5:
+        check(True, f"{name} identical hit sets ({int((d > 0).sum())} hits), "
+                    f"max|d| over d and vmin = {err:.3g} <= 1e-5")
+    else:
+        print(f"  {name}: {other} rays hit in one version only, max|d| {err:.3g}; "
+              f"the renderer's full-frame rule instead", flush=True)
+        for what, e in errs.items():
+            frac = float((e > 1e-4).float().mean())
+            check(float(e.max()) < 1e-3 and frac < 0.01,
+                  f"{name} {what} max|d| = {float(e.max()):.3g} < 1e-3, share > 1e-4 = {frac:.4%} < 1%")
+    return err
+
+
+def timed_once(fn):
+    """(fn(), its time in ms by CUDA events) for one call."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def fit_rays(config, cam, device):
+    """(o_proj f32[3] on the host, r_proj f32[H, W, 3] on ``device``) as the
+    fit harness forms them."""
+    rows = camera_rows(*cam)
+    return rows[0], project(ray_directions(config, device), *torch.as_tensor(rows[1:], device=device))
+
+
 def coarse_rays(config, cam, device):
     """(o_proj f32[3] on the host, the block-centre rays f32[H/F, W/F, 3] on
     ``device``), formed as the hierarchical renderer forms them."""
@@ -255,6 +335,11 @@ def main() -> int:
         units[f"{name} march omega=1.6"] = ("march", march_kernel_source(scene, HIERARCHICAL))
         units[f"{name} cone"] = ("cone", cone_kernel_source(scene, HIERARCHICAL))
         units[f"{name} cone omega=1"] = ("cone", cone_kernel_source(scene, HIERARCHICAL_EXACT))
+        units[f"{name} ray_march"] = ("ray_march", ray_march_kernel_source(scene, FIT))
+    units["design1 ray_march omega=1.6"] = (
+        "ray_march", ray_march_kernel_source(scenes["design1"], FIT_OVERRELAX))
+    units["design1 ray_march cli fit"] = (
+        "ray_march", ray_march_kernel_source(scenes["design1"], cli.fit_config(64, 48)))
     # Timing phase only: Design1's renderer with FMA contraction.
     units["design1 march_fma"] = ("march_fma", march_kernel_source(scenes["design1"], EXACT))
     t0 = time.time()
@@ -281,6 +366,7 @@ def main() -> int:
             cone_march=make_cuda_cone_march(scene, HIERARCHICAL),
             hierarchical=make_cuda_hierarchical_renderer(scene, HIERARCHICAL),
             hierarchical_exact=make_cuda_hierarchical_renderer(scene, HIERARCHICAL_EXACT),
+            ray_march=make_cuda_ray_march(scene, FIT),
         )
     inputs = {}
     images = {}
@@ -344,6 +430,22 @@ def main() -> int:
               f"cone prepass at omega = 1 vs exact "
               f"{hit_rules(k['hierarchical_exact'](a, *cam), exact, EXACT.miss_color)}")
         images[name] = dict(hierarchical=hier, overrelax=over)
+
+        phase(f"{3 + step}c. {name}: the fit's ray march vs plain at 640x480 (fit config)")
+        o_fit, r_fit = fit_rays(FIT, cam, dev)
+        rm = k["ray_march"]
+        got = rm(a, o_fit, r_fit)
+        # The plain version, timed once, with its step counts for the bound.
+        (d_ref, vmin_ref, steps), plain_ms = timed_once(lambda: make_march(scene, FIT)(
+            torch.as_tensor(o_fit, device=dev), r_fit, a, return_closest=True, return_steps=True))
+        results[("ray_march", name)] = dict(
+            max_abs_err=check_ray_march(f"{name} ray_march", got, (d_ref, vmin_ref)),
+            plain_ms=plain_ms)
+        inputs[name].update(o_fit=o_fit, r_fit=r_fit, fit_evals=int(steps.sum()))
+        if name == "design1":
+            over = make_cuda_ray_march(scene, FIT_OVERRELAX)
+            check_ray_march(f"{name} ray_march omega=1.6", over(a, o_fit, r_fit),
+                            over.plain(a, o_fit, r_fit))
         small = to_u8(render_scene(scene, config=RenderConfig(width=160, height=120)))
         golden = np.load(os.path.join(ROOT, "tests", "goldens", f"{name}_160x120.npy"))
         frac = float((np.abs(small.cpu().numpy().astype(int) - golden.astype(int)).max(-1) > 2).mean())
@@ -440,6 +542,62 @@ def main() -> int:
             check(counted.get(kernel, 0) > 0, f"{name} {kernel} launched {counted.get(kernel, 0)} times")
             launches[(kernel, name)] = counted[kernel]
 
+    phase("7D. main path D, Design1 fit at 640x480: render_target and 10 Adam steps "
+          "(launches counted)")
+    scene = scenes["design1"]
+    start = np.asarray(scene.arrays.position).copy()
+    start[1:, 0] += 0.05  # bench.py:300-305
+    harness = make_fit_harness(scene, FIT)
+    kbuild.LAUNCHES.clear()
+    t0 = time.time()
+    target = harness.render_target(scene.arrays, *cam)
+    state = harness.init({"position": start})
+    losses = []
+    for _ in range(10):
+        state, loss = harness.step_fn(state, target, *cam)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    main_s = time.time() - t0
+    counted = dict(kbuild.LAUNCHES)
+    losses = torch.stack(losses).cpu()
+    grad = state.params["position"].grad
+    print(f"  main path {main_s:.2f} s; launches {counted}; losses {losses.tolist()}")
+    check(counted.get("ray_march") == 11, f"ray_march launched {counted.get('ray_march')} times == 11")
+    launches[("ray_march", "design1")] = counted["ray_march"]
+    check(bool(torch.isfinite(losses).all()), "every fit loss finite")
+    check(bool(torch.isfinite(grad).all()) and float(grad.abs().max()) > 0,
+          f"position gradient finite and nonzero, max |g| = {float(grad.abs().max()):.4g}")
+    # One step with the kernel against the same step with the plain march
+    # (tests/test_pallas.py:223-226's rule), outside the counted run.
+    plain_harness = make_fit_harness(scene, dataclasses.replace(FIT, use_pallas_march=False))
+    steps_out = {}
+    for key, h in (("kernel", harness), ("plain", plain_harness)):
+        s1, loss1 = h.step_fn(h.init({"position": start}), target, *cam)
+        steps_out[key] = (float(loss1), s1.params["position"].grad, s1.params["position"].detach())
+    (lk, gk, pk), (lp, gp, pp) = steps_out["kernel"], steps_out["plain"]
+    check(abs(lk - lp) <= 1e-5 * abs(lp), f"step loss {lk:.8g} vs plain march {lp:.8g}, rtol 1e-5")
+    check(float((gk - gp).abs().max()) <= 1e-5,
+          f"step gradient max|d| vs plain march = {float((gk - gp).abs().max()):.3g} <= 1e-5")
+    print(f"  step parameters max|d| vs plain march {float((pk - pp).abs().max()):.3g}")
+
+    phase("7D'. main path D', `cli fit design1` at its defaults (launches counted)")
+    kbuild.LAUNCHES.clear()
+    t0 = time.time()
+    printed = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(printed):
+        cli.main(["fit", "design1", "-o", tmp])
+        wrote = os.path.exists(os.path.join(tmp, "fit.ckpt"))
+    torch.cuda.synchronize()
+    main_s = time.time() - t0
+    counted = dict(kbuild.LAUNCHES)
+    print("  " + printed.getvalue().strip().replace("\n", "\n  "))
+    print(f"  main path {main_s:.2f} s; launches {counted}")
+    errs = [float(e) for e in re.findall(r"max pos err ([0-9.]+)", printed.getvalue())]
+    check(wrote and len(errs) == 10, "cli fit wrote fit.ckpt and printed 10 progress lines")
+    check(errs[-1] < errs[0], f"max position error fell, {errs[0]} -> {errs[-1]}")
+    check(counted.get("ray_march") == 151, f"cli fit: ray_march launched {counted.get('ray_march')} "
+                                           f"times == 151")
+
     phase("8. timing (CUDA events, after warm-up)")
     frames = {}
     for name, scene in scenes.items():
@@ -501,6 +659,18 @@ def main() -> int:
             16 * n_rays, int(steps.sum()) * (ops + GIZMO_OPS))))
         print(f"  {name} cone_march: {int(steps.sum())} tape evals over {n_rays} rays "
               f"({int(steps.sum()) / n_rays:.1f}/ray)")
+        # The fit's ray march: the tape evaluations of this march (no gizmo),
+        # 12 B of ray read and 16 B (d, vmin) written per ray.
+        rm, o_fit, r_fit = k["ray_march"], x["o_fit"], x["r_fit"]
+        r[("ray_march", name)].update(
+            ms=cuda_ms(lambda: rm(a, o_fit, r_fit), 20),
+            device_ms=device_ms(lambda: rm(a, o_fit, r_fit), "ray_march_kernel"),
+        )
+        n_rays = r_fit.numel() // 3
+        r[("ray_march", name)].update(zip(("bound_ms", "bound_by"), bound_ms(
+            28 * n_rays, x["fit_evals"] * ops)))
+        print(f"  {name} ray_march: {x['fit_evals']} tape evals over {n_rays} rays "
+              f"({x['fit_evals'] / n_rays:.1f}/ray), {json.dumps(r[('ray_march', name)])}")
         hier = k["hierarchical"]
         frame_ms = cuda_ms(lambda: hier(a, *cam), 20)
         frames[name] = dict(
@@ -532,6 +702,57 @@ def main() -> int:
     print(f"  design1 renderer -fmad=false vs FMA contraction, device ms (A B A B): "
           f"{json.dumps(ab)}; FMA build max|d| vs plain {float(err.max()):.3g}, "
           f"share of |d| > 1e-4 {float((err > 1e-4).float().mean()):.4%}")
+
+    # One fit step at 640x480 (path D's), split by events: the ray march
+    # alone, the loss with its backward (the march inside it subtracted: the
+    # reattachment), and Adam's update alone.  Peak memory over one step.
+    step_ms = cuda_ms(lambda: harness.step_fn(state, target, *cam), 10)
+    loss_bwd_ms = cuda_ms(lambda: harness.loss_fn(state.params, target, *cam).backward(), 10)
+    adam_ms = cuda_ms(lambda: state.opt_state.step(), 10)
+    march_ms = results[("ray_march", "design1")]["ms"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    harness.step_fn(state, target, *cam)
+    torch.cuda.synchronize()
+    fit_step = dict(
+        step_ms=step_ms, ray_march_ms=march_ms, reattach_fwd_bwd_ms=loss_bwd_ms - march_ms,
+        adam_ms=adam_ms, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+        peak_above_resident_bytes=torch.cuda.max_memory_allocated() - base_mem,
+        mrays_per_s=FIT.width * FIT.height / step_ms / 1e3,
+        device_busy_ms=busy_ms(lambda: harness.step_fn(state, target, *cam)),
+    )
+    # The reattachment's pieces at the step's hit points, by events: one tape
+    # evaluation building its graph, its backward, and the IFT slope by
+    # torch.func.jvp (what the port runs) -- beside the same slope by
+    # reverse mode (timed only; its largest relative difference is printed).
+    sdf = make_primary_sdf(scene)
+    fit_arrays = harness.param_to_arrays(state.params)
+    frozen = fit_arrays.detach()
+    o_fit, r_fit = inputs["design1"]["o_fit"], inputs["design1"]["r_fit"]
+    d0, _ = kernels["design1"]["ray_march"](fit_arrays, o_fit, r_fit)
+    p = torch.as_tensor(o_fit, device=dev) + d0[..., None] * r_fit
+
+    def reverse_slope():
+        q = p.detach().requires_grad_()
+        (g,) = torch.autograd.grad(sdf(q, frozen).sum(), q)
+        return dot3(g, r_fit)
+
+    tape_ms = cuda_ms(lambda: sdf(p, fit_arrays), 10)
+    fit_step.update(
+        tape_with_graph_ms=tape_ms,
+        tape_backward_ms=cuda_ms(lambda: sdf(p, fit_arrays).sum().backward(), 10) - tape_ms,
+        jvp_slope_ms=cuda_ms(lambda: torch.func.jvp(lambda q: sdf(q, frozen), (p,), (r_fit,)), 10),
+        reverse_slope_ms=cuda_ms(reverse_slope, 10),
+    )
+    f_d = torch.func.jvp(lambda q: sdf(q, frozen), (p,), (r_fit,))[1]
+    hit = d0 > 0
+    fit_step["slope_max_rel_diff"] = float(
+        ((reverse_slope() - f_d).abs() / f_d.abs().clamp(min=1e-6))[hit].max())
+    print(json.dumps({"fit_step": fit_step}))
+    # Design2's ray march runs on no main path of this script (the fit is
+    # Design1's); its numbers are printed here, not in the kernels line.
+    print(json.dumps({"ray_march_design2": results[("ray_march", "design2")]}))
 
     line = [
         dict(name=kernel, design=name, route="cuda", source=SOURCES[kernel][0],

@@ -3,8 +3,9 @@
 Same module layout as the JAX package.  Plain PyTorch versions of every
 computation run on any device; on a CUDA device the SDF point evaluation, the
 SDF grid evaluation, the k1 viewport renderer (exact and over-relaxed march,
-optional start plane) and the cone prepass of the hierarchical viewport run
-as CUDA kernels generated per scene (ops/cuda).  Entry points run on ``cuda`` unless the caller passes
+optional start plane), the cone prepass of the hierarchical viewport and the
+differentiable fit's ray march run as CUDA kernels generated per scene
+(ops/cuda).  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``.
 """
 

@@ -8,6 +8,7 @@ has::
     python -m designcsg_tpu_torch.cli render path/to/mydesign.py --orbit -0.785 0.785
     python -m designcsg_tpu_torch.cli export design1 --stl out.stl --ply out.ply
     python -m designcsg_tpu_torch.cli artifacts design1 -d build/   # reference IR
+    python -m designcsg_tpu_torch.cli fit design1 --steps 150       # shape fit demo
 
 Every command runs on the card; ``--device cpu`` takes the plain PyTorch
 path (the JAX CLI's ``--backend`` choice).  A design is a builtin name
@@ -35,7 +36,6 @@ BUILTIN = ("design1", "design2", "logo")
 # brings each.
 UNPORTED = {
     "watch": "queue 1, item 11 (shells)",
-    "fit": "queue 1, item 9 (differentiable path, K4)",
     "preview": "queue 1, item 8 (export/preview.py)",
     "bench": "queue 1, item 11 (no benchmark of the port yet)",
     "studio": "queue 1, item 11 (shells)",
@@ -192,6 +192,44 @@ def cmd_artifacts(args):
     print(f"wrote scene.txt / buildprocedure.txt / arbitrary_data.hex to {args.directory}")
 
 
+def fit_config(width: int, height: int, field: str = "exact"):
+    """The render config of ``fit`` (cli.py:230-238 of the JAX package)."""
+    from .config import RenderConfig
+
+    return RenderConfig(width=width, height=height, max_steps=128, differentiable=True,
+                        soft_silhouette_bandwidth=0.02, gizmo=False, fit_field=field)
+
+
+def cmd_fit(args):
+    """Perturb every object's position but the first and fit the positions
+    back to the design's own depth + silhouette render
+    (cli.py:222-258 of the JAX package)."""
+    import torch
+
+    from .parallel.fit import make_fit_harness, save_checkpoint
+
+    scene = load_design(args.design)
+    campos, rgt, upp, fwd = _camera(args).as_arrays()
+    harness = make_fit_harness(scene, fit_config(args.width, args.height, args.field),
+                               device=args.device)
+    target = harness.render_target(scene.arrays, campos, rgt, upp, fwd)
+
+    rng = np.random.default_rng(args.seed)
+    start = np.asarray(scene.arrays.position).copy()
+    start[1:] += rng.normal(scale=args.perturb, size=start[1:].shape)
+    state = harness.init({"position": start})
+    truth = torch.as_tensor(scene.arrays.position, device=harness.device)
+    print(f"fitting {args.steps} steps on 1 device(s)")
+    for i in range(args.steps):
+        state, loss = harness.step_fn(state, target, campos, rgt, upp, fwd)
+        if (i + 1) % max(1, args.steps // 10) == 0:
+            err = float((state.params["position"].detach() - truth).abs().max())
+            print(f"step {i+1:4d}  loss {float(loss):.3e}  max pos err {err:.4f}")
+    os.makedirs(args.output, exist_ok=True)
+    save_checkpoint(os.path.join(args.output, "fit.ckpt"), state)
+    print(f"wrote {args.output}/fit.ckpt")
+
+
 def _unported(name):
     def cmd(args):
         raise SystemExit(
@@ -241,6 +279,22 @@ def main(argv=None):
     p.add_argument("design")
     p.add_argument("-d", "--directory", default=".")
     p.set_defaults(fn=cmd_artifacts)
+
+    p = sub.add_parser("fit", help="differentiable shape-fit demo")
+    p.add_argument("design")
+    p.add_argument("-o", "--output", default="fit_out")
+    p.add_argument("--steps", type=int, default=150)
+    p.add_argument("--width", type=int, default=64)
+    p.add_argument("--height", type=int, default=48)
+    p.add_argument("--perturb", type=float, default=0.3)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--orbit", type=float, nargs=2)
+    p.add_argument("--zoom", type=float, default=0.0)
+    p.add_argument("--field", choices=["exact", "twin"], default="exact",
+                   help="SDF field of the gradient reattachment (twin: the field the "
+                   "kernels compute, the same tape for every ported design)")
+    device_arg(p)
+    p.set_defaults(fn=cmd_fit)
 
     for name in UNPORTED:
         p = sub.add_parser(name, help=f"not ported yet (ROADMAP.md {UNPORTED[name]})")

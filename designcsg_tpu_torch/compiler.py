@@ -97,6 +97,13 @@ class SceneArrays:
         """The same banks as torch tensors on ``device``."""
         return SceneArrays(*(torch.as_tensor(a, device=device) for a in self.fields()))
 
+    def detach(self) -> "SceneArrays":
+        """The same banks cut from the autograd graph (the JAX package's
+        ``tree_map(stop_gradient, arrays)``)."""
+        return SceneArrays(
+            *(a.detach() if isinstance(a, torch.Tensor) else a for a in self.fields())
+        )
+
     def content_digest(self) -> bytes:
         """Digest of every bank, each framed by dtype and shape."""
         h = hashlib.sha256()

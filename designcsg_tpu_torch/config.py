@@ -36,8 +36,10 @@ class RenderConfig:
     soft_silhouette_bandwidth: float = 0.0
     fit_field: str = "exact"
     march_overrelax: float = 1.0
-    # Engine selection of the JAX package (its Pallas ray-march kernel);
-    # kept for config compatibility, read by nothing here.
+    # Engine selection of the JAX package (its Pallas ray-march kernel).  Here
+    # only False is read: the differentiable renders then march with the plain
+    # version of the fit's ray-march kernel on every device, as the JAX
+    # package then takes its jnp march (ops/raymarch.py fit_ray_march).
     use_pallas_march: Optional[bool] = None
     march_hierarchical: bool = False
     hierarchical_factor: int = 5
@@ -52,9 +54,6 @@ class RenderConfig:
     def __post_init__(self):
         unported = [
             (bool(self.march_cull), "march_cull", "queue 2, K7 interval culler"),
-            (self.differentiable, "differentiable", "queue 1, item 9"),
-            (self.soft_silhouette_bandwidth > 0, "soft_silhouette_bandwidth > 0",
-             "queue 1, item 9"),
             (self.march_proxy is True, "march_proxy=True", "queue 1, item 10"),
             (self.normal_mode != "fd", f"normal_mode={self.normal_mode!r}",
              "queue 1, item 4"),

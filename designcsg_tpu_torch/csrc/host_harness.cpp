@@ -42,4 +42,14 @@ extern "C" void host_cone_march(float* t_safe, long long n, const float* rays, c
                              bank, ad);
     }
 }
+
+// The fit's ray-march kernel's loop: d f32[n] and the closest approach
+// vmin f32[n, 3] of a ray batch f32[n, 3] from the origin o f32[3].
+extern "C" void host_ray_march(float* d, float* vmin, long long n, const float* rays,
+                               const float* o, const float* bank, const float* ad) {
+    for (long long i = 0; i < n; ++i) {
+        d[i] = march_ray_closest(o[0], o[1], o[2], rays[3 * i], rays[3 * i + 1], rays[3 * i + 2],
+                                 bank, ad, vmin[3 * i], vmin[3 * i + 1], vmin[3 * i + 2]);
+    }
+}
 #endif

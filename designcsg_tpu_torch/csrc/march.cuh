@@ -1,6 +1,7 @@
 // One k1 viewport pixel: ray setup, sphere-trace march, FD normal and shading
 // (k1.cl:420-470 march, 381-418 normal, 280-379 shade, 480-580 pixel setup),
-// and one ray of the cone prepass.  Needs the generated field_sdf /
+// one ray of the cone prepass, and one ray of the fit's march with its closest
+// approach.  Needs the generated field_sdf /
 // scene_shade and the constants MAX_STEPS, EPS, TOL, MAX_D, N_EPS, IFOV,
 // MISS_R/G/B, OMEGA, CONE_SLOPE and CONE_STRICT.
 //
@@ -46,6 +47,67 @@ HD float march_ray(float ox, float oy, float oz, float rx, float ry, float rz, f
     } else {
         for (int step = 0; step < MAX_STEPS; ++step) {
             const float s = field_sdf(vx, vy, vz, bank, ad) * TOL;
+            if (s < EPS) return d;
+            vx += s * rx;
+            vy += s * ry;
+            vz += s * rz;
+            d += s;
+            if (d > MAX_D) return -1.0f;
+        }
+    }
+    return -1.0f;  // out of steps: a miss (k1.cl:469)
+}
+
+// The march of one ray from the origin that also tracks its closest approach
+// (K4, march_kernel.py:45-199 of the JAX package, and its jnp march with
+// return_closest, raymarch.py:225-247 and 286-293): on every step, before the
+// hit test and the advance, the point evaluated becomes (mx, my, mz) when its
+// s = sdf*TOL is strictly below the smallest s so far (which starts at
+// MAX_DISTANCE).  The closest point starts at the origin, so a ray that hits
+// at step 0 returns d = 0 with the origin.  Returns d on a hit, -1 otherwise;
+// march_ray's loop from t0 = 0 with the tracking added, exact or (OMEGA > 1)
+// over-relaxed.
+HD float march_ray_closest(float ox, float oy, float oz, float rx, float ry, float rz,
+                           const float* bank, const float* ad, float& mx, float& my,
+                           float& mz) {
+    float d = 0.0f, vx = ox, vy = oy, vz = oz, smin = MAX_DISTANCE;
+    mx = ox;
+    my = oy;
+    mz = oz;
+    if constexpr (OMEGA > 1.0f) {
+        float prev_r = 0.0f, step_len = 0.0f, omg = OMEGA;
+        for (int step = 0; step < MAX_STEPS; ++step) {
+            const float s = field_sdf(vx, vy, vz, bank, ad) * TOL;
+            if (s < smin) {
+                smin = s;
+                mx = vx;
+                my = vy;
+                mz = vz;
+            }
+            const bool sor_ok = !(omg > 1.0f && fabsf(s) + prev_r < step_len);
+            if (sor_ok && s < EPS) return d;
+            if (sor_ok) {
+                step_len = omg * s;
+            } else {
+                step_len = step_len * (1.0f - omg);
+                omg = 1.0f;
+            }
+            vx += step_len * rx;
+            vy += step_len * ry;
+            vz += step_len * rz;
+            d += step_len;
+            prev_r = fabsf(s);
+            if (d > MAX_D) return -1.0f;
+        }
+    } else {
+        for (int step = 0; step < MAX_STEPS; ++step) {
+            const float s = field_sdf(vx, vy, vz, bank, ad) * TOL;
+            if (s < smin) {
+                smin = s;
+                mx = vx;
+                my = vy;
+                mz = vz;
+            }
             if (s < EPS) return d;
             vx += s * rx;
             vy += s * ry;

@@ -30,14 +30,16 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Flags for some kernels only.  The renderer and the cone prepass round every
-# product and sum on their own (no FMA contraction), as their plain versions
-# do: a sphere trace is chaotic at creases, where one ulp decides the step a
+# Flags for some kernels only.  The renderer, the cone prepass and the fit's
+# ray march round every product and sum on their own (no FMA contraction), as
+# their plain versions do: a sphere trace is chaotic at creases, where one ulp decides the step a
 # ray stops at, and with contraction a 640x480 Design1 frame had a pixel
 # 1.16e-3 off its plain version on an H100 (PERF.md).  The point and grid
 # kernels keep contraction, and so does ``march_fma``, the same renderer
 # source built with contraction so that chip_smoke.py can time both.
-EXTRA_FLAGS = {"march": ("-fmad=false",), "cone": ("-fmad=false",)}
+EXTRA_FLAGS = {
+    "march": ("-fmad=false",), "cone": ("-fmad=false",), "ray_march": ("-fmad=false",),
+}
 
 LAUNCHES: collections.Counter = collections.Counter()
 _LOADED: Dict[str, ctypes.CDLL] = {}

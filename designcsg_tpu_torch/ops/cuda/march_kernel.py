@@ -1,18 +1,19 @@
-"""Fused k1 viewport renderer and cone prepass: CUDA kernels and their plain
-versions.
+"""Fused k1 viewport renderer, cone prepass and the fit's ray march: CUDA
+kernels and their plain versions.
 
 Counterparts of the JAX package's ops/pallas/march_kernel.py
 ``make_pallas_renderer`` (exact and over-relaxed march, optional ``t0``
-input; no cull), ``make_pallas_cone_march`` and
-``make_hierarchical_renderer``.  Kernel sources: csrc/march_kernel.cu,
-csrc/cone_kernel.cu and csrc/march.cuh plus the scene code generated by
-ops/cuda/tape.py.  The plain versions are ops/raymarch.py's
-:func:`make_renderer`, :func:`make_cone_march` and
-:func:`make_hierarchical_renderer`.
+input; no cull), ``make_pallas_cone_march``, ``make_hierarchical_renderer``
+and ``make_pallas_ray_march``.  Kernel sources: csrc/march_kernel.cu,
+csrc/cone_kernel.cu, csrc/ray_march_kernel.cu and csrc/march.cuh plus the
+scene code generated by ops/cuda/tape.py.  The plain versions are
+ops/raymarch.py's :func:`make_renderer`, :func:`make_cone_march`,
+:func:`make_hierarchical_renderer` and :func:`make_march` with
+``return_closest``.
 
 Launch counts: ``renderer`` (exact march from the camera),
 ``renderer_overrelax`` (over-relaxed, from the camera), ``renderer_t0``
-(from a start plane, either march) and ``cone_march``.
+(from a start plane, either march), ``cone_march`` and ``ray_march``.
 """
 
 from __future__ import annotations
@@ -30,10 +31,11 @@ from ..raymarch import (
     compose_hierarchical,
     make_cone_march,
     make_hierarchical_renderer,
+    make_march,
     make_renderer,
 )
 from .build import bank_pointers, check_launch, load, on_cuda, ptr, require_cuda_f32, stream_handle
-from .tape import cone_kernel_source, march_kernel_source
+from .tape import cone_kernel_source, march_kernel_source, ray_march_kernel_source
 
 _P = ctypes.c_void_p
 _F = ctypes.c_float
@@ -132,3 +134,50 @@ def make_cuda_hierarchical_renderer(scene: CompiledScene, config: Optional[Rende
     )
     render.plain = make_hierarchical_renderer(scene, config)
     return render
+
+
+def make_cuda_ray_march(scene: CompiledScene, config: Optional[RenderConfig] = None):
+    """``ray_march(arrays, o_proj f32[3], rays f32[..., 3]) -> (d f32[...],
+    vmin f32[..., 3])`` on the device of ``arrays``: each ray's hit distance
+    (-1 on a miss) and closest-approach point, for the step budget, march
+    mode (``config.march_overrelax``) and gizmo of ``config``.  The banks and
+    rays are taken detached (the JAX package's ``stop_gradient`` around its
+    kernel, raymarch.py:205-208), so nothing it returns carries a gradient.
+    ``ray_march.plain`` is the plain version (:func:`make_march` with
+    ``return_closest``)."""
+    config = config or RenderConfig(gizmo=False)
+    march = make_march(scene, config)
+    libs = {}
+
+    def plain(arrays: SceneArrays, o_proj, rays: torch.Tensor):
+        o = torch.as_tensor(o_proj, dtype=torch.float32).detach().to(rays.device)
+        with torch.no_grad():
+            return march(o, rays.detach(), arrays.detach(), return_closest=True)
+
+    def ray_march(arrays: SceneArrays, o_proj, rays: torch.Tensor):
+        arrays, rays = arrays.detach(), rays.detach()
+        if not on_cuda(arrays.ad):
+            return plain(arrays, o_proj, rays)
+        device = arrays.ad.device
+        require_cuda_f32("rays", rays, device)
+        if rays.shape[-1] != 3:
+            raise ValueError(f"rays must be [..., 3], got {tuple(rays.shape)}")
+        if "lib" not in libs:
+            lib = load("ray_march", ray_march_kernel_source(scene, config))
+            lib.launch_ray_march.argtypes = [_P, _P, ctypes.c_longlong, _P, _F, _F, _F] + [_P] * 6
+            lib.launch_ray_march.restype = ctypes.c_int
+            libs["lib"] = lib
+        if isinstance(o_proj, torch.Tensor):
+            o_proj = o_proj.detach().cpu()
+        ox, oy, oz = (float(v) for v in np.asarray(o_proj, np.float32).reshape(3))
+        d = torch.empty(rays.shape[:-1], dtype=torch.float32, device=device)
+        vmin = torch.empty(rays.shape, dtype=torch.float32, device=device)
+        rc = libs["lib"].launch_ray_march(
+            ptr(d), ptr(vmin), d.numel(), ptr(rays), ox, oy, oz,
+            *bank_pointers(arrays, device), stream_handle(device),
+        )
+        check_launch("ray_march", rc)
+        return d, vmin
+
+    ray_march.plain = plain
+    return ray_march

@@ -154,7 +154,8 @@ def scene_source(scene: CompiledScene, render_config: Optional[RenderConfig] = N
     """The generated scene code: constants, common.cuh, brush functions and the
     unrolled tape (the k2 field, no gizmo).  With ``render_config``: the k1
     field (with the gizmo iff the config says so), the material and shading
-    functions and march.cuh's ``render_pixel`` and ``cone_ray``."""
+    functions and march.cuh's ``render_pixel``, ``cone_ray`` and
+    ``march_ray_closest``."""
     parts = [
         "// Generated from the scene tape by designcsg_tpu_torch/ops/cuda/tape.py.\n"
         f"constexpr int N_OBJ = {scene.num_objects};\n"
@@ -184,3 +185,9 @@ def march_kernel_source(scene: CompiledScene, config: RenderConfig) -> str:
 def cone_kernel_source(scene: CompiledScene, config: RenderConfig) -> str:
     """Translation unit of the cone prepass kernel."""
     return scene_source(scene, render_config=config) + "\n" + csrc("cone_kernel.cu")
+
+
+def ray_march_kernel_source(scene: CompiledScene, config: RenderConfig) -> str:
+    """Translation unit of the fit's ray-march kernel (march mode, step
+    budget and gizmo from ``config``)."""
+    return scene_source(scene, render_config=config) + "\n" + csrc("ray_march_kernel.cu")

@@ -1,14 +1,24 @@
-"""Sphere-traced viewport renderer (kernel k1 semantics), forward only.
+"""Sphere-traced viewport renderer (kernel k1 semantics) and the
+differentiable renders of the shape fit.
 
 Reference: k1.cl:280-580.  :func:`make_renderer` is the plain PyTorch
-renderer: every pixel marches in one loop that evaluates the SDF at the rays
-still marching and ends when each has hit or missed, shading scans the
-object bank with last-match material attribution, and the gizmo/background
-rules match the viewport kernel.  The march is exact or over-relaxed and may
-start from a per-pixel ``t0`` plane; :func:`make_cone_march` and
-:func:`make_hierarchical_renderer` are the cone prepass and the two-pass
-fast viewport built on it.  These are the plain versions of the CUDA kernels
-of ops/cuda/march_kernel.py, which :func:`render_scene` takes on the card.
+renderer, forward only: every pixel marches in one loop that evaluates the
+SDF at the rays still marching and ends when each has hit or missed, shading
+scans the object bank with last-match material attribution, and the
+gizmo/background rules match the viewport kernel.  The march is exact or
+over-relaxed and may start from a per-pixel ``t0`` plane;
+:func:`make_cone_march` and :func:`make_hierarchical_renderer` are the cone
+prepass and the two-pass fast viewport built on it.  These are the plain
+versions of the CUDA kernels of ops/cuda/march_kernel.py, which
+:func:`render_scene` takes on the card.
+
+:func:`make_differentiable_march`, :func:`make_ray_renderer` and
+:func:`make_geometry_renderer` are the fit's renders: the fit's ray-march
+kernel (or, for CPU tensors, its plain version) marches with the banks
+detached, and gradients are reattached at the points it returns by the plain
+tape under autograd -- the implicit function theorem at the hit point, the
+envelope rule at the closest approach (raymarch.py:341-565 of the JAX
+package).
 
 Replicated quirks:
   * ray directions are *not* normalized (the march steps along ``uv,IFOV``
@@ -75,10 +85,16 @@ def camera_rows(campos, rgt, upp, fwd) -> np.ndarray:
 
 
 def make_march(scene: CompiledScene, config: RenderConfig):
-    """``march(origins, dirs, arrays, return_steps=False, t0=None) -> d``:
-    signed hit distance along the (unnormalized) ray, -1 on a miss
-    (k1.cl:420-470).  With ``return_steps`` also the number of SDF
-    evaluations of each ray.
+    """``march(origins, dirs, arrays, return_steps=False, t0=None,
+    return_closest=False) -> d``: signed hit distance along the
+    (unnormalized) ray, -1 on a miss (k1.cl:420-470).  With
+    ``return_closest`` also ``vmin`` f32[..., 3], each ray's closest
+    approach: the evaluated point of smallest ``s = sdf*tol``, strictly
+    below the smallest so far (from ``MAX_DISTANCE``), taken before the hit
+    test and the advance, starting at the ray's first point (raymarch.py:
+    225-247 and 286-293 of the JAX package; the plain version of the fit's
+    ray-march kernel).  With ``return_steps`` also the number of SDF
+    evaluations of each ray, last.
 
     ``t0`` (one start parameter per ray, the cone prepass's handoff) starts
     each ray at ``o + t0*r`` with ``d = t0``, and a ray with ``t0 > max_d``
@@ -96,7 +112,8 @@ def make_march(scene: CompiledScene, config: RenderConfig):
     if omega > 1.0:
         warn_if_not_lipschitz(scene, "over-relaxed march")
 
-    def march(origins, dirs, arrays: SceneArrays, return_steps: bool = False, t0=None):
+    def march(origins, dirs, arrays: SceneArrays, return_steps: bool = False, t0=None,
+              return_closest: bool = False):
         batch = dirs.shape[:-1]
         r = dirs.reshape(-1, 3)
         v = torch.broadcast_to(origins, r.shape).to(r.dtype).clone()
@@ -110,6 +127,8 @@ def make_march(scene: CompiledScene, config: RenderConfig):
         prev_r = torch.zeros_like(d)
         step_len = torch.zeros_like(d)
         omg = torch.full_like(d, omega)
+        smin = torch.full_like(d, MAX_DISTANCE)
+        vmin = v.clone() if return_closest else None
         # The rays still marching; each step evaluates the SDF at these only.
         live = torch.nonzero(~(d > max_d)).squeeze(1)
         for _ in range(config.max_steps):
@@ -117,6 +136,11 @@ def make_march(scene: CompiledScene, config: RenderConfig):
                 break
             steps[live] += 1
             s = sdf(v[live], arrays) * tol
+            if return_closest:
+                closer = s < smin[live]
+                near = live[closer]
+                smin[near] = s[closer]
+                vmin[near] = v[near]
             if omega > 1.0:
                 sl, om = step_len[live], omg[live]
                 sor_ok = ~((om > 1.0) & (torch.abs(s) + prev_r[live] < sl))
@@ -136,10 +160,69 @@ def make_march(scene: CompiledScene, config: RenderConfig):
             d[adv] = d_adv
             live = adv[~(d_adv > max_d)]
         # Rays still marching after max_steps are misses (k1.cl:469).
-        d_out = torch.where(hit, d, torch.full_like(d, -1.0)).reshape(batch)
-        return (d_out, steps.reshape(batch)) if return_steps else d_out
+        out = (torch.where(hit, d, torch.full_like(d, -1.0)).reshape(batch),)
+        if return_closest:
+            out += (vmin.reshape(batch + (3,)),)
+        if return_steps:
+            out += (steps.reshape(batch),)
+        return out if len(out) > 1 else out[0]
 
     return march
+
+
+def fit_ray_march(scene: CompiledScene, config: RenderConfig):
+    """The march of the differentiable renders: the fit's ray-march kernel
+    (:func:`~designcsg_tpu_torch.ops.cuda.march_kernel.make_cuda_ray_march`,
+    which takes its plain version for CPU tensors), or that plain version on
+    every device when ``config.use_pallas_march is False`` -- the JAX
+    package's switch from its kernel to its jnp march (raymarch.py:67-85).
+    ``(arrays, o_proj f32[3], rays f32[..., 3]) -> (d, vmin)``, detached."""
+    from .cuda.march_kernel import make_cuda_ray_march
+
+    ray_march = make_cuda_ray_march(scene, config)
+    return ray_march.plain if config.use_pallas_march is False else ray_march
+
+
+def ift_depth(sdf, d0, origins, dirs, arrays: SceneArrays):
+    """Reattach gradients to a detached march's hit distances ``d0`` by the
+    implicit function theorem (raymarch.py:341-371,556-560 of the JAX
+    package).  At a hit, ``f(d, theta) = sdf(o + d*r)`` is pinned, so
+    ``dd/dtheta = -f_theta / f_d`` with ``f_d`` the derivative of the SDF
+    along the ray at ``p = o + d0*r`` (a ``jvp`` with the banks frozen).  The
+    value equals ``d0`` bit for bit (``f - f.detach()`` is 0); misses are -1
+    with no gradient."""
+    frozen = arrays.detach()
+    hit = d0 > 0.0
+    p = origins + d0[..., None] * dirs
+    f = sdf(p, arrays)
+    _, f_d = torch.func.jvp(lambda q: sdf(q, frozen), (p,), (dirs,))
+    denom = torch.where(f_d.abs() > 1e-6, f_d, torch.sign(f_d) * 1e-6 + 1e-12)
+    return torch.where(hit, d0 - (f - f.detach()) / denom.detach(), -1.0)
+
+
+def soft_alpha(s_min, config: RenderConfig, bandwidth: float):
+    """The soft silhouette ``sigmoid((eps - s_min) / bandwidth)``
+    (raymarch.py:487,562 of the JAX package).  The bandwidth is a tensor so
+    that CUDA divides too, as the CPU does."""
+    bw = torch.tensor(bandwidth, dtype=s_min.dtype, device=s_min.device)
+    return torch.sigmoid((config.sdf_epsilon - s_min) / bw)
+
+
+def make_differentiable_march(scene: CompiledScene, config: RenderConfig):
+    """``march_diff(origins f32[3], dirs f32[..., 3], arrays) -> d``: the
+    march with exact implicit-function-theorem gradients
+    (raymarch.py:341-371 of the JAX package).  It marches detached (the
+    fit's ray-march kernel on the card) and reattaches by :func:`ift_depth`:
+    O(1) memory in the march's steps, one more SDF evaluation and one
+    ``jvp``."""
+    ray_march = fit_ray_march(scene, config)
+    sdf = make_primary_sdf(scene, gizmo=config.gizmo)
+
+    def march_diff(origins, dirs, arrays: SceneArrays):
+        d0, _ = ray_march(arrays, origins, dirs)
+        return ift_depth(sdf, d0, origins, dirs, arrays)
+
+    return march_diff
 
 
 def cone_slope(config: RenderConfig) -> float:
@@ -269,6 +352,79 @@ def make_renderer(scene: CompiledScene, config: Optional[RenderConfig] = None):
         return torch.where((d > 0.0)[..., None], color, miss_color)
 
     return render
+
+
+def make_ray_renderer(scene: CompiledScene, config: Optional[RenderConfig] = None):
+    """``render_rays(arrays, o_proj f32[3], r_proj f32[..., 3], rgt, upp,
+    fwd) -> f32[..., 3]``: the ray-level renderer of the fit
+    (raymarch.py:434-491 of the JAX package), differentiable with respect to
+    ``arrays``.  With ``config.differentiable`` the hit distance carries the
+    implicit-function-theorem gradient (:func:`ift_depth`).
+
+    With ``config.soft_silhouette_bandwidth > 0`` a near-miss ray shades at
+    its closest approach ``vmin`` and fades with ``sigma = sigmoid((eps -
+    sdf(vmin)) / bw)``; a hit keeps its hard value with ``sigma`` as a
+    zero-valued gradient carrier (``alpha = 1 + (sigma - sigma.detach())``).
+    By the envelope theorem reattaching only through the SDF value at the
+    frozen closest point is first-order exact.  The JAX package marches twice
+    here (its differentiable march, then the closest-approach march); one
+    march returns both, so this port marches once."""
+    config = config or RenderConfig()
+    ray_march = fit_ray_march(scene, config)
+    sdf = make_primary_sdf(scene, gizmo=config.gizmo)
+    normal_fn = make_normal_fn(sdf, mode=config.normal_mode, epsilon=config.normal_epsilon)
+    shade = make_shade(scene, config)
+    soft_bw = config.soft_silhouette_bandwidth
+
+    def render_rays(arrays: SceneArrays, o_proj, r_proj, rgt, upp, fwd):
+        d, vmin = ray_march(arrays, o_proj, r_proj)
+        if config.differentiable:
+            d = ift_depth(sdf, d, o_proj, r_proj, arrays)
+        hit = d > 0.0
+        p = o_proj + d[..., None] * r_proj
+        ctx = EvalContext(ad=arrays.ad, rgt=rgt, upp=upp, fwd=fwd)
+        miss_color = torch.tensor(config.miss_color, dtype=p.dtype, device=p.device)
+        if soft_bw <= 0:
+            color = shade(p, normal_fn(p, arrays), arrays, ctx)
+            return torch.where(hit[..., None], color, miss_color)
+        p_used = torch.where(hit[..., None], p, vmin)
+        color = shade(p_used, normal_fn(p_used, arrays), arrays, ctx)
+        sigma = soft_alpha(sdf(vmin, arrays), config, soft_bw)
+        alpha = torch.where(hit, 1.0 + (sigma - sigma.detach()), sigma)[..., None]
+        return alpha * color + (1.0 - alpha) * miss_color
+
+    return render_rays
+
+
+def make_geometry_renderer(scene: CompiledScene, config: Optional[RenderConfig] = None):
+    """``render_geom(arrays, o_proj f32[3], r_proj f32[..., 3]) -> (depth,
+    alpha)``: the depth and soft-silhouette renderer of the geometric fit
+    (raymarch.py:494-565 of the JAX package).  One detached march returns
+    both the hit distance and the closest approach; depth carries the
+    implicit-function-theorem gradient (:func:`ift_depth`, continuous across
+    union creases), alpha ``= sigmoid((eps - sdf(vmin)) / bw)`` the boundary
+    gradient, with ``bw = soft_silhouette_bandwidth or 0.02``.
+
+    ``config.fit_field`` names the field the gradient reattachment
+    evaluates: ``"exact"`` (the tape) or ``"twin"`` (the field the kernels
+    compute).  For every design this package has (Design1, Design2) the
+    torch brush is both the exact field and the one its CUDA body computes,
+    so ``"twin"`` evaluates the same tape; a baked twin (the JAX package's
+    Logo) is not ported.  Any other value raises ``ValueError``."""
+    if config is None:
+        config = RenderConfig(differentiable=True, soft_silhouette_bandwidth=0.02)
+    if config.fit_field not in ("exact", "twin"):
+        raise ValueError(f"fit_field must be 'exact' or 'twin', got {config.fit_field!r}")
+    ray_march = fit_ray_march(scene, config)
+    sdf = make_primary_sdf(scene, gizmo=config.gizmo)
+    bw = config.soft_silhouette_bandwidth or 0.02
+
+    def render_geom(arrays: SceneArrays, o_proj, r_proj):
+        d0, vmin = ray_march(arrays, o_proj, r_proj)
+        depth = ift_depth(sdf, d0, o_proj, r_proj, arrays)
+        return depth, soft_alpha(sdf(vmin, arrays), config, bw)
+
+    return render_geom
 
 
 def coarse_ray_uv(config: RenderConfig) -> np.ndarray:

@@ -1,4 +1,5 @@
-"""Homogeneous transform algebra (float64 numpy).
+"""Homogeneous transform algebra (float64 numpy, and a differentiable torch
+copy of the chain the fit needs).
 
 Reproduces the reference's conventions exactly so compiled scenes are
 bit-comparable (reference: scenecompiler.py:42-143):
@@ -11,12 +12,16 @@ bit-comparable (reference: scenecompiler.py:42-143):
 * ``reciprocal_vector(v) = v / ||v||**2`` — the trick that lets a non-uniform
   scale+rotation frame be inverted row-by-row without a matrix inverse.
 
-The scene compiler is host code, so this module is numpy only.
+The scene compiler is host code and uses the numpy functions.  The functions
+ending in ``_t`` are the same chain in torch (the JAX package's ``xp=jnp``
+path, transforms.py:27-154 there), batched over leading axes and
+differentiable: pose.py rebuilds the object banks from pose tensors with them.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _HALF_PI = np.pi / 2.0
 
@@ -125,6 +130,67 @@ def rotation(yaw, pitch, roll):
 def initial(position, yaw, pitch, roll, scale):
     """T * R * S (scenecompiler.py:133-135)."""
     return translation(position) @ rotation(yaw, pitch, roll) @ scaling(scale)
+
+
+def _matrix_t(rows):
+    """f[..., 4, 4] from a 4x4 nested list of f[...] tensors, rows first."""
+    return torch.stack([torch.stack(row, dim=-1) for row in rows], dim=-2)
+
+
+def reciprocal_vector_t(v):
+    """v / ||v||^2 over the last axis."""
+    return v / torch.sum(v * v, dim=-1, keepdim=True)
+
+
+def translation_t(offset):
+    """f[..., 4, 4] translation by ``offset`` f[..., 3]."""
+    x, y, z = offset.unbind(-1)
+    zero, one = torch.zeros_like(x), torch.ones_like(x)
+    return _matrix_t([[one, zero, zero, x], [zero, one, zero, y], [zero, zero, one, z],
+                      [zero, zero, zero, one]])
+
+
+def eulerY_t(yaw):
+    """:func:`eulerY` for f[...] angles: rows listed, then transposed."""
+    c, s = torch.cos(-yaw), torch.sin(-yaw)
+    c2, s2 = torch.cos(-yaw + _HALF_PI), torch.sin(-yaw + _HALF_PI)
+    zero, one = torch.zeros_like(c), torch.ones_like(c)
+    return _matrix_t([[c, zero, s, zero], [zero, one, zero, zero], [c2, zero, s2, zero],
+                      [zero, zero, zero, one]]).transpose(-1, -2)
+
+
+def eulerX_t(pitch):
+    """:func:`eulerX` for f[...] angles."""
+    s1, c1 = torch.sin(pitch + _HALF_PI), torch.cos(pitch + _HALF_PI)
+    s2, c2 = torch.sin(pitch), torch.cos(pitch)
+    zero, one = torch.zeros_like(s1), torch.ones_like(s1)
+    return _matrix_t([[one, zero, zero, zero], [zero, s1, c1, zero], [zero, s2, c2, zero],
+                      [zero, zero, zero, one]]).transpose(-1, -2)
+
+
+def eulerZ_t(roll):
+    """:func:`eulerZ` for f[...] angles."""
+    c1, s1 = torch.cos(roll), torch.sin(roll)
+    c2, s2 = torch.cos(roll + _HALF_PI), torch.sin(roll + _HALF_PI)
+    zero, one = torch.zeros_like(c1), torch.ones_like(c1)
+    return _matrix_t([[c1, s1, zero, zero], [c2, s2, zero, zero], [zero, zero, one, zero],
+                      [zero, zero, zero, one]]).transpose(-1, -2)
+
+
+def scaling_t(scale):
+    """f[..., 4, 4] diagonal scale from ``scale`` f[..., 3]."""
+    return torch.diag_embed(torch.cat([scale, torch.ones_like(scale[..., :1])], dim=-1))
+
+
+def rotation_t(yaw, pitch, roll):
+    """Y * X * Z composition, as :func:`rotation`."""
+    return eulerY_t(yaw) @ eulerX_t(pitch) @ eulerZ_t(roll)
+
+
+def initial_t(position, yaw, pitch, roll, scale):
+    """T * R * S, as :func:`initial`: ``position`` and ``scale`` f[..., 3],
+    the angles f[...]."""
+    return translation_t(position) @ rotation_t(yaw, pitch, roll) @ scaling_t(scale)
 
 
 class Transform:

@@ -1,7 +1,7 @@
 """The port's CLI (``python -m designcsg_tpu_torch.cli``) in process on the
 CPU, mirroring tests/test_cli.py: render (also ``--fast``), render by script
-path, export, artifacts against the JAX package's ``write_artifacts``, and
-the commands that are not ported yet."""
+path, export, artifacts against the JAX package's ``write_artifacts``, fit,
+and the commands that are not ported yet."""
 
 import os
 
@@ -10,6 +10,7 @@ import pytest
 
 from designcsg_tpu_torch import cli
 from designcsg_tpu_torch.config import RenderConfig
+from designcsg_tpu_torch.parallel.fit import load_checkpoint
 
 
 @pytest.mark.parametrize("fast", [False, True])
@@ -64,6 +65,17 @@ def test_artifacts_command_matches_jax(tmp_path, name):
     jc.write_artifacts(str(tmp_path / "jax"))
     for f in ("scene.txt", "buildprocedure.txt", "arbitrary_data.hex"):
         assert (tmp_path / "torch" / f).read_bytes() == (tmp_path / "jax" / f).read_bytes(), f
+
+
+def test_fit_command(tmp_path, capsys):
+    out = tmp_path / "fit"
+    cli.main(["fit", "design1", "-o", str(out), "--width", "32", "--height", "24",
+              "--steps", "3", "--device", "cpu"])
+    printed = capsys.readouterr().out
+    assert "fitting 3 steps on 1 device(s)" in printed
+    assert printed.count("max pos err") == 3
+    state = load_checkpoint(str(out / "fit.ckpt"), device="cpu")
+    assert state.step == 3 and tuple(state.params["position"].shape) == (11, 3)
 
 
 def test_png_round_trip(tmp_path):

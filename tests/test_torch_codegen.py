@@ -1,7 +1,8 @@
 """Host build of the generated CUDA scene code.
 
 Every per-point function the kernels inline (brushes, the unrolled tape, the
-gizmo, shading, the per-pixel march, the cone prepass's per-ray march) is
+gizmo, shading, the per-pixel march, the cone prepass's per-ray march, the
+fit's per-ray march with its closest approach) is
 ``HD``: plain inline C++ under a host compiler.  Here Design1's and Design2's
 generated sources are compiled with g++ beside a tiny C harness
 (csrc/host_harness.cpp), loaded with ctypes and held against the plain
@@ -28,8 +29,10 @@ from designcsg_tpu_torch.ops.raymarch import (
     camera_rows,
     coarse_ray_uv,
     make_cone_march,
+    make_march,
     make_renderer,
     project,
+    ray_directions,
 )
 
 _P = ctypes.c_void_p
@@ -37,14 +40,17 @@ RENDER = RenderConfig(width=128, height=32, max_steps=80)
 # The fast viewport at a size F = 5 divides: over-relaxed, cone prepass.
 FAST = RenderConfig(width=160, height=120, max_steps=96, march_overrelax=1.6,
                     march_hierarchical=True)
+# The fit's ray march: no gizmo, tests/test_pallas.py:143's size.
+FIT = RenderConfig(width=128, height=32, max_steps=80, gizmo=False)
 
 
 @pytest.fixture(scope="module")
 def host_libs(tmp_path_factory):
     """{(design, kind): ctypes library} built in parallel from each design's
     generated source: "sdf" (the k2 field), "gizmo" (Design1's k1 field with
-    the exact-march renderer) and "fast" (the k1 field with the over-relaxed
-    renderer and the cone march)."""
+    the exact-march renderer), "fast" (the k1 field with the over-relaxed
+    renderer and the cone march) and "fit" (the field without the gizmo and
+    the exact march of the fit's ray-march kernel)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no host C++ compiler (g++) to build the generated source")
@@ -55,6 +61,8 @@ def host_libs(tmp_path_factory):
         ("design1", "fast"): "#define HOST_RENDER\n" + scene_source(scenes["design1"], FAST),
         ("design2", "sdf"): scene_source(scenes["design2"]),
         ("design2", "fast"): "#define HOST_RENDER\n" + scene_source(scenes["design2"], FAST),
+        ("design1", "fit"): "#define HOST_RENDER\n" + scene_source(scenes["design1"], FIT),
+        ("design2", "fit"): "#define HOST_RENDER\n" + scene_source(scenes["design2"], FIT),
     }
     out = tmp_path_factory.mktemp("host_build")
     running = {}
@@ -73,6 +81,7 @@ def host_libs(tmp_path_factory):
         if key[1] != "sdf":
             lib.host_render.argtypes = [_P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P]
             lib.host_cone_march.argtypes = [_P, ctypes.c_longlong, _P, _P, _P, _P]
+            lib.host_ray_march.argtypes = [_P, _P, ctypes.c_longlong, _P, _P, _P, _P]
         libs[key] = lib
     return scenes, libs
 
@@ -183,6 +192,34 @@ def test_generated_cone_and_t0_render_match_plain(host_libs, name):
     img = _render(lib, scene, FAST, cam_arrays, t0)
     plain = make_renderer(scene, FAST)(arrays, *cam_arrays, t0=torch.from_numpy(t0)).numpy()
     _assert_render_close(img, plain)
+
+
+@pytest.mark.parametrize("kind", ["fit", "fast"])
+@pytest.mark.parametrize("name", ["design1", "design2"])
+def test_generated_ray_march_matches_plain(host_libs, name, kind):
+    """The per-ray march with closest approach (``march_ray_closest``: exact
+    without the gizmo, and over-relaxed with it) against the plain
+    ``make_march(return_closest=True)`` on the same rays: identical hit sets,
+    d and vmin within 1e-5 (tests/test_pallas.py:153-156)."""
+    scenes, libs = host_libs
+    scene, config = scenes[name], FIT if kind == "fit" else FAST
+    rows = camera_rows(*Camera.initial().orbit(0.2, -0.1).as_arrays())
+    rays = project(ray_directions(config), *torch.from_numpy(rows[1:]))
+    d_ref, vmin_ref = make_march(scene, config)(
+        torch.from_numpy(rows[0]), rays, scene.arrays.to_torch("cpu"), return_closest=True)
+    rays = np.ascontiguousarray(rays.numpy())
+    d = np.empty(rays.shape[:-1], np.float32)
+    vmin = np.empty(rays.shape, np.float32)
+    libs[(name, kind)].host_ray_march(
+        d.ctypes.data, vmin.ctypes.data, d.size, rays.ctypes.data,
+        np.ascontiguousarray(rows[0]).ctypes.data, _bank(scene.arrays).ctypes.data,
+        scene.arrays.ad.ctypes.data,
+    )
+    d_ref, vmin_ref = d_ref.numpy(), vmin_ref.numpy()
+    assert ((d > 0) == (d_ref > 0)).all()
+    assert (d_ref > 0).any() and (d_ref < 0).any()
+    np.testing.assert_allclose(d, d_ref, atol=1e-5)
+    np.testing.assert_allclose(vmin, vmin_ref, atol=1e-5)
 
 
 def test_kernel_source_is_self_contained():

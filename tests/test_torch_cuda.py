@@ -21,10 +21,12 @@ from designcsg_tpu_torch.ops.cuda import build as kbuild
 from designcsg_tpu_torch.ops.cuda.march_kernel import (
     make_cuda_cone_march,
     make_cuda_hierarchical_renderer,
+    make_cuda_ray_march,
     make_cuda_renderer,
 )
 from designcsg_tpu_torch.ops.cuda.sdf_kernel import make_grid_eval, make_point_eval
-from designcsg_tpu_torch.ops.raymarch import camera_rows, coarse_ray_uv, project
+from designcsg_tpu_torch.ops.raymarch import camera_rows, coarse_ray_uv, project, ray_directions
+from designcsg_tpu_torch.parallel.fit import make_fit_harness
 
 pytestmark = pytest.mark.cuda
 
@@ -156,3 +158,52 @@ def test_fast_renderer_kernels(name, hierarchical, design1, design2):
     torch.cuda.synchronize()
     assert all(kbuild.LAUNCHES[k] == before[k] + 1 for k in kinds)
     assert _render_close(got, render.plain(arrays, *cam))
+
+
+FIT = RenderConfig(differentiable=True, soft_silhouette_bandwidth=0.02, gizmo=False)
+
+
+@pytest.mark.parametrize("omega", [1.0, 1.6])
+@pytest.mark.parametrize("name", ["design1", "design2"])
+def test_ray_march_kernel(name, omega, design1, design2):
+    """The fit's ray march at 640x480 against its plain version on the same
+    rays: identical hit sets, d and vmin within 1e-5
+    (tests/test_pallas.py:153-156)."""
+    scene, arrays = design1 if name == "design1" else design2
+    config = dataclasses.replace(FIT, march_overrelax=omega)
+    ray_march = make_cuda_ray_march(scene, config)
+    rows = camera_rows(*Camera.initial().orbit(0.2, -0.1).as_arrays())
+    rays = project(ray_directions(config, arrays.ad.device),
+                   *torch.as_tensor(rows[1:], device=arrays.ad.device))
+    before = kbuild.LAUNCHES["ray_march"]
+    d, vmin = ray_march(arrays, rows[0], rays)
+    torch.cuda.synchronize()
+    assert kbuild.LAUNCHES["ray_march"] == before + 1
+    d_ref, vmin_ref = ray_march.plain(arrays, rows[0], rays)
+    assert torch.equal(d > 0, d_ref > 0)
+    assert float((d - d_ref).abs().max()) <= 1e-5
+    assert float((vmin - vmin_ref).abs().max()) <= 1e-5
+
+
+def test_fit_step_kernel_matches_plain_march(design1):
+    """One geometric fit step's loss and position gradient with the kernel
+    march against the same step with the plain march, on the card: loss rtol
+    1e-5, gradient atol 1e-5 (tests/test_pallas.py:223-226)."""
+    scene, _ = design1
+    cam = Camera.initial().as_arrays()
+    start = np.asarray(scene.arrays.position).copy()
+    start[1:, 0] += 0.05
+    out = {}
+    for name, config in (("kernel", FIT), ("plain", dataclasses.replace(FIT, use_pallas_march=False))):
+        harness = make_fit_harness(scene, config)
+        target = harness.render_target(scene.arrays, *cam)
+        params = harness.init({"position": start}).params
+        before = kbuild.LAUNCHES["ray_march"]
+        loss = harness.loss_fn(params, target, *cam)
+        loss.backward()
+        launched = kbuild.LAUNCHES["ray_march"] - before
+        assert launched == (1 if name == "kernel" else 0)
+        out[name] = (loss.item(), params["position"].grad)
+    assert abs(out["kernel"][0] - out["plain"][0]) <= 1e-5 * abs(out["plain"][0])
+    assert float((out["kernel"][1] - out["plain"][1]).abs().max()) <= 1e-5
+    assert float(out["kernel"][1].abs().max()) > 0

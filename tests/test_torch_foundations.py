@@ -35,14 +35,34 @@ def test_render_config_fields_and_defaults_equal():
         dict(normal_mode="analytic"),
         dict(march_cull="dynamic"),
         dict(march_cull=True),
-        dict(differentiable=True),
-        dict(soft_silhouette_bandwidth=0.02),
         dict(march_proxy=True),
     ],
 )
 def test_unported_knobs_raise_naming_roadmap(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tconfig.RenderConfig(**knob)
+
+
+@pytest.mark.parametrize(
+    "knob",
+    [
+        dict(differentiable=True),
+        dict(soft_silhouette_bandwidth=0.02),
+        dict(differentiable=True, soft_silhouette_bandwidth=0.02, gizmo=False, fit_field="twin"),
+    ],
+)
+def test_differentiable_knobs_build(knob):
+    config = tconfig.RenderConfig(**knob)
+    assert all(getattr(config, k) == v for k, v in knob.items())
+
+
+def test_unknown_fit_field_raises():
+    from designcsg_tpu_torch.designs import get_design
+    from designcsg_tpu_torch.ops.raymarch import make_geometry_renderer
+
+    config = tconfig.RenderConfig(differentiable=True, fit_field="bogus")
+    with pytest.raises(ValueError, match="fit_field"):
+        make_geometry_renderer(get_design("design1"), config)
 
 
 def test_fast_viewport_knobs_build():
