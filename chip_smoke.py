@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels of Design1 and Design2 (point eval, grid eval, the
-fused renderer exact and fast, the cone prepass, the fit's ray march) from the
-sources in this checkout, all nvcc runs at once, and holds each against its
-plain PyTorch version at the main paths' shapes.  Then it drives five main
-paths through the user entry points, with launch counts set to 0 before each
-and read after:
+Builds the CUDA kernels of Design1, Design2 and Logo (point eval, grid eval,
+the fused renderer exact and fast, the cone prepass, the fit's ray march; in
+Logo's, csrc/table.cuh samples the baked letter tables, K6) from the sources
+in this checkout, all nvcc runs at once, and holds each against its plain
+PyTorch version at the main paths' shapes.  Then it drives seven main paths
+through the user entry points, with launch counts set to 0 before each and
+read after:
 
 * Design1's viewport, a k2 query and the dense 256^3 export to STL/PLY;
 * Design1's fast viewport: ``cli render design1 --fast`` (cone prepass +
@@ -20,7 +21,14 @@ and read after:
   ``make_fit_harness``, ``render_target`` and 10 Adam steps, 11 ray-march
   launches; one step is held against the same step with the plain march;
 * D': ``cli fit design1`` at its defaults (64x48, 150 steps), whose printed
-  position error must fall.
+  position error must fall;
+* E: Logo: ``cli render logo`` and ``cli render logo --fast`` at 640x480, the
+  over-relaxed viewport, a 2^20-point k2 query on the exact tape and on the
+  baked field, and bench.py's Logo export (128^3 dense, 50 refine steps) on
+  both fields, the baked mesh held to the exact field within 2x the twin's
+  tolerance;
+* F: Logo's fit at 640x480 (bench.py's configuration): ``render_target`` and
+  3 Adam steps for ``fit_field`` exact and twin, 8 ray-march launches.
 
 It times every kernel and its plain version with CUDA events (and Design1's
 renderer built with and without FMA contraction against each other), and
@@ -29,12 +37,19 @@ prints:
 * the ``-Xptxas -v`` report of the build;
 * a ``{"kernels": [...]}`` JSON line, one entry per kernel, mode and design
   (launches on its main path, error against the plain version, times, the
-  card's lower bound).  ``ms`` is the mean time per call by CUDA events over
-  back-to-back calls (launch overhead included), ``device_ms`` the kernel's
-  own time from torch.profiler;
+  card's lower bound; Logo's rows also name K6, which they inline).  ``ms``
+  is the mean time per call by CUDA events over back-to-back calls (launch
+  overhead included), ``single_ms`` the median by events of single calls on
+  an idle card, ``device_ms`` the mean of torch.profiler's records of the
+  kernel;
+* per design a ``timing_crosscheck`` line, each kernel's time read those
+  three ways and by events over 1, 4, 16 and 64 calls; for Logo a
+  ``k6_table_read_model`` line: the time its table reads alone would take at
+  an assumed L1 rate, a model and not a measurement;
 * a ``fit_step`` JSON line: one fit step's time by events, split into the
   ray march, the gradient reattachment (forward and backward) and Adam, its
-  peak device memory and effective Mrays/s;
+  peak device memory and effective Mrays/s; and a ``fit_step_logo`` line,
+  Logo's step time and peak memory per ``fit_field``;
 * the card's name and power limit, as nvidia-smi reports them;
 * last, ``{"ok": true, "device": {...}}``.
 
@@ -60,8 +75,10 @@ import torch
 
 from designcsg_tpu_torch import cli
 from designcsg_tpu_torch.camera import Camera
+from designcsg_tpu_torch.compiler import ExportConfig
 from designcsg_tpu_torch.config import RenderConfig
 from designcsg_tpu_torch.designs import get_design
+from designcsg_tpu_torch.designs.logo import LETTER_TABLE_READS
 from designcsg_tpu_torch.evaluator import BatchEvaluator
 from designcsg_tpu_torch.export import writers
 from designcsg_tpu_torch.export.pipeline import autodetect_bounding_box_device, export_mesh
@@ -92,11 +109,16 @@ from designcsg_tpu_torch.ops.raymarch import (
 from designcsg_tpu_torch.parallel.fit import make_fit_harness
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-DESIGNS = ("design1", "design2")
+DESIGNS = ("design1", "design2", "logo")
+GOLDENS = ("design1", "design2")
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
+# An assumed L1 load rate of an SM, not a measured one: one 128 B wavefront
+# per cycle (a warp's 32 four-byte loads).  Only the ``k6_table_read_model``
+# line uses it, the time Logo's table reads alone would need at this rate.
+L1_BYTES_PER_CLOCK = 128
 
 # FP32 operations (a fused multiply-add counts 2).  Each brush carries the
 # count of its CUDA body (Brush.cuda_flops); a brush that ignores its
@@ -111,6 +133,10 @@ HIERARCHICAL_EXACT = RenderConfig(march_hierarchical=True)
 # The fit (bench.py:284-342): 640x480, exact march of 512 steps, no gizmo.
 FIT = RenderConfig(differentiable=True, soft_silhouette_bandwidth=0.02, gizmo=False)
 FIT_OVERRELAX = dataclasses.replace(FIT, march_overrelax=1.6)
+# bench.py:256-263's Logo export: plates at world radius ~3.1, a 128^3 grid,
+# 50 refine steps (dense: the adaptive strategy is not ported).
+LOGO_EXPORT = ExportConfig(bounding_box_half_diameter=3.5, grid_level=7, minimum_octree_level=5,
+                           maximum_octree_level=7, gradient_descent_steps=50)
 
 MARCH_PY = "designcsg_tpu/ops/pallas/march_kernel.py"
 SOURCES = {
@@ -124,6 +150,8 @@ SOURCES = {
     "cone_march": ("designcsg_tpu_torch/csrc/cone_kernel.cu", f"{MARCH_PY}:202"),
     "ray_march": ("designcsg_tpu_torch/csrc/ray_march_kernel.cu", f"{MARCH_PY}:45"),
 }
+# K6, inlined into every kernel of a scene with baked tables (Logo).
+K6_SOURCE = ("designcsg_tpu_torch/csrc/table.cuh", "designcsg_tpu/ops/pallas/table.py:45")
 
 
 def tape_ops(scene) -> int:
@@ -140,9 +168,29 @@ def tape_ops(scene) -> int:
     return ops
 
 
+def table_reads(scene) -> int:
+    """Four-byte table reads of one tape evaluation (K6, Logo's letters)."""
+    return sum(LETTER_TABLE_READS for b in scene.arrays.shape_id
+               if scene.brush_names[int(b)].startswith("letter_"))
+
+
 def bound_ms(n_bytes: float, n_ops: float):
     t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / PEAK_FP32
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def enqueue_ms(fn, iters: int = 20) -> float:
+    """Mean host time per call to enqueue ``fn()`` back to back (no
+    synchronization inside the window): where it reaches the events time,
+    the host, not the card, sets the pace."""
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - start) / iters * 1e3
+    torch.cuda.synchronize()
+    return host
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -160,10 +208,13 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_ms(fn, kernel: str, iters: int = 10):
-    """Mean device time per call of the CUDA kernels named ``kernel`` under
-    ``fn()``, from torch.profiler's CUDA activity; None when the profiler
-    records no such kernel."""
+def kernel_records(fn, kernels, iters: int = 10):
+    """torch.profiler's timeline of the CUDA kernels whose names contain one
+    of ``kernels``, over ``iters`` back-to-back calls of ``fn()``: per name,
+    the number of records, their mean, least and largest duration, the mean
+    idle gap between consecutive records and the span from the first start
+    to the last end (ms).  A name with no record is left out."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -172,12 +223,43 @@ def device_ms(fn, kernel: str, iters: int = 10):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(
-        getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
-        for e in prof.key_averages()
-        if kernel in e.key
-    )
-    return total / iters / 1e3 if total > 0 else None
+    out = {}
+    for kernel in kernels:
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == DeviceType.CUDA and kernel in e.name)
+        if not spans:
+            continue
+        durs = [(end - begin) / 1e3 for begin, end in spans]
+        gaps = [(spans[i + 1][0] - spans[i][1]) / 1e3 for i in range(len(spans) - 1)]
+        out[kernel] = dict(records=len(spans), mean_ms=sum(durs) / len(durs), min_ms=min(durs),
+                           max_ms=max(durs), gap_ms=sum(gaps) / len(gaps) if gaps else None,
+                           span_ms=(spans[-1][1] - spans[0][0]) / 1e3)
+    return out
+
+
+def device_ms(fn, kernel: str, iters: int = 10):
+    """Mean duration of one record of the CUDA kernel named ``kernel`` under
+    ``fn()`` in torch.profiler's timeline; None when it records none."""
+    rec = kernel_records(fn, (kernel,), iters).get(kernel)
+    return rec["mean_ms"] if rec else None
+
+
+def single_ms(fn, repeats: int = 10) -> float:
+    """Median time by CUDA events of one call of ``fn()`` started on an idle
+    card (the host's enqueue time included)."""
+    fn()
+    return float(np.median([timed_once(fn)[1] for _ in range(repeats)]))
+
+
+def crosscheck(fn, kernel: str) -> dict:
+    """Three reads of one kernel's time: by CUDA events per call over N
+    back-to-back calls for several N (``by_n``; the step from 16 to 64 calls,
+    ``steady_ms``, is the card's time per call once the queue is full), by
+    events around single calls (``single_ms``) and by torch.profiler's
+    records of the kernel over 20 calls (``profiler``)."""
+    by_n = {n: cuda_ms(fn, n) for n in (1, 4, 16, 64)}
+    return dict(by_n=by_n, steady_ms=(64 * by_n[64] - 16 * by_n[16]) / 48,
+                single_ms=single_ms(fn), profiler=kernel_records(fn, (kernel,), 20).get(kernel))
 
 
 def busy_ms(fn, iters: int = 5):
@@ -324,9 +406,15 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    print(f"  {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    sm_clock_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"  {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}; {sms} SMs, "
+          f"max SM clock {sm_clock_hz / 1e6:.0f} MHz", flush=True)
 
-    phase("2. build both designs' kernels (nvcc, sm_90a, one process per unit)")
+    phase("2. build the three designs' kernels (nvcc, sm_90a, one process per unit)")
     scenes = {name: get_design(name) for name in DESIGNS}
     units = {}
     for name, scene in scenes.items():
@@ -374,7 +462,9 @@ def main() -> int:
     for step, (name, scene) in enumerate(scenes.items()):
         k, a = kernels[name], arrays[name]
         phase(f"{3 + step}a. {name}: point eval (2^20 points) and grid eval (33x257x257) vs plain")
-        half = scene.export_config.bounding_box_half_diameter / 2.0
+        # Design1/2: half their export box; Logo: bench.py's export box.
+        half = (scene.export_config.bounding_box_half_diameter / 2.0 if scene.export_config
+                else LOGO_EXPORT.bounding_box_half_diameter)
         pts = torch.from_numpy(rng.uniform(-half, half, (1 << 20, 3)).astype(np.float32)).to(dev)
         inputs[name] = dict(pts=pts)
         for kernel, got, ref in (
@@ -389,8 +479,10 @@ def main() -> int:
                   f"{name} {kernel} {tuple(got.shape)} max|d| = {float(err.max()):.3g} "
                   f"within 1e-5 + 1e-6|ref|")
 
-        phase(f"{3 + step}b. {name}: renderers vs plain at 640x480; u8 160x120 vs golden")
+        golden = "; u8 160x120 vs golden" if name in GOLDENS else ""
+        phase(f"{3 + step}b. {name}: renderers vs plain at 640x480{golden}")
         exact, exact_plain = k["renderer"](a, *cam), k["renderer"].plain(a, *cam)
+        images[name] = dict(exact=exact)
         results[("renderer", name)] = dict(
             max_abs_err=check_render(f"{name} exact", exact, exact_plain))
         over = k["renderer_overrelax"](a, *cam)
@@ -429,7 +521,7 @@ def main() -> int:
         print(f"  {name} over-relaxed vs exact {hit_rules(over, exact, EXACT.miss_color)}; "
               f"cone prepass at omega = 1 vs exact "
               f"{hit_rules(k['hierarchical_exact'](a, *cam), exact, EXACT.miss_color)}")
-        images[name] = dict(hierarchical=hier, overrelax=over)
+        images[name].update(hierarchical=hier, overrelax=over)
 
         phase(f"{3 + step}c. {name}: the fit's ray march vs plain at 640x480 (fit config)")
         o_fit, r_fit = fit_rays(FIT, cam, dev)
@@ -446,12 +538,13 @@ def main() -> int:
             over = make_cuda_ray_march(scene, FIT_OVERRELAX)
             check_ray_march(f"{name} ray_march omega=1.6", over(a, o_fit, r_fit),
                             over.plain(a, o_fit, r_fit))
-        small = to_u8(render_scene(scene, config=RenderConfig(width=160, height=120)))
-        golden = np.load(os.path.join(ROOT, "tests", "goldens", f"{name}_160x120.npy"))
-        frac = float((np.abs(small.cpu().numpy().astype(int) - golden.astype(int)).max(-1) > 2).mean())
-        check(frac < 0.002, f"{name} 160x120 u8 pixels off the golden by > 2 levels: {frac:.4%} < 0.2%")
+        if name in GOLDENS:
+            small = to_u8(render_scene(scene, config=RenderConfig(width=160, height=120)))
+            golden = np.load(os.path.join(ROOT, "tests", "goldens", f"{name}_160x120.npy"))
+            frac = float((np.abs(small.cpu().numpy().astype(int) - golden.astype(int)).max(-1) > 2).mean())
+            check(frac < 0.002, f"{name} 160x120 u8 pixels off the golden by > 2 levels: {frac:.4%} < 0.2%")
 
-    phase("5. small dense export of Design1 on the card vs the plain CPU path")
+    phase("6. small dense export of Design1 on the card vs the plain CPU path")
     scene = scenes["design1"]
     small_cfg = dataclasses.replace(scene.export_config, grid_level=5, gradient_descent_steps=5)
     kw = dict(export_config=small_cfg, autodetect_resolution=32, strategy="dense")
@@ -468,7 +561,7 @@ def main() -> int:
 
     launches = {}  # (kernel, design) -> launches on its main path
 
-    phase("6. main path A, Design1: render, point eval, dense 256^3 export (launches counted)")
+    phase("7. main path A, Design1: render, point eval, dense 256^3 export (launches counted)")
     kbuild.LAUNCHES.clear()
     t0 = time.time()
     image = render_scene(scene)
@@ -502,7 +595,7 @@ def main() -> int:
     for path, name in (("B", "design1"), ("C", "design2")):
         scene = scenes[name]
         extra = ", exact viewport, k2 query, bounding-box scan" if name == "design2" else ""
-        phase(f"7{path}. main path {path}, {name}: `cli render {name} --fast`, "
+        phase(f"8{path}. main path {path}, {name}: `cli render {name} --fast`, "
               f"over-relaxed viewport{extra} (launches counted)")
         kbuild.LAUNCHES.clear()
         t0 = time.time()
@@ -542,7 +635,7 @@ def main() -> int:
             check(counted.get(kernel, 0) > 0, f"{name} {kernel} launched {counted.get(kernel, 0)} times")
             launches[(kernel, name)] = counted[kernel]
 
-    phase("7D. main path D, Design1 fit at 640x480: render_target and 10 Adam steps "
+    phase("8D. main path D, Design1 fit at 640x480: render_target and 10 Adam steps "
           "(launches counted)")
     scene = scenes["design1"]
     start = np.asarray(scene.arrays.position).copy()
@@ -580,7 +673,7 @@ def main() -> int:
           f"step gradient max|d| vs plain march = {float((gk - gp).abs().max()):.3g} <= 1e-5")
     print(f"  step parameters max|d| vs plain march {float((pk - pp).abs().max()):.3g}")
 
-    phase("7D'. main path D', `cli fit design1` at its defaults (launches counted)")
+    phase("8D'. main path D', `cli fit design1` at its defaults (launches counted)")
     kbuild.LAUNCHES.clear()
     t0 = time.time()
     printed = io.StringIO()
@@ -598,28 +691,148 @@ def main() -> int:
     check(counted.get("ray_march") == 151, f"cli fit: ray_march launched {counted.get('ray_march')} "
                                            f"times == 151")
 
-    phase("8. timing (CUDA events, after warm-up)")
+    phase("8E. main path E, Logo: `cli render logo` with and without --fast, over-relaxed "
+          "viewport, k2 queries and bench's export on both fields (launches counted)")
+    scene, a = scenes["logo"], arrays["logo"]
+    kbuild.LAUNCHES.clear()
+    t0 = time.time()
+    pngs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode, flags in (("exact", []), ("hierarchical", ["--fast"])):
+            png = os.path.join(tmp, f"logo_{mode}.png")
+            cli.main(["render", "logo", *flags, "-o", png])
+            pngs[mode] = cli.read_png(png)
+    over = render_scene(scene, config=OVERRELAX)
+    query = inputs["logo"]["pts"].cpu().numpy()
+    k2 = {}
+    for field, use_kernels in (("exact", None), ("baked", True)):
+        ev = BatchEvaluator(scene, use_kernels=use_kernels)
+        k2[field] = (ev.sdf_field, ev.eval_sdf_at_points(query))
+    exports = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for field, use_kernels in (("exact", None), ("baked", True)):
+            ev = BatchEvaluator(scene, use_kernels=use_kernels)
+            t1 = time.time()
+            mesh, report = export_mesh(scene, LOGO_EXPORT, stl_path=os.path.join(tmp, f"logo_{field}.stl"),
+                                       evaluator=ev, autodetect=False, strategy="dense")
+            torch.cuda.synchronize()
+            exports[field] = (mesh, report, ev, time.time() - t1)
+    torch.cuda.synchronize()
+    main_s = time.time() - t0
+    counted = dict(kbuild.LAUNCHES)
+    print(f"  main path {main_s:.2f} s; launches {counted}")
+    for mode, png in pngs.items():
+        same = float((png == to_u8(images["logo"][mode]).cpu().numpy()).all(-1).mean())
+        check(png.shape == (480, 640, 3) and same == 1.0,
+              f"logo {mode} PNG {png.shape} equals the checked {mode} render on {same:.4%} of pixels")
+    check(torch.equal(over, images["logo"]["overrelax"]),
+          "logo over-relaxed viewport equals the checked over-relaxed render")
+    (field_e, sdf_e), (field_b, sdf_b) = k2["exact"], k2["baked"]
+    check(field_e == "tape-exact" and field_b == "cuda-baked",
+          f"logo k2 fields: default {field_e}, use_kernels=True {field_b}")
+    check(np.isfinite(sdf_e).all() and np.isfinite(sdf_b).all() and (sdf_e < 0).sum() > 100,
+          f"logo k2 queries finite on {len(query)} points, {(sdf_e < 0).sum()} inside")
+    # The exact tape on the card against the same tape on the CPU (a small
+    # sample), and the baked field against the exact one in the band the
+    # march sees (tests/test_logo.py:115-117).
+    sample = torch.from_numpy(query[:4096])
+    cpu = make_primary_sdf(scene)(sample, scene.arrays.to_torch("cpu")).numpy()
+    err = float(np.abs(sdf_e[:4096] - cpu).max())
+    check(err <= 1e-4, f"logo exact k2 on the card vs the CPU tape, 4096 points: max|d| {err:.3g} <= 1e-4")
+    band = (sdf_e > 1e-3) & (sdf_e < 0.1)
+    gap = float(np.abs(sdf_b - sdf_e)[band].max())
+    check(band.sum() > 200 and gap < scene.twin_tolerance,
+          f"logo baked vs exact k2 on {band.sum()} points of the 1e-3..0.1 band: max|d| {gap:.4f} "
+          f"< {scene.twin_tolerance}")
+    (m_e, r_e, ev_e, s_e), (m_b, r_b, ev_b, s_b) = exports["exact"], exports["baked"]
+    print(f"  logo export exact {s_e:.2f} s {json.dumps(r_e.stage_seconds)}, {r_e.num_triangles} "
+          f"triangles; baked {s_b:.2f} s {json.dumps(r_b.stage_seconds)}, {r_b.num_triangles} triangles")
+    check(r_e.stats["sdf_field"] == "tape-exact" and r_b.stats["sdf_field"] == "cuda-baked"
+          and r_b.stats["twin_tolerance"] == scene.twin_tolerance and "twin_tolerance" not in r_e.stats,
+          f"logo export fields: {r_e.stats['sdf_field']}, {r_b.stats['sdf_field']} "
+          f"(tolerance {r_b.stats['twin_tolerance']})")
+    check(min(m_e.num_faces, m_b.num_faces) > 500
+          and abs(m_e.num_faces - m_b.num_faces) < 0.05 * m_e.num_faces,
+          f"logo meshes: {m_e.num_faces} exact and {m_b.num_faces} baked triangles, within 5%")
+    # tests/test_logo.py:267-275: each mesh's vertices lie on the other field's
+    # zero set within 2x the twin's tolerance.
+    tol = 2 * scene.twin_tolerance
+    resid_b = float(np.abs(ev_e.eval_sdf_at_points(m_b.vertices)).max())
+    resid_e = float(np.abs(ev_b.eval_sdf_at_points(m_e.vertices)).max())
+    check(resid_b < tol and resid_e < tol,
+          f"logo baked vertices on the exact zero set within {resid_b:.4f}, exact vertices on the "
+          f"baked zero set within {resid_e:.4f}, both < {tol}")
+    for kernel in ("renderer", "renderer_overrelax", "renderer_t0", "cone_march", "point_eval",
+                   "grid_eval"):
+        check(counted.get(kernel, 0) > 0, f"logo {kernel} launched {counted.get(kernel, 0)} times")
+        launches[(kernel, "logo")] = counted[kernel]
+
+    phase("8F. main path F, Logo fit at 640x480: render_target and 3 Adam steps per fit_field "
+          "(launches counted)")
+    start = np.asarray(scene.arrays.position).copy()
+    start[1:, 0] += 0.05  # bench.py:300-305
+    kbuild.LAUNCHES.clear()
+    t0 = time.time()
+    fit_logo = {}
+    for field in ("exact", "twin"):
+        # Names of their own: path D's harness, target and state are timed below.
+        h_logo = make_fit_harness(scene, dataclasses.replace(FIT, fit_field=field))
+        target_logo = h_logo.render_target(scene.arrays, *cam)
+        state_logo = h_logo.init({"position": start})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        losses, step_ms = [], []
+        for _ in range(3):
+            (state_logo, loss), ms = timed_once(
+                lambda: h_logo.step_fn(state_logo, target_logo, *cam))
+            losses.append(float(loss))
+            step_ms.append(ms)
+        moved = float(np.abs(state_logo.params["position"].detach().cpu().numpy() - start).max())
+        fit_logo[field] = dict(losses=losses, step_ms=step_ms, moved=moved,
+                               peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                               peak_above_resident_bytes=torch.cuda.max_memory_allocated() - base_mem)
+    torch.cuda.synchronize()
+    main_s = time.time() - t0
+    counted = dict(kbuild.LAUNCHES)
+    print(f"  main path {main_s:.2f} s; launches {counted}")
+    for field, out in fit_logo.items():
+        check(all(np.isfinite(out["losses"])) and out["moved"] > 0,
+              f"logo fit [{field}]: losses {out['losses']} finite, positions moved {out['moved']:.3g}")
+    check(counted.get("ray_march") == 8, f"logo fit: ray_march launched {counted.get('ray_march')} "
+                                         f"times == 8 (2 targets + 6 steps)")
+    launches[("ray_march", "logo")] = counted["ray_march"]
+    print(json.dumps({"fit_step_logo": fit_logo}))
+
+    phase("9. timing (CUDA events, after warm-up)")
     frames = {}
     for name, scene in scenes.items():
         k, a, x = kernels[name], arrays[name], inputs[name]
+        calls = {}  # kernel -> (a call, the CUDA kernel's name), for the cross-check
         ops = tape_ops(scene)
+        # Logo's baked tables are an input of every kernel, read once.
+        tables = 4 * sum(t.size for _, t in scene.extras)
         pts, n_pts = x["pts"], x["pts"].shape[0]
         n_grid = 33 * 257 * 257
         n_px = EXACT.width * EXACT.height
         r = results
+        calls["point_eval"] = (lambda: k["point_eval"](pts, a), "point_eval_kernel")
         r[("point_eval", name)].update(
             ms=cuda_ms(lambda: k["point_eval"](pts, a), 100),
-            device_ms=device_ms(lambda: k["point_eval"](pts, a), "point_eval_kernel"),
+            enqueue_ms=enqueue_ms(lambda: k["point_eval"](pts, a)),
             plain_ms=cuda_ms(lambda: k["point_eval"].plain(pts, a), 3),
         )
-        r[("point_eval", name)].update(zip(("bound_ms", "bound_by"), bound_ms(16 * n_pts, ops * n_pts)))
+        r[("point_eval", name)].update(
+            zip(("bound_ms", "bound_by"), bound_ms(16 * n_pts + tables, ops * n_pts)), tape_evals=n_pts)
         grid = (a, glo, gcell, gz0, 33, 257)
+        calls["grid_eval"] = (lambda: k["grid_eval"](*grid), "grid_eval_kernel")
         r[("grid_eval", name)].update(
             ms=cuda_ms(lambda: k["grid_eval"](*grid), 100),
-            device_ms=device_ms(lambda: k["grid_eval"](*grid), "grid_eval_kernel"),
+            enqueue_ms=enqueue_ms(lambda: k["grid_eval"](*grid)),
             plain_ms=cuda_ms(lambda: k["grid_eval"].plain(*grid), 3),
         )
-        r[("grid_eval", name)].update(zip(("bound_ms", "bound_by"), bound_ms(4 * n_grid, ops * n_grid)))
+        r[("grid_eval", name)].update(
+            zip(("bound_ms", "bound_by"), bound_ms(4 * n_grid + tables, ops * n_grid)), tape_evals=n_grid)
 
         # A renderer's work: the march steps this image takes (read from the
         # plain version's step counts), 6 normal evaluations per shaded
@@ -634,53 +847,89 @@ def main() -> int:
             ("renderer_t0", HIERARCHICAL, lambda: k["renderer_t0"](a, *cam, t0=t0_plane), t0_plane),
         ):
             plain = k[kernel].plain
+            calls[kernel] = (call, "render_kernel")
             r[(kernel, name)].update(
                 ms=cuda_ms(call, 20),
-                device_ms=device_ms(call, "render_kernel"),
+                enqueue_ms=enqueue_ms(call),
                 plain_ms=cuda_ms(lambda: plain(a, *cam, t0=t0), 2),
             )
             d, steps = make_march(scene, config)(rows[0], r_proj, a, return_steps=True, t0=t0)
             evals = int(steps.sum()) + 6 * int((d > 0).sum())
-            n_bytes = (12 + (4 if t0 is not None else 0)) * n_px
+            n_bytes = (12 + (4 if t0 is not None else 0)) * n_px + tables
             r[(kernel, name)].update(zip(("bound_ms", "bound_by"),
-                                         bound_ms(n_bytes, evals * (ops + GIZMO_OPS))))
+                                         bound_ms(n_bytes, evals * (ops + GIZMO_OPS))),
+                                     tape_evals=evals)
             print(f"  {name} {kernel}: {evals} tape evals ({evals / n_px:.1f}/pixel), "
                   f"{n_px / r[(kernel, name)]['ms'] / 1e3:.2f} Mrays/s")
         o_proj, rays = x["o_proj"], x["rays"]
         cone = k["cone_march"]
+        calls["cone_march"] = (lambda: cone(a, o_proj, rays), "cone_march_kernel")
         r[("cone_march", name)].update(
             ms=cuda_ms(lambda: cone(a, o_proj, rays), 50),
-            device_ms=device_ms(lambda: cone(a, o_proj, rays), "cone_march_kernel"),
+            enqueue_ms=enqueue_ms(lambda: cone(a, o_proj, rays)),
             plain_ms=cuda_ms(lambda: cone.plain(a, o_proj, rays), 2),
         )
         _, steps = cone.plain(a, o_proj, rays, return_steps=True)
         n_rays = rays.numel() // 3
         r[("cone_march", name)].update(zip(("bound_ms", "bound_by"), bound_ms(
-            16 * n_rays, int(steps.sum()) * (ops + GIZMO_OPS))))
+            16 * n_rays + tables, int(steps.sum()) * (ops + GIZMO_OPS))),
+            tape_evals=int(steps.sum()))
         print(f"  {name} cone_march: {int(steps.sum())} tape evals over {n_rays} rays "
               f"({int(steps.sum()) / n_rays:.1f}/ray)")
         # The fit's ray march: the tape evaluations of this march (no gizmo),
         # 12 B of ray read and 16 B (d, vmin) written per ray.
         rm, o_fit, r_fit = k["ray_march"], x["o_fit"], x["r_fit"]
+        calls["ray_march"] = (lambda: rm(a, o_fit, r_fit), "ray_march_kernel")
         r[("ray_march", name)].update(
             ms=cuda_ms(lambda: rm(a, o_fit, r_fit), 20),
-            device_ms=device_ms(lambda: rm(a, o_fit, r_fit), "ray_march_kernel"),
+            enqueue_ms=enqueue_ms(lambda: rm(a, o_fit, r_fit)),
         )
         n_rays = r_fit.numel() // 3
         r[("ray_march", name)].update(zip(("bound_ms", "bound_by"), bound_ms(
-            28 * n_rays, x["fit_evals"] * ops)))
+            28 * n_rays + tables, x["fit_evals"] * ops)), tape_evals=x["fit_evals"])
         print(f"  {name} ray_march: {x['fit_evals']} tape evals over {n_rays} rays "
               f"({x['fit_evals'] / n_rays:.1f}/ray), {json.dumps(r[('ray_march', name)])}")
+        # Every kernel's time read three ways (events over N calls, events
+        # around single calls, the profiler's records): the events time per
+        # call ("ms") and the profiler's ("device_ms") disagree on some rows.
+        cross = {kernel: crosscheck(fn, kname) for kernel, (fn, kname) in calls.items()}
+        for kernel, c in cross.items():
+            r[(kernel, name)].update(single_ms=c["single_ms"],
+                                     device_ms=c["profiler"]["mean_ms"] if c["profiler"] else None)
+        print(json.dumps({f"{name}_timing_crosscheck": cross}))
         hier = k["hierarchical"]
         frame_ms = cuda_ms(lambda: hier(a, *cam), 20)
+        frame_kernels = kernel_records(lambda: hier(a, *cam), ("render_kernel", "cone_march_kernel"))
         frames[name] = dict(
             exact_ms=r[("renderer", name)]["ms"],
             overrelax_ms=r[("renderer_overrelax", name)]["ms"],
             hierarchical_frame_ms=frame_ms,
-            hierarchical_device_ms=(device_ms(lambda: hier(a, *cam), "render_kernel") or 0.0)
-            + (device_ms(lambda: hier(a, *cam), "cone_march_kernel") or 0.0),
+            hierarchical_enqueue_ms=enqueue_ms(lambda: hier(a, *cam)),
+            hierarchical_single_ms=single_ms(lambda: hier(a, *cam)),
+            hierarchical_device_ms=sum(v["mean_ms"] for v in frame_kernels.values()),
+            hierarchical_kernel_records=frame_kernels,
             hierarchical_plain_ms=cuda_ms(lambda: hier.plain(a, *cam), 2),
         )
+        if scene.extras:
+            # A model, not a measurement: the time K6's table reads alone
+            # would take at the assumed L1 rate and the largest SM clock.
+            per_eval = 4 * table_reads(scene)
+            rate = L1_BYTES_PER_CLOCK * sms * sm_clock_hz
+            print(json.dumps({f"{name}_k6_table_read_model": dict(
+                assumed_l1_bytes_per_clock_per_sm=L1_BYTES_PER_CLOCK, sms=sms,
+                max_sm_clock_mhz=sm_clock_hz / 1e6, table_bytes_per_tape_eval=per_eval,
+                model_ms={kernel: per_eval * r[(kernel, name)]["tape_evals"] / rate * 1e3
+                          for kernel in SOURCES})}))
+            # K6's reads against its FP32 work: the same 2^20 points in
+            # random order (a warp's 32 table columns scattered over a
+            # 512 B row) and sorted by 0.05-unit cell (neighbouring columns).
+            cells = np.floor(pts.cpu().numpy() / 0.05).astype(np.int64)
+            order = np.lexsort((cells[:, 0], cells[:, 1], cells[:, 2]))
+            pts_sorted = pts[torch.from_numpy(order).to(dev)].contiguous()
+            locality = {key: cuda_ms(lambda: k["point_eval"](p, a), 50)
+                        for key, p in (("random", pts), ("sorted", pts_sorted),
+                                       ("random_again", pts), ("sorted_again", pts_sorted))}
+            print(json.dumps({f"{name}_point_eval_ms_by_order": locality}))
         frames[name]["mrays_per_s"] = {
             mode: n_px / frames[name][key] / 1e3
             for mode, key in (("exact", "exact_ms"), ("overrelax", "overrelax_ms"),
@@ -726,7 +975,7 @@ def main() -> int:
     # evaluation building its graph, its backward, and the IFT slope by
     # torch.func.jvp (what the port runs) -- beside the same slope by
     # reverse mode (timed only; its largest relative difference is printed).
-    sdf = make_primary_sdf(scene)
+    sdf = make_primary_sdf(scenes["design1"])
     fit_arrays = harness.param_to_arrays(state.params)
     frozen = fit_arrays.detach()
     o_fit, r_fit = inputs["design1"]["o_fit"], inputs["design1"]["r_fit"]
@@ -754,14 +1003,19 @@ def main() -> int:
     # Design1's); its numbers are printed here, not in the kernels line.
     print(json.dumps({"ray_march_design2": results[("ray_march", "design2")]}))
 
-    line = [
-        dict(name=kernel, design=name, route="cuda", source=SOURCES[kernel][0],
-             replaces=SOURCES[kernel][1], launches=launches[(kernel, name)], library_ms=None,
-             **results[(kernel, name)])
-        for name in DESIGNS
-        for kernel in SOURCES
-        if (kernel, name) in launches
-    ]
+    line = []
+    for name in DESIGNS:
+        # Logo's rows run K6 inside: its source and the TPU function it replaces.
+        k6 = {}
+        if scenes[name].extras:
+            k6 = dict(inlines=K6_SOURCE[0], inlines_replaces=K6_SOURCE[1])
+        line += [
+            dict(name=kernel, design=name, route="cuda", source=SOURCES[kernel][0],
+                 replaces=SOURCES[kernel][1], launches=launches[(kernel, name)], library_ms=None,
+                 **k6, **results[(kernel, name)])
+            for kernel in SOURCES
+            if (kernel, name) in launches
+        ]
     print(json.dumps({"kernels": line}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -78,8 +78,10 @@ def box_brush(compiler=None):
     return _box if compiler is None else c.brushes[4]
 
 
-def define_brush(fn, name="", cuda=None, cuda_flops=None, compiler=None):
-    return _c(compiler).define_brush(fn, name=name, cuda=cuda, cuda_flops=cuda_flops)
+def define_brush(fn, name="", cuda=None, cuda_flops=None, twin=None, twin_approx=None,
+                 extras=None, compiler=None):
+    return _c(compiler).define_brush(fn, name=name, cuda=cuda, cuda_flops=cuda_flops,
+                                     twin=twin, twin_approx=twin_approx, extras=extras)
 
 
 def define_material(fn, name="", cuda=None, compiler=None):

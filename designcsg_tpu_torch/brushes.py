@@ -7,11 +7,20 @@ brush carries both forms:
 * ``fn(v: Tensor[..., 3], ctx) -> Tensor[...]`` — plain PyTorch, used by the
   interpreter (the plain SDF) on any device;
 * ``cuda`` — the body of a C++ function
-  ``float brush(float a, float b, float c, const float* ad)`` over the point's
-  local coordinates ``(a, b, c)`` and the arbitrary-data array ``ad``.  The
-  code generator (ops/cuda/tape.py) pastes it into every kernel; the same
-  text also compiles for the host (``HD`` functions), which is how the tests
-  check it without a card.
+  ``float brush(float a, float b, float c, const float* ad, const float* ex)``
+  over the point's local coordinates ``(a, b, c)``, the arbitrary-data array
+  ``ad`` and the scene's extra tables ``ex``.  The code generator
+  (ops/cuda/tape.py) pastes it into every kernel; the same text also compiles
+  for the host (``HD`` functions), which is how the tests check it without a
+  card.
+
+Where the CUDA body computes another field than ``fn`` (Logo's letters sample
+a baked table instead of reducing over their Bezier samples), the brush also
+carries ``twin``, the torch function of the field the body computes, with the
+tolerance ``twin_approx`` to which it follows ``fn`` near the surface, and the
+tables the body reads as ``extras``.  Every kernel and its plain version
+compute the twin; the exact ``fn`` serves the plain tape (ops/interpreter.py,
+``field="exact"``), the evaluator's exact field and the fit's gradients.
 
 A material's ``cuda`` body has the signature
 ``Rgb material(float gx, float gy, float gz, float lx, float ly, float lz,
@@ -23,7 +32,7 @@ the global hit point, ``l`` the hit point in the attributed object's frame,
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Mapping, Optional
 
 import torch
 
@@ -35,6 +44,7 @@ class EvalContext:
     """Runtime context handed to brush/material functions."""
 
     ad: Any = None  # arbitrary data, f32[ARBITRARY_DATA_POINTS]
+    extras: Any = None  # {name: f32 table on the points' device} (twins only)
     rgt: Any = None  # camera frame (materials only), f32[3]
     upp: Any = None
     fwd: Any = None
@@ -46,13 +56,23 @@ class Brush:
 
     ``cuda_flops`` is the FP32 operation count of one call of the CUDA body
     (a fused multiply-add counts 2; fabsf, fmaxf and sqrtf 1 each), from
-    which chip_smoke.py computes the kernels' lower bound."""
+    which chip_smoke.py computes the kernels' lower bound.  ``twin`` (the
+    field the CUDA body computes) defaults to ``fn``; ``twin_approx`` is
+    None where the twin is exact; ``extras`` maps a scene-unique name to the
+    f32 table the CUDA body reads at ``ex + EX_<name>``."""
 
     fn: Callable[..., Any]
     bank_index: int
     name: str = ""
     cuda: Optional[str] = None
     cuda_flops: Optional[int] = None
+    twin: Optional[Callable[..., Any]] = None
+    twin_approx: Optional[float] = None
+    extras: Mapping[str, Any] = dataclasses.field(default_factory=dict, compare=False)
+
+    def __post_init__(self):
+        if self.twin is None:
+            object.__setattr__(self, "twin", self.fn)
 
     def __call__(self, v, ctx: Optional[EvalContext] = None):
         return self.fn(v, ctx if ctx is not None else EvalContext())

@@ -7,12 +7,13 @@ has::
     python -m designcsg_tpu_torch.cli render design2 --fast
     python -m designcsg_tpu_torch.cli render path/to/mydesign.py --orbit -0.785 0.785
     python -m designcsg_tpu_torch.cli export design1 --stl out.stl --ply out.ply
+    python -m designcsg_tpu_torch.cli export logo --sdf-field baked  # the kernels' field
     python -m designcsg_tpu_torch.cli artifacts design1 -d build/   # reference IR
     python -m designcsg_tpu_torch.cli fit design1 --steps 150       # shape fit demo
 
 Every command runs on the card; ``--device cpu`` takes the plain PyTorch
 path (the JAX CLI's ``--backend`` choice).  A design is a builtin name
-(design1 | design2) or the path of a Python design script that either defines
+(design1 | design2 | logo) or the path of a Python design script that either defines
 ``build() -> CompiledScene`` or calls the port's module-level API
 (``designcsg_tpu_torch.api``: ``new_design() ... commit()``) when imported.
 """
@@ -31,6 +32,10 @@ import zlib
 import numpy as np
 
 BUILTIN = ("design1", "design2", "logo")
+
+# ``export --sdf-field``: the evaluator's engine (cli.py:172-177 of the JAX
+# package): its own rule, the kernels' (baked) field, or the exact tape.
+SDF_FIELDS = {"auto": None, "baked": True, "exact": False}
 
 # Commands of the JAX CLI not ported yet, with the ROADMAP.md item that
 # brings each.
@@ -163,7 +168,7 @@ def cmd_export(args):
         config,
         stl_path=stl,
         ply_path=args.ply,
-        evaluator=BatchEvaluator(scene, device=args.device),
+        evaluator=BatchEvaluator(scene, device=args.device, use_kernels=SDF_FIELDS[args.sdf_field]),
         resume_dir=args.resume_dir,
         strategy=args.strategy,
     )
@@ -272,6 +277,10 @@ def main(argv=None):
     p.add_argument("--strategy", choices=["dense"], default="dense",
                    help="dense is the port's one export strategy (active, compact and "
                    "adaptive: ROADMAP.md queue 1, item 8)")
+    p.add_argument("--sdf-field", choices=list(SDF_FIELDS), default="auto",
+                   help="SDF field the export evaluates: exact tape (reference k2 "
+                   "semantics), the kernels' baked twin field, or the evaluator's auto "
+                   "choice (exact for approximate-twin scenes such as logo)")
     device_arg(p)
     p.set_defaults(fn=cmd_export)
 
@@ -292,7 +301,8 @@ def main(argv=None):
     p.add_argument("--zoom", type=float, default=0.0)
     p.add_argument("--field", choices=["exact", "twin"], default="exact",
                    help="SDF field of the gradient reattachment (twin: the field the "
-                   "kernels compute, the same tape for every ported design)")
+                   "kernels compute, logo's baked letters; the same tape for design1 "
+                   "and design2)")
     device_arg(p)
     p.set_defaults(fn=cmd_fit)
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -148,10 +148,57 @@ class CompiledScene:
     material_cuda: Tuple[Optional[str], ...] = ()
     brush_names: Tuple[str, ...] = ()
     brush_flops: Tuple[Optional[int], ...] = ()
+    #: The field each brush's CUDA body computes (``Brush.twin``; the brush's
+    #: own function where its body is exact), per bank index.
+    brush_twin: Tuple[Callable, ...] = ()
+    #: The largest ``twin_approx`` of the scene's brushes: 0.0 when every
+    #: twin is exact, else the near-surface tolerance of the kernels' field.
+    twin_tolerance: float = 0.0
+    #: ``(name, f32 table)`` of every brush's extras, in bank order, names
+    #: unique: scene constants that the kernels read through one pointer.
+    extras: Tuple[Tuple[str, np.ndarray], ...] = ()
+    _device_extras: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @property
     def num_objects(self) -> int:
         return int(self.arrays.shape_id.shape[0])
+
+    def ad_offset(self, name: str) -> int:
+        """Start offset of a named arbitrary-data chunk (the reference's
+        ``#define AD_<name> <start>``, scenecompiler.py:469-473)."""
+        for cname, start, _ in self.ad_chunks:
+            if cname == name:
+                return start
+        raise KeyError(f"no arbitrary-data chunk named {name!r}")
+
+    def extras_offsets(self) -> Dict[str, int]:
+        """Float offset of each extra table in their concatenation."""
+        offsets, at = {}, 0
+        for name, table in self.extras:
+            offsets[name] = at
+            at += table.size
+        return offsets
+
+    def device_extras(self, device) -> Tuple[Optional[torch.Tensor], Dict[str, torch.Tensor]]:
+        """The extras on ``device``, uploaded once per device: the f32
+        concatenation the kernels read (None for a scene without extras) and
+        ``{name: table}``, views into it, for the plain versions."""
+        device = torch.device(device)
+        key = str(device)
+        if key not in self._device_extras:
+            if not self.extras:
+                self._device_extras[key] = (None, {})
+            else:
+                flat = torch.from_numpy(
+                    np.concatenate([np.asarray(t, np.float32).reshape(-1) for _, t in self.extras])
+                ).to(device)
+                offsets = self.extras_offsets()
+                tables = {
+                    name: flat[offsets[name] : offsets[name] + t.size].view(t.shape)
+                    for name, t in self.extras
+                }
+                self._device_extras[key] = (flat, tables)
+        return self._device_extras[key]
 
 
 @dataclasses.dataclass
@@ -198,9 +245,13 @@ class SceneCompiler:
         name: str = "",
         cuda: Optional[str] = None,
         cuda_flops: Optional[int] = None,
+        twin: Optional[Callable] = None,
+        twin_approx: Optional[float] = None,
+        extras: Optional[dict] = None,
     ) -> _brushes.Brush:
         brush = _brushes.Brush(
-            fn=fn, bank_index=len(self.brushes), name=name, cuda=cuda, cuda_flops=cuda_flops
+            fn=fn, bank_index=len(self.brushes), name=name, cuda=cuda, cuda_flops=cuda_flops,
+            twin=twin, twin_approx=twin_approx, extras=dict(extras or {}),
         )
         self.brushes.append(brush)
         return brush
@@ -318,6 +369,18 @@ class SceneCompiler:
                     f"STACK_MEMORY_PER_PIXEL={STACK_MEMORY_PER_PIXEL}"
                 )
 
+        extras = {}
+        for brush in self.brushes:
+            for name, table in brush.extras.items():
+                if not name.isidentifier():
+                    raise ValueError(f"extras name {name!r} must be a C identifier")
+                if name in extras and extras[name] is not table:
+                    raise ValueError(
+                        f"duplicate extras name {name!r}: names must be unique per scene"
+                    )
+                extras[name] = table
+        approx = [b.twin_approx for b in self.brushes if b.twin_approx is not None]
+
         position, right, up, forward = frames.astype(np.float32)
         arrays = SceneArrays(
             shape_id=shape_id,
@@ -340,6 +403,9 @@ class SceneCompiler:
             material_cuda=tuple(m.cuda for m in self.materials),
             brush_names=tuple(b.name for b in self.brushes),
             brush_flops=tuple(b.cuda_flops for b in self.brushes),
+            brush_twin=tuple(b.twin for b in self.brushes),
+            twin_tolerance=float(max(approx, default=0.0)),
+            extras=tuple((name, np.asarray(t, np.float32)) for name, t in extras.items()),
         )
 
     # -- reference-format artifact emission --------------------------------

@@ -19,7 +19,7 @@
 // AoS input f32[N, 3] formed by the caller exactly as its plain version forms
 // them, the object banks in shared memory, and the projected camera origin,
 // the slope, CONE_STRICT, EPS, TOL, MAX_D and MAX_STEPS as constants or
-// parameters.  Built with -fmad=false, as the renderer (ops/cuda/build.py):
+// parameters, the scene's baked tables (if any) as ``ex``.  Built with -fmad=false, as the renderer (ops/cuda/build.py):
 // one rounding decides where a march stops.
 //
 // Needs the generated scene code, common.cuh and march.cuh above it.
@@ -31,21 +31,24 @@ __global__ void __launch_bounds__(CONE_THREADS)
 cone_march_kernel(float* __restrict__ t_safe, long long n, const float* __restrict__ rays,
                   float ox, float oy, float oz, const float* __restrict__ pos,
                   const float* __restrict__ right, const float* __restrict__ up,
-                  const float* __restrict__ fwd, const float* __restrict__ ad) {
+                  const float* __restrict__ fwd, const float* __restrict__ ad,
+                  const float* __restrict__ ex) {
     __shared__ float s_bank[N_OBJ * BANK_STRIDE];
     load_bank(s_bank, pos, right, up, fwd);
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    t_safe[i] = cone_ray(ox, oy, oz, rays[3 * i], rays[3 * i + 1], rays[3 * i + 2], s_bank, ad);
+    t_safe[i] = cone_ray(ox, oy, oz, rays[3 * i], rays[3 * i + 1], rays[3 * i + 2], s_bank, ad,
+                         ex);
 }
 
 extern "C" int launch_cone_march(void* t_safe, long long n, const void* rays, float ox, float oy,
                                  float oz, const void* pos, const void* right, const void* up,
-                                 const void* fwd, const void* ad, void* stream) {
+                                 const void* fwd, const void* ad, const void* ex, void* stream) {
     if (n <= 0) return 0;
     const unsigned blocks = (unsigned)((n + CONE_THREADS - 1) / CONE_THREADS);
     cone_march_kernel<<<blocks, CONE_THREADS, 0, (cudaStream_t)stream>>>(
         (float*)t_safe, n, (const float*)rays, ox, oy, oz, (const float*)pos,
-        (const float*)right, (const float*)up, (const float*)fwd, (const float*)ad);
+        (const float*)right, (const float*)up, (const float*)fwd, (const float*)ad,
+        (const float*)ex);
     return (int)cudaGetLastError();
 }

@@ -2,7 +2,8 @@
 // (k1.cl:420-470 march, 381-418 normal, 280-379 shade, 480-580 pixel setup),
 // one ray of the cone prepass, and one ray of the fit's march with its closest
 // approach.  Needs the generated field_sdf /
-// scene_shade and the constants MAX_STEPS, EPS, TOL, MAX_D, N_EPS, IFOV,
+// scene_shade (each takes the scene's extra tables ``ex``, null for a scene
+// without) and the constants MAX_STEPS, EPS, TOL, MAX_D, N_EPS, IFOV,
 // MISS_R/G/B, OMEGA, CONE_SLOPE and CONE_STRICT.
 //
 // Reference quirks kept: the ray is NOT normalized; the step is s*TOL with hit
@@ -21,14 +22,14 @@
 // a surface, so it is retracted and the ray drops to omg = 1.  OMEGA == 1
 // compiles to the exact march alone.
 HD float march_ray(float ox, float oy, float oz, float rx, float ry, float rz, float t0,
-                   const float* bank, const float* ad) {
+                   const float* bank, const float* ad, const float* ex) {
     float d = t0;
     float vx = ox + d * rx, vy = oy + d * ry, vz = oz + d * rz;
     if (d > MAX_D) return -1.0f;
     if constexpr (OMEGA > 1.0f) {
         float prev_r = 0.0f, step_len = 0.0f, omg = OMEGA;
         for (int step = 0; step < MAX_STEPS; ++step) {
-            const float s = field_sdf(vx, vy, vz, bank, ad) * TOL;
+            const float s = field_sdf(vx, vy, vz, bank, ad, ex) * TOL;
             const bool sor_ok = !(omg > 1.0f && fabsf(s) + prev_r < step_len);
             if (sor_ok && s < EPS) return d;
             if (sor_ok) {
@@ -46,7 +47,7 @@ HD float march_ray(float ox, float oy, float oz, float rx, float ry, float rz, f
         }
     } else {
         for (int step = 0; step < MAX_STEPS; ++step) {
-            const float s = field_sdf(vx, vy, vz, bank, ad) * TOL;
+            const float s = field_sdf(vx, vy, vz, bank, ad, ex) * TOL;
             if (s < EPS) return d;
             vx += s * rx;
             vy += s * ry;
@@ -68,8 +69,8 @@ HD float march_ray(float ox, float oy, float oz, float rx, float ry, float rz, f
 // march_ray's loop from t0 = 0 with the tracking added, exact or (OMEGA > 1)
 // over-relaxed.
 HD float march_ray_closest(float ox, float oy, float oz, float rx, float ry, float rz,
-                           const float* bank, const float* ad, float& mx, float& my,
-                           float& mz) {
+                           const float* bank, const float* ad, const float* ex, float& mx,
+                           float& my, float& mz) {
     float d = 0.0f, vx = ox, vy = oy, vz = oz, smin = MAX_DISTANCE;
     mx = ox;
     my = oy;
@@ -77,7 +78,7 @@ HD float march_ray_closest(float ox, float oy, float oz, float rx, float ry, flo
     if constexpr (OMEGA > 1.0f) {
         float prev_r = 0.0f, step_len = 0.0f, omg = OMEGA;
         for (int step = 0; step < MAX_STEPS; ++step) {
-            const float s = field_sdf(vx, vy, vz, bank, ad) * TOL;
+            const float s = field_sdf(vx, vy, vz, bank, ad, ex) * TOL;
             if (s < smin) {
                 smin = s;
                 mx = vx;
@@ -101,7 +102,7 @@ HD float march_ray_closest(float ox, float oy, float oz, float rx, float ry, flo
         }
     } else {
         for (int step = 0; step < MAX_STEPS; ++step) {
-            const float s = field_sdf(vx, vy, vz, bank, ad) * TOL;
+            const float s = field_sdf(vx, vy, vz, bank, ad, ex) * TOL;
             if (s < smin) {
                 smin = s;
                 mx = vx;
@@ -120,7 +121,7 @@ HD float march_ray_closest(float ox, float oy, float oz, float rx, float ry, flo
 }
 
 HD Rgb render_pixel(int ix, int iy, int width, int height, const Cam& cam, const float* bank,
-                    const float* ad, float t0) {
+                    const float* ad, const float* ex, float t0) {
     const float w2 = width / 2.0f;
     const float h2 = height / 2.0f;
     const float uvx = ((float)ix - w2) / w2;
@@ -130,15 +131,15 @@ HD Rgb render_pixel(int ix, int iy, int width, int height, const Cam& cam, const
     const float rz = uvx * cam.fwd[0] + uvy * cam.fwd[1] + IFOV * cam.fwd[2];
     const float ox = cam.o[0], oy = cam.o[1], oz = cam.o[2];
 
-    const float d = march_ray(ox, oy, oz, rx, ry, rz, t0, bank, ad);
+    const float d = march_ray(ox, oy, oz, rx, ry, rz, t0, bank, ad, ex);
     if (!(d > 0.0f)) return Rgb{MISS_R, MISS_G, MISS_B};
 
     const float px = ox + d * rx, py = oy + d * ry, pz = oz + d * rz;
-    const float gx = field_sdf(px + N_EPS, py, pz, bank, ad) - field_sdf(px - N_EPS, py, pz, bank, ad);
-    const float gy = field_sdf(px, py + N_EPS, pz, bank, ad) - field_sdf(px, py - N_EPS, pz, bank, ad);
-    const float gz = field_sdf(px, py, pz + N_EPS, bank, ad) - field_sdf(px, py, pz - N_EPS, bank, ad);
+    const float gx = field_sdf(px + N_EPS, py, pz, bank, ad, ex) - field_sdf(px - N_EPS, py, pz, bank, ad, ex);
+    const float gy = field_sdf(px, py + N_EPS, pz, bank, ad, ex) - field_sdf(px, py - N_EPS, pz, bank, ad, ex);
+    const float gz = field_sdf(px, py, pz + N_EPS, bank, ad, ex) - field_sdf(px, py, pz - N_EPS, bank, ad, ex);
     const float inv = rsqrt_(gx * gx + gy * gy + gz * gz + 1e-30f);
-    return scene_shade(px, py, pz, gx * inv, gy * inv, gz * inv, cam, bank, ad);
+    return scene_shade(px, py, pz, gx * inv, gy * inv, gz * inv, cam, bank, ad, ex);
 }
 
 // One ray of the cone prepass (march_kernel.py:209-294): march from the
@@ -147,10 +148,10 @@ HD Rgb render_pixel(int ix, int iy, int width, int height, const Cam& cam, const
 // before stepping past it).  A ray that leaves the scene returns its d
 // unless CONE_STRICT; one out of steps returns its last committed point.
 HD float cone_ray(float ox, float oy, float oz, float rx, float ry, float rz,
-                  const float* bank, const float* ad) {
+                  const float* bank, const float* ad, const float* ex) {
     float vx = ox, vy = oy, vz = oz, d = 0.0f, tprev = 0.0f;
     for (int step = 0; step < MAX_STEPS; ++step) {
-        const float s = field_sdf(vx, vy, vz, bank, ad) * TOL;
+        const float s = field_sdf(vx, vy, vz, bank, ad, ex) * TOL;
         if (s < EPS + d * CONE_SLOPE) break;
         tprev = d;
         vx += s * rx;

@@ -19,7 +19,8 @@
 // interleaved as the (H, W, 3) image.  The TPU kernel's 32x32 tile-major
 // layout and K-step unroll are Mosaic mechanisms and are not reproduced.
 // The optional t0 plane (f32[H, W], the cone prepass's handoff) is one more
-// read per pixel; a null pointer starts every ray at the camera.
+// read per pixel; a null pointer starts every ray at the camera.  ``ex`` holds
+// the scene's baked tables (csrc/table.cuh), null for a scene without.
 // This unit is built with -fmad=false (ops/cuda/build.py): every product and
 // sum rounds as in the plain version, so a ray stops at the same step; with
 // FMA contraction, single pixels at creases shaded up to 1.2e-3 apart.
@@ -34,14 +35,15 @@ __global__ void __launch_bounds__(RENDER_BX * RENDER_BY)
 render_kernel(float* __restrict__ out, int height, int width, Cam cam,
               const float* __restrict__ pos, const float* __restrict__ right,
               const float* __restrict__ up, const float* __restrict__ fwd,
-              const float* __restrict__ ad, const float* __restrict__ t0) {
+              const float* __restrict__ ad, const float* __restrict__ ex,
+              const float* __restrict__ t0) {
     __shared__ float s_bank[N_OBJ * BANK_STRIDE];
     load_bank(s_bank, pos, right, up, fwd);
     const int ix = blockIdx.x * RENDER_BX + threadIdx.x;
     const int iy = blockIdx.y * RENDER_BY + threadIdx.y;
     if (ix >= width || iy >= height) return;
     const long long pixel = (long long)iy * width + ix;
-    const Rgb c = render_pixel(ix, iy, width, height, cam, s_bank, ad, t0 ? t0[pixel] : 0.0f);
+    const Rgb c = render_pixel(ix, iy, width, height, cam, s_bank, ad, ex, t0 ? t0[pixel] : 0.0f);
     float* px = out + 3 * pixel;
     px[0] = c.r;
     px[1] = c.g;
@@ -50,7 +52,8 @@ render_kernel(float* __restrict__ out, int height, int width, Cam cam,
 
 extern "C" int launch_render(void* out, int height, int width, const float* cam_host,
                              const void* pos, const void* right, const void* up,
-                             const void* fwd, const void* ad, const void* t0, void* stream) {
+                             const void* fwd, const void* ad, const void* ex, const void* t0,
+                             void* stream) {
     if (height <= 0 || width <= 0) return 0;
     Cam cam;
     for (int k = 0; k < 3; ++k) {
@@ -63,6 +66,6 @@ extern "C" int launch_render(void* out, int height, int width, const float* cam_
     const dim3 grid((width + RENDER_BX - 1) / RENDER_BX, (height + RENDER_BY - 1) / RENDER_BY);
     render_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
         (float*)out, height, width, cam, (const float*)pos, (const float*)right,
-        (const float*)up, (const float*)fwd, (const float*)ad, (const float*)t0);
+        (const float*)up, (const float*)fwd, (const float*)ad, (const float*)ex, (const float*)t0);
     return (int)cudaGetLastError();
 }

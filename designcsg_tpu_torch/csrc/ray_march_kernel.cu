@@ -18,7 +18,8 @@
 // loop (per-ray early exit, which the TPU kernel's masked per-tile loop
 // computes), rays as an AoS input f32[N, 3] formed by the caller exactly as
 // its plain version forms them, the object banks in shared memory, the origin
-// as three float parameters, vmin written interleaved as f32[N, 3].  The TPU
+// as three float parameters, vmin written interleaved as f32[N, 3], the scene's
+// baked tables (if any) as ``ex``.  The TPU
 // kernel's three (rows, 128) planes and its (8, 128) tiles are Mosaic layout
 // and are not reproduced.  OMEGA (generated) > 1 compiles the over-relaxed
 // march.  Built with -fmad=false, as the renderer (ops/cuda/build.py): one
@@ -34,14 +35,14 @@ ray_march_kernel(float* __restrict__ d, float* __restrict__ vmin, long long n,
                  const float* __restrict__ rays, float ox, float oy, float oz,
                  const float* __restrict__ pos, const float* __restrict__ right,
                  const float* __restrict__ up, const float* __restrict__ fwd,
-                 const float* __restrict__ ad) {
+                 const float* __restrict__ ad, const float* __restrict__ ex) {
     __shared__ float s_bank[N_OBJ * BANK_STRIDE];
     load_bank(s_bank, pos, right, up, fwd);
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     float mx, my, mz;
     d[i] = march_ray_closest(ox, oy, oz, rays[3 * i], rays[3 * i + 1], rays[3 * i + 2], s_bank,
-                             ad, mx, my, mz);
+                             ad, ex, mx, my, mz);
     vmin[3 * i] = mx;
     vmin[3 * i + 1] = my;
     vmin[3 * i + 2] = mz;
@@ -49,11 +50,13 @@ ray_march_kernel(float* __restrict__ d, float* __restrict__ vmin, long long n,
 
 extern "C" int launch_ray_march(void* d, void* vmin, long long n, const void* rays, float ox,
                                 float oy, float oz, const void* pos, const void* right,
-                                const void* up, const void* fwd, const void* ad, void* stream) {
+                                const void* up, const void* fwd, const void* ad, const void* ex,
+                                void* stream) {
     if (n <= 0) return 0;
     const unsigned blocks = (unsigned)((n + RAY_THREADS - 1) / RAY_THREADS);
     ray_march_kernel<<<blocks, RAY_THREADS, 0, (cudaStream_t)stream>>>(
         (float*)d, (float*)vmin, n, (const float*)rays, ox, oy, oz, (const float*)pos,
-        (const float*)right, (const float*)up, (const float*)fwd, (const float*)ad);
+        (const float*)right, (const float*)up, (const float*)fwd, (const float*)ad,
+        (const float*)ex);
     return (int)cudaGetLastError();
 }

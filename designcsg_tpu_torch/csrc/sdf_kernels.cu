@@ -19,6 +19,10 @@
 // The grid kernel writes z-major (slab, ny, nx), x fastest across a warp, so
 // its stores coalesce.
 //
+// A scene whose brushes read baked tables (Logo) passes them as ``ex``, one
+// concatenation read through the read-only cache by csrc/table.cuh (K6);
+// ``ex`` is null for every other scene.
+//
 // Needs the generated scene code (field_sdf, N_OBJ) and common.cuh above it.
 #include <cuda_runtime.h>
 
@@ -28,12 +32,12 @@ __global__ void __launch_bounds__(SDF_THREADS)
 point_eval_kernel(const float* __restrict__ pts, float* __restrict__ out, long long n,
                   const float* __restrict__ pos, const float* __restrict__ right,
                   const float* __restrict__ up, const float* __restrict__ fwd,
-                  const float* __restrict__ ad) {
+                  const float* __restrict__ ad, const float* __restrict__ ex) {
     __shared__ float s_bank[N_OBJ * BANK_STRIDE];
     load_bank(s_bank, pos, right, up, fwd);
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
-    out[i] = field_sdf(pts[3 * i], pts[3 * i + 1], pts[3 * i + 2], s_bank, ad);
+    out[i] = field_sdf(pts[3 * i], pts[3 * i + 1], pts[3 * i + 2], s_bank, ad, ex);
 }
 
 // SDF at lo + cell * (x, y, z0 + z) for the (nz, ny, nx) lattice, each
@@ -43,7 +47,8 @@ __global__ void __launch_bounds__(SDF_THREADS)
 grid_eval_kernel(float* __restrict__ out, int nz, int ny, int nx, float lox, float loy,
                  float loz, float cell, float z0, const float* __restrict__ pos,
                  const float* __restrict__ right, const float* __restrict__ up,
-                 const float* __restrict__ fwd, const float* __restrict__ ad) {
+                 const float* __restrict__ fwd, const float* __restrict__ ad,
+                 const float* __restrict__ ex) {
     __shared__ float s_bank[N_OBJ * BANK_STRIDE];
     load_bank(s_bank, pos, right, up, fwd);
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -56,7 +61,7 @@ grid_eval_kernel(float* __restrict__ out, int nz, int ny, int nx, float lox, flo
     const float x = add_rn(lox, mul_rn(cell, (float)xi));
     const float y = add_rn(loy, mul_rn(cell, (float)yi));
     const float z = add_rn(loz, mul_rn(cell, add_rn(z0, (float)zi)));
-    out[i] = field_sdf(x, y, z, s_bank, ad);
+    out[i] = field_sdf(x, y, z, s_bank, ad, ex);
 }
 
 static unsigned int blocks_for(long long n) {
@@ -65,22 +70,23 @@ static unsigned int blocks_for(long long n) {
 
 extern "C" int launch_point_eval(const void* pts, void* out, long long n, const void* pos,
                                  const void* right, const void* up, const void* fwd,
-                                 const void* ad, void* stream) {
+                                 const void* ad, const void* ex, void* stream) {
     if (n <= 0) return 0;
     point_eval_kernel<<<blocks_for(n), SDF_THREADS, 0, (cudaStream_t)stream>>>(
         (const float*)pts, (float*)out, n, (const float*)pos, (const float*)right,
-        (const float*)up, (const float*)fwd, (const float*)ad);
+        (const float*)up, (const float*)fwd, (const float*)ad, (const float*)ex);
     return (int)cudaGetLastError();
 }
 
 extern "C" int launch_grid_eval(void* out, int nz, int ny, int nx, float lox, float loy,
                                 float loz, float cell, float z0, const void* pos,
                                 const void* right, const void* up, const void* fwd,
-                                const void* ad, void* stream) {
+                                const void* ad, const void* ex, void* stream) {
     const long long n = (long long)nz * ny * nx;
     if (n <= 0) return 0;
     grid_eval_kernel<<<blocks_for(n), SDF_THREADS, 0, (cudaStream_t)stream>>>(
         (float*)out, nz, ny, nx, lox, loy, loz, cell, z0, (const float*)pos,
-        (const float*)right, (const float*)up, (const float*)fwd, (const float*)ad);
+        (const float*)right, (const float*)up, (const float*)fwd, (const float*)ad,
+        (const float*)ex);
     return (int)cudaGetLastError();
 }

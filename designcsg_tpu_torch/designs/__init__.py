@@ -6,16 +6,11 @@ import importlib
 
 
 def design_module(name: str):
-    """The module of a builtin design ('design1' or 'design2'), whose
-    ``build(compiler=None)`` makes it.  Logo raises until its baked letter
-    field is ported (ROADMAP.md queue 1, item 3)."""
+    """The module of a builtin design ('design1', 'design2' or 'logo'),
+    whose ``build(compiler=None)`` makes it."""
     name = name.lower()
-    if name in ("design1", "design2"):
+    if name in ("design1", "design2", "logo"):
         return importlib.import_module(f"{__name__}.{name}")
-    if name == "logo":
-        raise NotImplementedError(
-            f"design {name!r} is not ported yet (ROADMAP.md queue 1, item 3)"
-        )
     raise KeyError(f"unknown design {name!r}")
 
 

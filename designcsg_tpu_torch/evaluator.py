@@ -1,10 +1,12 @@
 """Batch point evaluator — the k2 path.
 
 Mirrors the reference's ``Evaluator`` (Evaluator.{h,cpp}): arbitrary-length
-point arrays go through the SDF point-eval wrapper in chunks of
-``chunk_size`` points, which bounds the device memory a call takes.  On the
-card every evaluation is the CUDA point kernel (ops/cuda/sdf_kernel.py); with
-``device="cpu"`` it is the plain PyTorch tape.
+point arrays go through an SDF point evaluation in chunks of ``chunk_size``
+points, which bounds the device memory a call takes.  The evaluation is the
+CUDA point kernel (ops/cuda/sdf_kernel.py, the twin field) or the exact plain
+tape, by the JAX package's rule (evaluator.py:45-100 there): the kernels by
+default on the card, the exact tape for a scene whose kernels compute an
+approximate twin (Logo's baked letters) and on the CPU.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 from . import resolve_device
 from .compiler import CompiledScene, SceneArrays
 from .ops.cuda.sdf_kernel import make_grid_eval, make_point_eval
-from .ops.interpreter import make_normal_fn
+from .ops.interpreter import make_normal_fn, make_primary_sdf
 
 # 2^20 points per chunk: 16 MB of points and results on the device, and
 # ~7x that for the temporaries of the plain FD normal.
@@ -31,9 +33,18 @@ class BatchEvaluator:
     """Chunked SDF / normal evaluation at arbitrary world points.
 
     ``device`` defaults to ``cuda`` and raises without a card; pass
-    ``device="cpu"`` for the plain path.  ``sdf_field`` names the field the
-    evaluations ride: "cuda-exact" (the CUDA kernels, exact tape) or
-    "tape-exact" (the plain tape).
+    ``device="cpu"`` for the plain path.  ``use_kernels`` picks the engine:
+    the kernels' field (the CUDA point and grid kernels on the card, their
+    plain versions on the CPU) or, when False, the exact plain tape on the
+    device.  None (the default) takes the kernels on the card unless the
+    scene declares an approximate twin (``CompiledScene.twin_tolerance``),
+    whose default is the exact tape, as the reference's k2 is always exact.
+
+    ``sdf_field`` names the field the evaluations ride: "cuda-exact" or
+    "cuda-baked" (the CUDA kernels on an exact or baked twin), "tape-exact"
+    (the exact tape) or "tape-baked" (the kernels' plain versions on a baked
+    twin); ``twin_tolerance`` is the baked field's declared tolerance, 0.0
+    on an exact field.
     """
 
     def __init__(
@@ -42,14 +53,22 @@ class BatchEvaluator:
         arrays: Optional[SceneArrays] = None,
         chunk_size: int = DEFAULT_CHUNK,
         device=None,
+        use_kernels: Optional[bool] = None,
     ):
         self.scene = scene
         self.device = resolve_device(device)
         self.chunk_size = int(chunk_size)
-        self.use_kernels = self.device.type == "cuda"
-        self.sdf_field = "cuda-exact" if self.use_kernels else "tape-exact"
-        self.point_eval = make_point_eval(scene)
+        if use_kernels is None:
+            use_kernels = self.device.type == "cuda" and not scene.twin_tolerance
+        self.use_kernels = bool(use_kernels)
+        baked = self.use_kernels and bool(scene.twin_tolerance)
+        self.twin_tolerance = scene.twin_tolerance if baked else 0.0
+        engine = "cuda" if self.use_kernels and self.device.type == "cuda" else "tape"
+        self.sdf_field = f"{engine}-{'baked' if baked else 'exact'}"
         self.grid_eval = make_grid_eval(scene)
+        # The exact tape on the card is plain PyTorch (the JAX package
+        # evaluates it in XLA, outside any Pallas kernel).
+        self.point_eval = make_point_eval(scene) if self.use_kernels else make_primary_sdf(scene)
         self._normal = make_normal_fn(self.point_eval)
         self.set_arrays(arrays if arrays is not None else scene.arrays)
         # Every point evaluated through this evaluator is counted; an FD

@@ -6,11 +6,14 @@ autodetect (dense 256^3 scan) -> surface extraction -> vertex projection
 stages run as one function with a progress callback and per-slab resume
 shards.
 
-Ported so far: the ``"dense"`` strategy.  On the card the grid kernel
-evaluates the autodetect scan and every extraction slab with coordinates made
-on the device, and the point kernel refines the vertices; with
-``device="cpu"`` the plain tape evaluates host-built points, as the JAX
-package does off the TPU.
+Ported so far: the ``"dense"`` strategy.  Every stage follows the
+evaluator's field (``BatchEvaluator.use_kernels``): on the kernels' field the
+grid kernel (or, on the CPU, its plain version) evaluates the autodetect scan
+and every extraction slab with coordinates made on the device, and the point
+kernel refines the vertices; on the exact tape (the CPU's default, and Logo's
+on the card) the plain tape evaluates host-built points, as the JAX package
+does off the TPU.  The report's ``stats["sdf_field"]`` names the field, and
+``stats["twin_tolerance"]`` a baked field's tolerance.
 """
 
 from __future__ import annotations
@@ -213,6 +216,8 @@ def export_mesh(
     evaluator = evaluator or BatchEvaluator(scene, device=device)
     stage_seconds: dict = {}
     stats: dict = {"sdf_field": evaluator.sdf_field}
+    if evaluator.twin_tolerance:
+        stats["twin_tolerance"] = evaluator.twin_tolerance
     evals = 0
 
     def _tick(stage, frac):

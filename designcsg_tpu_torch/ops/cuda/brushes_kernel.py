@@ -35,12 +35,21 @@ def _require(bodies, indices, kind: str, names=()):
         )
 
 
+def extras_constants(scene: CompiledScene) -> str:
+    """``constexpr int EX_<name> = <offset>;`` for each of the scene's extra
+    tables: its float offset in the concatenation ``ex`` the kernels get."""
+    return "".join(
+        f"constexpr int EX_{name} = {offset};\n" for name, offset in scene.extras_offsets().items()
+    )
+
+
 def brush_functions(scene: CompiledScene) -> str:
-    """``HD float brush_<k>(a, b, c, ad)`` for every brush the scene uses."""
+    """``HD float brush_<k>(a, b, c, ad, ex)`` for every brush the scene
+    uses; ``ex`` is the scene's extra tables (null for a scene without)."""
     used = used_brushes(scene)
     _require(scene.brush_cuda, used, "brush", scene.brush_names)
     return "\n".join(
-        f"HD float brush_{k}(float a, float b, float c, const float* ad) {{\n"
+        f"HD float brush_{k}(float a, float b, float c, const float* ad, const float* ex) {{\n"
         f"    {scene.brush_cuda[k]}\n}}\n"
         for k in used
     )

@@ -141,10 +141,17 @@ def on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}")
 
 
-def bank_pointers(arrays, device: torch.device):
-    """Pointers to a SceneArrays' object banks and arbitrary data, in the
-    launchers' argument order, after checking each lies on ``device``."""
+def bank_pointers(scene, arrays, device: torch.device):
+    """Pointers to a SceneArrays' object banks and arbitrary data, then to
+    the scene's extra tables (null for a scene without; uploaded to
+    ``device`` once, CompiledScene.device_extras), in the launchers'
+    argument order, after checking each lies on ``device``."""
     names = ("position", "right", "up", "forward", "ad")
     for name in names:
         require_cuda_f32(f"arrays.{name}", getattr(arrays, name), device)
-    return [ptr(getattr(arrays, name)) for name in names]
+    extras, _ = scene.device_extras(device)
+    if extras is not None:
+        require_cuda_f32("scene extras", extras, device)
+    return [ptr(getattr(arrays, name)) for name in names] + [
+        None if extras is None else ptr(extras)
+    ]

@@ -9,7 +9,8 @@ csrc/cone_kernel.cu, csrc/ray_march_kernel.cu and csrc/march.cuh plus the
 scene code generated by ops/cuda/tape.py.  The plain versions are
 ops/raymarch.py's :func:`make_renderer`, :func:`make_cone_march`,
 :func:`make_hierarchical_renderer` and :func:`make_march` with
-``return_closest``.
+``return_closest``; kernels and plain versions march each brush's twin (for
+Logo the baked letter tables, csrc/table.cuh, K6).
 
 Launch counts: ``renderer`` (exact march from the camera),
 ``renderer_overrelax`` (over-relaxed, from the camera), ``renderer_t0``
@@ -67,14 +68,14 @@ def make_cuda_renderer(
                 raise ValueError(f"t0 must be [{config.height}, {config.width}], got {tuple(t0.shape)}")
         if "lib" not in libs:
             lib = load("march_fma" if fmad else "march", march_kernel_source(scene, config))
-            lib.launch_render.argtypes = [_P, ctypes.c_int, ctypes.c_int] + [_P] * 8
+            lib.launch_render.argtypes = [_P, ctypes.c_int, ctypes.c_int] + [_P] * 9
             lib.launch_render.restype = ctypes.c_int
             libs["lib"] = lib
         cam = np.ascontiguousarray(camera_rows(campos, rgt, upp, fwd), np.float32)
         out = torch.empty((config.height, config.width, 3), dtype=torch.float32, device=device)
         rc = libs["lib"].launch_render(
             ptr(out), config.height, config.width, _P(cam.ctypes.data),
-            *bank_pointers(arrays, device), None if t0 is None else ptr(t0),
+            *bank_pointers(scene, arrays, device), None if t0 is None else ptr(t0),
             stream_handle(device),
         )
         check_launch(mode if t0 is None else "renderer_t0", rc)
@@ -102,7 +103,7 @@ def make_cuda_cone_march(scene: CompiledScene, config: Optional[RenderConfig] = 
             raise ValueError(f"rays must be [..., 3], got {tuple(rays.shape)}")
         if "lib" not in libs:
             lib = load("cone", cone_kernel_source(scene, config))
-            lib.launch_cone_march.argtypes = [_P, ctypes.c_longlong, _P, _F, _F, _F] + [_P] * 6
+            lib.launch_cone_march.argtypes = [_P, ctypes.c_longlong, _P, _F, _F, _F] + [_P] * 7
             lib.launch_cone_march.restype = ctypes.c_int
             libs["lib"] = lib
         if isinstance(o_proj, torch.Tensor):
@@ -111,7 +112,7 @@ def make_cuda_cone_march(scene: CompiledScene, config: Optional[RenderConfig] = 
         out = torch.empty(rays.shape[:-1], dtype=torch.float32, device=device)
         rc = libs["lib"].launch_cone_march(
             ptr(out), out.numel(), ptr(rays), ox, oy, oz,
-            *bank_pointers(arrays, device), stream_handle(device),
+            *bank_pointers(scene, arrays, device), stream_handle(device),
         )
         check_launch("cone_march", rc)
         return out
@@ -164,7 +165,7 @@ def make_cuda_ray_march(scene: CompiledScene, config: Optional[RenderConfig] = N
             raise ValueError(f"rays must be [..., 3], got {tuple(rays.shape)}")
         if "lib" not in libs:
             lib = load("ray_march", ray_march_kernel_source(scene, config))
-            lib.launch_ray_march.argtypes = [_P, _P, ctypes.c_longlong, _P, _F, _F, _F] + [_P] * 6
+            lib.launch_ray_march.argtypes = [_P, _P, ctypes.c_longlong, _P, _F, _F, _F] + [_P] * 7
             lib.launch_ray_march.restype = ctypes.c_int
             libs["lib"] = lib
         if isinstance(o_proj, torch.Tensor):
@@ -174,7 +175,7 @@ def make_cuda_ray_march(scene: CompiledScene, config: Optional[RenderConfig] = N
         vmin = torch.empty(rays.shape, dtype=torch.float32, device=device)
         rc = libs["lib"].launch_ray_march(
             ptr(d), ptr(vmin), d.numel(), ptr(rays), ox, oy, oz,
-            *bank_pointers(arrays, device), stream_handle(device),
+            *bank_pointers(scene, arrays, device), stream_handle(device),
         )
         check_launch("ray_march", rc)
         return d, vmin

@@ -7,7 +7,9 @@ csrc/sdf_kernels.cu plus the scene code generated by ops/cuda/tape.py.
 
 Each wrapper takes its plain version for tensors on the CPU, and for tensors
 on a CUDA device launches its kernel or raises.  ``arrays`` is a SceneArrays
-of tensors on the same device as the points.
+of tensors on the same device as the points.  Kernels and plain versions
+evaluate each brush's twin, the field its CUDA body computes (Logo's baked
+letters through csrc/table.cuh, K6; the exact tape for every other design).
 """
 
 from __future__ import annotations
@@ -30,17 +32,18 @@ _I = ctypes.c_int
 
 def _library(scene: CompiledScene) -> ctypes.CDLL:
     lib = load("sdf", sdf_kernel_source(scene))
-    lib.launch_point_eval.argtypes = [_P, _P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P]
+    lib.launch_point_eval.argtypes = [_P, _P, ctypes.c_longlong] + [_P] * 7
     lib.launch_point_eval.restype = ctypes.c_int
-    lib.launch_grid_eval.argtypes = [_P, _I, _I, _I, _F, _F, _F, _F, _F, _P, _P, _P, _P, _P, _P]
+    lib.launch_grid_eval.argtypes = [_P, _I, _I, _I, _F, _F, _F, _F, _F] + [_P] * 7
     lib.launch_grid_eval.restype = ctypes.c_int
     return lib
 
 
 def make_point_eval(scene: CompiledScene):
-    """``point_eval(points f32[N, 3], arrays) -> f32[N]``, the k2 SDF (no gizmo)
-    at arbitrary points.  ``point_eval.plain`` is its plain version."""
-    plain = make_primary_sdf(scene)
+    """``point_eval(points f32[N, 3], arrays) -> f32[N]``, the k2 SDF (no gizmo,
+    twin field) at arbitrary points.  ``point_eval.plain`` is its plain
+    version."""
+    plain = make_primary_sdf(scene, field="twin")
     libs = {}
 
     def point_eval(points: torch.Tensor, arrays: SceneArrays) -> torch.Tensor:
@@ -57,7 +60,7 @@ def make_point_eval(scene: CompiledScene):
         if n == 0:
             return out
         rc = libs["lib"].launch_point_eval(
-            ptr(points), ptr(out), n, *bank_pointers(arrays, device), stream_handle(device)
+            ptr(points), ptr(out), n, *bank_pointers(scene, arrays, device), stream_handle(device)
         )
         check_launch("point_eval", rc)
         return out
@@ -90,10 +93,10 @@ def lattice_points(lo, cell, z0, slab: int, ny: int, nx: int, device) -> torch.T
 
 def make_grid_eval(scene: CompiledScene):
     """``grid_eval(arrays, lo, cell, z0, slab, ny, nx=None) -> f32[slab, ny, nx]``,
-    the SDF at the lattice ``lo + cell * (x, y, z0 + z)`` — z-major, no
-    coordinate input.  The device is that of ``arrays``.
+    the SDF (twin field) at the lattice ``lo + cell * (x, y, z0 + z)`` —
+    z-major, no coordinate input.  The device is that of ``arrays``.
     ``grid_eval.plain`` is its plain version."""
-    sdf = make_primary_sdf(scene)
+    sdf = make_primary_sdf(scene, field="twin")
     libs = {}
 
     def plain(arrays, lo, cell, z0, slab: int, ny: int, nx: Optional[int] = None):
@@ -114,7 +117,7 @@ def make_grid_eval(scene: CompiledScene):
         rc = libs["lib"].launch_grid_eval(
             ptr(out), slab, ny, nx, lox, loy, loz,
             float(np.float32(cell)), float(np.float32(z0)),
-            *bank_pointers(arrays, device), stream_handle(device),
+            *bank_pointers(scene, arrays, device), stream_handle(device),
         )
         check_launch("grid_eval", rc)
         return out

@@ -19,7 +19,13 @@ from ...compiler import CompiledScene
 from ...config import RenderConfig
 from ...constants import OP_EXPORT, OP_IDENTITY, OP_IMPORT, OP_MAX, OP_MIN, OP_NEGATE
 from ..raymarch import cone_slope
-from .brushes_kernel import brush_functions, material_functions, used_brushes, used_materials
+from .brushes_kernel import (
+    brush_functions,
+    extras_constants,
+    material_functions,
+    used_brushes,
+    used_materials,
+)
 from .build import csrc
 
 
@@ -29,21 +35,22 @@ def f32_literal(x: float) -> str:
 
 
 def _brush_at(brushes) -> str:
-    """``brush_<k>_at(x, y, z, o, ad)``: brush k at a world point, through the
-    object's frame row ``o`` (3 subtractions and a 3x3 matrix-vector
+    """``brush_<k>_at(x, y, z, o, ad, ex)``: brush k at a world point, through
+    the object's frame row ``o`` (3 subtractions and a 3x3 matrix-vector
     product: 18 FP32 operations, k2.cl:105-113)."""
     return "\n".join(
-        f"HD float brush_{k}_at(float x, float y, float z, const float* o, const float* ad) {{\n"
+        f"HD float brush_{k}_at(float x, float y, float z, const float* o, const float* ad,\n"
+        f"                      const float* ex) {{\n"
         f"    const float dx = x - o[0], dy = y - o[1], dz = z - o[2];\n"
         f"    return brush_{k}(dx * o[3] + dy * o[4] + dz * o[5],\n"
         f"                     dx * o[6] + dy * o[7] + dz * o[8],\n"
-        f"                     dx * o[9] + dy * o[10] + dz * o[11], ad);\n}}\n"
+        f"                     dx * o[9] + dy * o[10] + dz * o[11], ad, ex);\n}}\n"
         for k in brushes
     )
 
 
 def tape_function(scene: CompiledScene, gizmo: bool) -> str:
-    """``HD float field_sdf(x, y, z, bank, ad)``: the scene tape unrolled into
+    """``HD float field_sdf(x, y, z, bank, ad, ex)``: the scene tape unrolled into
     straight-line code over register variables, with the k1 gizmo min-ed onto
     the result when ``gizmo`` (tape.py:101-103 of the JAX package)."""
     tape = [tuple(int(v) for v in row) for row in np.asarray(scene.arrays.tape)]
@@ -58,13 +65,16 @@ def tape_function(scene: CompiledScene, gizmo: bool) -> str:
         elif opcode == OP_EXPORT:
             registers.add(left)
     lines = [
-        "HD float field_sdf(float x, float y, float z, const float* bank, const float* ad) {",
+        "HD float field_sdf(float x, float y, float z, const float* bank, const float* ad,",
+        "                   const float* ex) {",
         "    float " + ", ".join(f"r{i} = MAX_DISTANCE" for i in sorted(registers)) + ";",
         "    float result = MAX_DISTANCE;",
     ]
     for opcode, left, right, dest in tape:
         if opcode == OP_IMPORT:
-            lines.append(f"    r{dest} = brush_{left}_at(x, y, z, bank + {right} * BANK_STRIDE, ad);")
+            lines.append(
+                f"    r{dest} = brush_{left}_at(x, y, z, bank + {right} * BANK_STRIDE, ad, ex);"
+            )
         elif opcode == OP_EXPORT:
             lines.append(f"    result = r{left};")
         elif opcode == OP_MIN:
@@ -84,7 +94,7 @@ def tape_function(scene: CompiledScene, gizmo: bool) -> str:
 
 
 def shade_function(scene: CompiledScene) -> str:
-    """``HD Rgb scene_shade(p, n, cam, bank, ad)``: the last object (in bank
+    """``HD Rgb scene_shade(p, n, cam, bank, ad, ex)``: the last object (in bank
     order) whose own SDF at ``p`` is below MAT_THRESH picks the material;
     unmatched hits take the gizmo colours (z, then y, then x, later wins) or
     the background (k1.cl:280-379)."""
@@ -92,7 +102,7 @@ def shade_function(scene: CompiledScene) -> str:
     material_id = [int(m) for m in scene.arrays.material_id]
     lines = [
         "HD Rgb scene_shade(float px, float py, float pz, float nx, float ny, float nz,",
-        "                   const Cam& cam, const float* bank, const float* ad) {",
+        "                   const Cam& cam, const float* bank, const float* ad, const float* ex) {",
         "    int mat = -1;",
         "    float lx = 0.0f, ly = 0.0f, lz = 0.0f;",
     ]
@@ -104,7 +114,7 @@ def shade_function(scene: CompiledScene) -> str:
             "        const float a = dx * o[3] + dy * o[4] + dz * o[5];",
             "        const float b = dx * o[6] + dy * o[7] + dz * o[8];",
             "        const float c = dx * o[9] + dy * o[10] + dz * o[11];",
-            f"        if (brush_{brush}(a, b, c, ad) < MAT_THRESH) {{",
+            f"        if (brush_{brush}(a, b, c, ad, ex) < MAT_THRESH) {{",
             f"            mat = {material};",
             "            lx = a; ly = b; lz = c;",
             "        }",
@@ -151,20 +161,23 @@ def _march_constants(config: RenderConfig) -> str:
 
 
 def scene_source(scene: CompiledScene, render_config: Optional[RenderConfig] = None) -> str:
-    """The generated scene code: constants, common.cuh, brush functions and the
-    unrolled tape (the k2 field, no gizmo).  With ``render_config``: the k1
+    """The generated scene code: constants (the extras' offsets among them),
+    common.cuh, table.cuh (K6), brush functions and the unrolled tape (the k2
+    field, no gizmo).  With ``render_config``: the k1
     field (with the gizmo iff the config says so), the material and shading
     functions and march.cuh's ``render_pixel``, ``cone_ray`` and
     ``march_ray_closest``."""
     parts = [
         "// Generated from the scene tape by designcsg_tpu_torch/ops/cuda/tape.py.\n"
-        f"constexpr int N_OBJ = {scene.num_objects};\n"
+        f"constexpr int N_OBJ = {scene.num_objects};\n" + extras_constants(scene)
     ]
     gizmo = False
     if render_config is not None:
         gizmo = render_config.gizmo
         parts.append(_march_constants(render_config))
-    parts += [csrc("common.cuh"), brush_functions(scene), _brush_at(used_brushes(scene))]
+    parts += [
+        csrc("common.cuh"), csrc("table.cuh"), brush_functions(scene), _brush_at(used_brushes(scene)),
+    ]
     parts.append(tape_function(scene, gizmo))
     if render_config is not None:
         parts += [material_functions(scene), shade_function(scene), csrc("march.cuh")]

@@ -11,6 +11,12 @@ CPU runs.
 ``points`` is f32[..., 3] on any device; the result is f32[...].  ``arrays``
 is a :class:`~designcsg_tpu_torch.compiler.SceneArrays` of tensors on the
 points' device.
+
+Two fields: ``"exact"`` calls each brush's own function, ``"twin"`` the field
+its CUDA body computes (``Brush.twin``: the same function for every brush but
+a baked one, such as Logo's letters).  The plain versions of the kernels
+evaluate the twin; the evaluator's exact field and the fit's gradients the
+exact tape.
 """
 
 from __future__ import annotations
@@ -75,19 +81,36 @@ def gizmo_sdf(points, radius=AXES_RADIUS):
     return torch.minimum(dx, torch.minimum(dy, dz))
 
 
+FIELDS = ("exact", "twin")
+
+
 def _device_arrays(scene: CompiledScene, arrays, device):
     return arrays if arrays is not None else scene.arrays.to_torch(device)
 
 
-def make_primary_sdf(scene: CompiledScene, gizmo: bool = False) -> Callable:
-    """``sdf(points, arrays=None) -> distances`` with the scene's tape unrolled;
-    ``arrays`` defaults to the scene's own banks."""
+def brush_bank(scene: CompiledScene, field: str):
+    """The brush functions of ``field`` ("exact" or "twin"), by bank index."""
+    if field not in FIELDS:
+        raise ValueError(f"field must be 'exact' or 'twin', got {field!r}")
+    return scene.brush_fns if field == "exact" else scene.brush_twin
+
+
+def eval_context(scene: CompiledScene, arrays: SceneArrays, **frame) -> EvalContext:
+    """The context of a brush call: the arbitrary data, the scene's extra
+    tables on the same device, and (for materials) the camera frame."""
+    return EvalContext(ad=arrays.ad, extras=scene.device_extras(arrays.ad.device)[1], **frame)
+
+
+def make_primary_sdf(scene: CompiledScene, gizmo: bool = False, field: str = "exact") -> Callable:
+    """``sdf(points, arrays=None) -> distances`` with the scene's tape unrolled
+    over the brushes of ``field``; ``arrays`` defaults to the scene's own
+    banks."""
     tape = [tuple(int(x) for x in row) for row in scene.arrays.tape]
-    brush_fns = scene.brush_fns
+    brush_fns = brush_bank(scene, field)
 
     def primary_sdf(points, arrays: Optional[SceneArrays] = None):
         arrays = _device_arrays(scene, arrays, points.device)
-        ctx = EvalContext(ad=arrays.ad)
+        ctx = eval_context(scene, arrays)
         regs = {}
         export = torch.full(
             points.shape[:-1], MAX_DISTANCE, dtype=points.dtype, device=points.device
@@ -118,7 +141,7 @@ def brute_force_min_sdf(scene: CompiledScene, points, arrays: Optional[SceneArra
     """The semantic oracle for purely-additive scenes: MIN over every object's
     own SDF (the commented-out reference loop, k1.cl:157-184)."""
     arrays = _device_arrays(scene, arrays, points.device)
-    ctx = EvalContext(ad=arrays.ad)
+    ctx = eval_context(scene, arrays)
     best = torch.full(points.shape[:-1], MAX_DISTANCE, dtype=points.dtype, device=points.device)
     for i, shape in enumerate(scene.arrays.shape_id):
         d = scene.brush_fns[int(shape)](import_local_coords(points, arrays, i), ctx)

@@ -10,7 +10,10 @@ over-relaxed and may start from a per-pixel ``t0`` plane;
 :func:`make_cone_march` and :func:`make_hierarchical_renderer` are the cone
 prepass and the two-pass fast viewport built on it.  These are the plain
 versions of the CUDA kernels of ops/cuda/march_kernel.py, which
-:func:`render_scene` takes on the card.
+:func:`render_scene` takes on the card, so they march, take normals and
+shade on the field the kernels compute: each brush's twin
+(ops/interpreter.py), which is the exact tape for every design but Logo,
+whose kernels sample baked letter tables.
 
 :func:`make_differentiable_march`, :func:`make_ray_renderer` and
 :func:`make_geometry_renderer` are the fit's renders: the fit's ray-march
@@ -18,7 +21,9 @@ kernel (or, for CPU tensors, its plain version) marches with the banks
 detached, and gradients are reattached at the points it returns by the plain
 tape under autograd -- the implicit function theorem at the hit point, the
 envelope rule at the closest approach (raymarch.py:341-565 of the JAX
-package).
+package).  The march rides the twin field, as the JAX package's kernels do;
+the reattachment evaluates the exact tape, or the twin with
+``fit_field="twin"`` in the geometry renderer.
 
 Replicated quirks:
   * ray directions are *not* normalized (the march steps along ``uv,IFOV``
@@ -47,7 +52,9 @@ from ..config import RenderConfig
 from ..constants import AXES_SHADE_RADIUS, INITIAL_SCALE, MAX_DISTANCE
 from .interpreter import (
     axes_cylinder_sdf,
+    brush_bank,
     dot3,
+    eval_context,
     import_local_coords,
     make_normal_fn,
     make_primary_sdf,
@@ -103,8 +110,10 @@ def make_march(scene: CompiledScene, config: RenderConfig):
     (Keinert et al. 2014): it steps by ``omega*s`` and, when consecutive
     bounding spheres stop overlapping (``|s| + prev_|s| < last_step``),
     retracts the last step and drops that ray to plain sphere tracing
-    (raymarch.py:252-336 and march_kernel.py:565-632 of the JAX package)."""
-    sdf = make_primary_sdf(scene, gizmo=config.gizmo)
+    (raymarch.py:252-336 and march_kernel.py:565-632 of the JAX package).
+    The field is the twin: this is the plain version of the kernels'
+    marches."""
+    sdf = make_primary_sdf(scene, gizmo=config.gizmo, field="twin")
     eps = config.sdf_epsilon
     tol = config.march_tolerance
     max_d = config.max_distance
@@ -245,8 +254,9 @@ def make_cone_march(scene: CompiledScene, config: RenderConfig):
     stepped past (committed just before stepping past it), so every fine ray
     its cone covers is epsilon-clear up to ``t_safe``.  A ray that leaves the
     scene (``d > max_d``) returns that ``d`` unless ``config.cone_strict``;
-    one that runs out of steps returns its last committed point."""
-    sdf = make_primary_sdf(scene, gizmo=config.gizmo)
+    one that runs out of steps returns its last committed point.  The field
+    is the twin, as the kernel's."""
+    sdf = make_primary_sdf(scene, gizmo=config.gizmo, field="twin")
     eps = config.sdf_epsilon
     tol = config.march_tolerance
     max_d = config.max_distance
@@ -283,11 +293,12 @@ def make_cone_march(scene: CompiledScene, config: RenderConfig):
     return cone_march
 
 
-def make_shade(scene: CompiledScene, config: RenderConfig):
+def make_shade(scene: CompiledScene, config: RenderConfig, field: str = "exact"):
     """``shade(p, n, arrays, ctx) -> rgb`` (k1.cl:280-379): linear scan of all
-    objects re-evaluating each object's own SDF; the last match within
-    eps*TOLERANCE_FACTOR_MATERIAL picks the material; otherwise the axis
-    gizmo colors; otherwise the magenta background."""
+    objects re-evaluating each object's own SDF (of ``field``); the last
+    match within eps*TOLERANCE_FACTOR_MATERIAL picks the material; otherwise
+    the axis gizmo colors; otherwise the magenta background."""
+    brush_fns = brush_bank(scene, field)
     shape_id = [int(s) for s in scene.arrays.shape_id]
     material_id = [int(m) for m in scene.arrays.material_id]
     thresh = config.sdf_epsilon * config.material_tolerance
@@ -298,7 +309,7 @@ def make_shade(scene: CompiledScene, config: RenderConfig):
         abc = torch.zeros_like(p)
         for i, shape in enumerate(shape_id):
             local = import_local_coords(p, arrays, i)
-            is_match = scene.brush_fns[shape](local, ctx) < thresh
+            is_match = brush_fns[shape](local, ctx) < thresh
             match = torch.where(is_match, i, match)
             abc = torch.where(is_match[..., None], local, abc)
 
@@ -332,13 +343,15 @@ def make_renderer(scene: CompiledScene, config: Optional[RenderConfig] = None):
     """``render(arrays, campos, rgt, upp, fwd, t0=None) -> f32[H, W, 3]``
     linear RGB on the device of ``arrays``; wrap with :func:`to_u8` for the
     reference's byte pixels.  ``t0`` f32[H, W] is a per-pixel start parameter
-    (see :func:`make_march`); a ray that stops at its ``t0 > 0`` is shaded."""
+    (see :func:`make_march`); a ray that stops at its ``t0 > 0`` is shaded.
+    March, normals and shading ride the twin field: the plain version of the
+    fused renderer kernel."""
     config = config or RenderConfig()
     march = make_march(scene, config)
     normal_fn = make_normal_fn(
-        make_primary_sdf(scene, gizmo=config.gizmo), epsilon=config.normal_epsilon
+        make_primary_sdf(scene, gizmo=config.gizmo, field="twin"), epsilon=config.normal_epsilon
     )
-    shade = make_shade(scene, config)
+    shade = make_shade(scene, config, field="twin")
 
     def render(arrays: SceneArrays, campos, rgt, upp, fwd, t0=None):
         device = arrays.ad.device
@@ -346,7 +359,7 @@ def make_renderer(scene: CompiledScene, config: Optional[RenderConfig] = None):
         r_proj = project(ray_directions(config, device), rgt, upp, fwd)
         d = march(o_proj, r_proj, arrays, t0=t0)
         p = o_proj + d[..., None] * r_proj
-        ctx = EvalContext(ad=arrays.ad, rgt=rgt, upp=upp, fwd=fwd)
+        ctx = eval_context(scene, arrays, rgt=rgt, upp=upp, fwd=fwd)
         color = shade(p, normal_fn(p, arrays), arrays, ctx)
         miss_color = torch.tensor(config.miss_color, dtype=color.dtype, device=device)
         return torch.where((d > 0.0)[..., None], color, miss_color)
@@ -382,7 +395,7 @@ def make_ray_renderer(scene: CompiledScene, config: Optional[RenderConfig] = Non
             d = ift_depth(sdf, d, o_proj, r_proj, arrays)
         hit = d > 0.0
         p = o_proj + d[..., None] * r_proj
-        ctx = EvalContext(ad=arrays.ad, rgt=rgt, upp=upp, fwd=fwd)
+        ctx = eval_context(scene, arrays, rgt=rgt, upp=upp, fwd=fwd)
         miss_color = torch.tensor(config.miss_color, dtype=p.dtype, device=p.device)
         if soft_bw <= 0:
             color = shade(p, normal_fn(p, arrays), arrays, ctx)
@@ -406,17 +419,18 @@ def make_geometry_renderer(scene: CompiledScene, config: Optional[RenderConfig] 
     gradient, with ``bw = soft_silhouette_bandwidth or 0.02``.
 
     ``config.fit_field`` names the field the gradient reattachment
-    evaluates: ``"exact"`` (the tape) or ``"twin"`` (the field the kernels
-    compute).  For every design this package has (Design1, Design2) the
-    torch brush is both the exact field and the one its CUDA body computes,
-    so ``"twin"`` evaluates the same tape; a baked twin (the JAX package's
-    Logo) is not ported.  Any other value raises ``ValueError``."""
+    evaluates: ``"exact"`` (the tape of each brush's own function: gradients
+    reach every bank, Logo's curve control points in ``ad`` included) or
+    ``"twin"`` (the field the kernels compute: for Logo the baked letter
+    tables, which are scene constants, so gradients reach the object banks
+    only).  For Design1 and Design2 the two are the same tape.  Any other
+    value raises ``ValueError``."""
     if config is None:
         config = RenderConfig(differentiable=True, soft_silhouette_bandwidth=0.02)
     if config.fit_field not in ("exact", "twin"):
         raise ValueError(f"fit_field must be 'exact' or 'twin', got {config.fit_field!r}")
     ray_march = fit_ray_march(scene, config)
-    sdf = make_primary_sdf(scene, gizmo=config.gizmo)
+    sdf = make_primary_sdf(scene, gizmo=config.gizmo, field=config.fit_field)
     bw = config.soft_silhouette_bandwidth or 0.02
 
     def render_geom(arrays: SceneArrays, o_proj, r_proj):

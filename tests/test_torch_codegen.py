@@ -7,7 +7,9 @@ fit's per-ray march with its closest approach) is
 generated sources are compiled with g++ beside a tiny C harness
 (csrc/host_harness.cpp), loaded with ctypes and held against the plain
 PyTorch versions — the one check of the generated arithmetic that runs
-without a card.  All host-build cases stay in this file (one xdist worker).
+without a card.  Logo's sources carry K6 (csrc/table.cuh) inside every one
+of these functions, so its host build runs K6's own C++ here.  All host-build
+cases stay in this file (one xdist worker).
 """
 
 import ctypes
@@ -42,6 +44,8 @@ FAST = RenderConfig(width=160, height=120, max_steps=96, march_overrelax=1.6,
                     march_hierarchical=True)
 # The fit's ray march: no gizmo, tests/test_pallas.py:143's size.
 FIT = RenderConfig(width=128, height=32, max_steps=80, gizmo=False)
+# Logo's renderer at tests/test_logo.py:172's size.
+LOGO_RENDER = RenderConfig(width=32, height=32, max_steps=48)
 
 
 @pytest.fixture(scope="module")
@@ -54,7 +58,7 @@ def host_libs(tmp_path_factory):
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no host C++ compiler (g++) to build the generated source")
-    scenes = {name: get_design(name) for name in ("design1", "design2")}
+    scenes = {name: get_design(name) for name in ("design1", "design2", "logo")}
     builds = {
         ("design1", "sdf"): scene_source(scenes["design1"]),
         ("design1", "gizmo"): "#define HOST_RENDER\n" + scene_source(scenes["design1"], RENDER),
@@ -63,6 +67,9 @@ def host_libs(tmp_path_factory):
         ("design2", "fast"): "#define HOST_RENDER\n" + scene_source(scenes["design2"], FAST),
         ("design1", "fit"): "#define HOST_RENDER\n" + scene_source(scenes["design1"], FIT),
         ("design2", "fit"): "#define HOST_RENDER\n" + scene_source(scenes["design2"], FIT),
+        ("logo", "sdf"): scene_source(scenes["logo"]),
+        ("logo", "render"): "#define HOST_RENDER\n" + scene_source(scenes["logo"], LOGO_RENDER),
+        ("logo", "fit"): "#define HOST_RENDER\n" + scene_source(scenes["logo"], FIT),
     }
     out = tmp_path_factory.mktemp("host_build")
     running = {}
@@ -77,11 +84,11 @@ def host_libs(tmp_path_factory):
         _, err = proc.communicate()
         assert proc.returncode == 0, err
         lib = ctypes.CDLL(str(so))
-        lib.host_point_eval.argtypes = [_P, _P, ctypes.c_longlong, _P, _P]
+        lib.host_point_eval.argtypes = [_P, _P, ctypes.c_longlong, _P, _P, _P]
         if key[1] != "sdf":
-            lib.host_render.argtypes = [_P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P]
-            lib.host_cone_march.argtypes = [_P, ctypes.c_longlong, _P, _P, _P, _P]
-            lib.host_ray_march.argtypes = [_P, _P, ctypes.c_longlong, _P, _P, _P, _P]
+            lib.host_render.argtypes = [_P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P]
+            lib.host_cone_march.argtypes = [_P, ctypes.c_longlong, _P, _P, _P, _P, _P]
+            lib.host_ray_march.argtypes = [_P, _P, ctypes.c_longlong, _P, _P, _P, _P, _P]
         libs[key] = lib
     return scenes, libs
 
@@ -94,10 +101,21 @@ def _bank(arrays):
     )
 
 
+def _extras(scene):
+    """The scene's extra tables as the kernels get them (None without)."""
+    flat, _ = scene.device_extras("cpu")
+    return None if flat is None else flat.numpy()
+
+
+def _ptr(a):
+    return None if a is None else a.ctypes.data
+
+
 def _point_eval(lib, scene, pts):
     out = np.empty(len(pts), np.float32)
     bank, ad = _bank(scene.arrays), scene.arrays.ad
-    lib.host_point_eval(pts.ctypes.data, out.ctypes.data, len(pts), bank.ctypes.data, ad.ctypes.data)
+    lib.host_point_eval(pts.ctypes.data, out.ctypes.data, len(pts), bank.ctypes.data, ad.ctypes.data,
+                        _ptr(_extras(scene)))
     return out
 
 
@@ -108,7 +126,7 @@ def _render(lib, scene, config, cam_arrays, t0=None):
     lib.host_render(
         img.ctypes.data, config.height, config.width, cam.ctypes.data,
         _bank(scene.arrays).ctypes.data, scene.arrays.ad.ctypes.data,
-        None if t0 is None else t0.ctypes.data,
+        _ptr(_extras(scene)), _ptr(t0),
     )
     return img
 
@@ -179,7 +197,7 @@ def test_generated_cone_and_t0_render_match_plain(host_libs, name):
     t_safe = np.empty(rays.shape[:-1], np.float32)
     lib.host_cone_march(
         t_safe.ctypes.data, t_safe.size, rays.ctypes.data, np.ascontiguousarray(o_proj).ctypes.data,
-        _bank(scene.arrays).ctypes.data, scene.arrays.ad.ctypes.data,
+        _bank(scene.arrays).ctypes.data, scene.arrays.ad.ctypes.data, _ptr(_extras(scene)),
     )
     far = FAST.max_distance
     assert ((t_safe > far) == (ref > far)).mean() >= 0.99
@@ -213,13 +231,51 @@ def test_generated_ray_march_matches_plain(host_libs, name, kind):
     libs[(name, kind)].host_ray_march(
         d.ctypes.data, vmin.ctypes.data, d.size, rays.ctypes.data,
         np.ascontiguousarray(rows[0]).ctypes.data, _bank(scene.arrays).ctypes.data,
-        scene.arrays.ad.ctypes.data,
+        scene.arrays.ad.ctypes.data, _ptr(_extras(scene)),
     )
     d_ref, vmin_ref = d_ref.numpy(), vmin_ref.numpy()
     assert ((d > 0) == (d_ref > 0)).all()
     assert (d_ref > 0).any() and (d_ref < 0).any()
     np.testing.assert_allclose(d, d_ref, atol=1e-5)
     np.testing.assert_allclose(vmin, vmin_ref, atol=1e-5)
+
+
+def test_generated_logo_k6_matches_plain_twin(host_libs):
+    """K6 on the host: Logo's generated tape (three letters, each sampling its
+    baked table through ``rank_sample``) against the plain twin tape within
+    1e-6, and away from the exact brush where the twin differs from it."""
+    scenes, libs = host_libs
+    scene = scenes["logo"]
+    rng = np.random.default_rng(2)
+    pts = rng.uniform(-3.4, 3.4, (8192, 3))
+    axis = rng.integers(0, 3, len(pts))
+    pts[np.arange(len(pts)), axis] = rng.choice([-1.0, 1.0], len(pts)) * rng.uniform(2.8, 3.3, len(pts))
+    pts = pts.astype(np.float32)
+    out = _point_eval(libs[("logo", "sdf")], scene, pts)
+    ref = make_primary_sdf(scene, field="twin")(torch.from_numpy(pts)).numpy()
+    exact = make_primary_sdf(scene)(torch.from_numpy(pts)).numpy()
+    assert (ref < 0).sum() > 100
+    np.testing.assert_allclose(out, ref, atol=1e-6)
+    assert np.abs(out - exact).max() > 1e-3
+
+
+def test_generated_logo_render_matches_plain(host_libs):
+    """The per-pixel march, normal and shading on the baked field at 32x32
+    against the plain renderer: the same hit pixels, the render rule."""
+    scenes, libs = host_libs
+    scene = scenes["logo"]
+    cam_arrays = Camera.initial().as_arrays()
+    img = _render(libs[("logo", "render")], scene, LOGO_RENDER, cam_arrays)
+    ref = make_renderer(scene, LOGO_RENDER)(scene.arrays.to_torch("cpu"), *cam_arrays).numpy()
+    np.testing.assert_array_equal((img != 1.0).any(-1), (ref != 1.0).any(-1))
+    assert (ref != 1.0).any(-1).mean() > 0.05
+    _assert_render_close(img, ref)
+
+
+def test_generated_logo_ray_march_matches_plain(host_libs):
+    """K4's per-ray march on Logo's baked field: identical hit sets, d and
+    vmin within 1e-5 of the plain march."""
+    test_generated_ray_march_matches_plain(host_libs, "logo", "fit")
 
 
 def test_kernel_source_is_self_contained():

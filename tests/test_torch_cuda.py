@@ -207,3 +207,79 @@ def test_fit_step_kernel_matches_plain_march(design1):
     assert abs(out["kernel"][0] - out["plain"][0]) <= 1e-5 * abs(out["plain"][0])
     assert float((out["kernel"][1] - out["plain"][1]).abs().max()) <= 1e-5
     assert float(out["kernel"][1].abs().max()) > 0
+
+
+@pytest.fixture(scope="module")
+def logo(cuda_device):
+    scene = get_design("logo")
+    return scene, scene.arrays.to_torch(cuda_device)
+
+
+def test_logo_point_and_grid_kernels(logo, cuda_device):
+    """K1 and K3 on Logo's baked field (K6 inside) against the plain twin."""
+    scene, arrays = logo
+    pe, ge = make_point_eval(scene), make_grid_eval(scene)
+    pts = torch.from_numpy(np.random.default_rng(0).uniform(-3.5, 3.5, (65_537, 3)).astype(np.float32))
+    pts = pts.to(cuda_device)
+    before = kbuild.LAUNCHES["point_eval"]
+    got = pe(pts, arrays)
+    torch.cuda.synchronize()
+    assert kbuild.LAUNCHES["point_eval"] == before + 1
+    assert _close(got, pe.plain(pts, arrays))
+    lo = np.full(3, -3.5, np.float32)
+    grid = (arrays, lo, np.float32(7.0 / 128), np.float32(10.0), 9, 129)
+    assert _close(ge(*grid), ge.plain(*grid))
+
+
+@pytest.mark.parametrize("mode", ["exact", "overrelax", "hierarchical"])
+def test_logo_renderer_kernels(logo, mode):
+    scene, arrays = logo
+    config = RenderConfig(width=160, height=120, march_overrelax=1.0 if mode == "exact" else 1.6,
+                          march_hierarchical=mode == "hierarchical")
+    factory = make_cuda_hierarchical_renderer if mode == "hierarchical" else make_cuda_renderer
+    render = factory(scene, config)
+    cam = Camera.initial().orbit(0.2, -0.1).as_arrays()
+    got = render(arrays, *cam)
+    assert _render_close(got, render.plain(arrays, *cam))
+
+
+def test_logo_ray_march_kernel(logo):
+    scene, arrays = logo
+    config = dataclasses.replace(FIT, width=160, height=120)
+    ray_march = make_cuda_ray_march(scene, config)
+    rows = camera_rows(*Camera.initial().as_arrays())
+    rays = project(ray_directions(config, arrays.ad.device),
+                   *torch.as_tensor(rows[1:], device=arrays.ad.device))
+    d, vmin = ray_march(arrays, rows[0], rays)
+    d_ref, vmin_ref = ray_march.plain(arrays, rows[0], rays)
+    assert torch.equal(d > 0, d_ref > 0) and bool((d > 0).any())
+    assert float((d - d_ref).abs().max()) <= 1e-5
+    assert float((vmin - vmin_ref).abs().max()) <= 1e-5
+
+
+def test_logo_evaluator_fields_on_card(logo):
+    """The JAX package's rule on the card: Logo defaults to the exact tape
+    (plain PyTorch, no kernel), the baked field rides K1; Design1 rides K1."""
+    scene, _ = logo
+    pts = np.random.default_rng(1).uniform(-3.5, 3.5, (4096, 3)).astype(np.float32)
+    before = kbuild.LAUNCHES["point_eval"]
+    exact = BatchEvaluator(scene)
+    assert not exact.use_kernels and exact.sdf_field == "tape-exact"
+    vals = exact.eval_sdf_at_points(pts)
+    assert kbuild.LAUNCHES["point_eval"] == before
+    baked = BatchEvaluator(scene, use_kernels=True)
+    assert baked.sdf_field == "cuda-baked" and baked.twin_tolerance == 0.02
+    twin = baked.eval_sdf_at_points(pts)
+    assert kbuild.LAUNCHES["point_eval"] == before + 1
+    band = (vals > 1e-3) & (vals < 0.1)
+    assert np.abs(twin - vals)[band].max() < 0.02
+    assert BatchEvaluator(get_design("design1")).sdf_field == "cuda-exact"
+
+
+def test_logo_cli_export_reports_field(tmp_path, capsys, cuda_device):
+    from designcsg_tpu_torch import cli
+
+    for field, expect in (("baked", "cuda-baked"), ("exact", "tape-exact")):
+        cli.main(["export", "logo", "--sdf-field", field, "--grid-level", "5",
+                  "--stl", str(tmp_path / f"logo_{field}.stl")])
+        assert f"(sdf field: {expect})" in capsys.readouterr().out
