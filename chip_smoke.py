@@ -5,11 +5,13 @@
 
 Builds the CUDA kernels of Design1, Design2 and Logo (point eval, grid eval,
 the fused renderer exact and fast, the cone prepass, the fit's ray march; in
-Logo's, csrc/table.cuh samples the baked letter tables, K6) from the sources
-in this checkout, all nvcc runs at once, and holds each against its plain
-PyTorch version at the main paths' shapes.  Then it drives seven main paths
-through the user entry points, with launch counts set to 0 before each and
-read after:
+Logo's, csrc/table.cuh samples the baked letter tables, K6; and the exact
+per-tile cull, K7, inside the renderer, hoisted and dynamic, and inside the
+grid kernel) from the sources in this checkout, all nvcc runs at once, and
+holds each against its plain PyTorch version at the main paths' shapes (the
+culled kernels also against the unculled ones, phase 5d).  Then it drives
+eight main paths through the user entry points, with launch counts set to 0
+before each and read after:
 
 * Design1's viewport, a k2 query and the dense 256^3 export to STL/PLY;
 * Design1's fast viewport: ``cli render design1 --fast`` (cone prepass +
@@ -28,7 +30,11 @@ read after:
   both fields, the baked mesh held to the exact field within 2x the twin's
   tolerance;
 * F: Logo's fit at 640x480 (bench.py's configuration): ``render_target`` and
-  3 Adam steps for ``fit_field`` exact and twin, 8 ray-march launches.
+  3 Adam steps for ``fit_field`` exact and twin, 8 ray-march launches;
+* G, per design: ``render_scene`` with ``march_cull="dynamic"`` and with
+  ``march_cull=True``, each from the camera and hierarchical at omega = 1.6
+  (the cone prepass, then the culled t0 renderer), and the culled grid over
+  the 33x257x257 slab; every frame is held to the checked unculled one.
 
 It times every kernel and its plain version with CUDA events (and Design1's
 renderer built with and without FMA contraction against each other), and
@@ -37,7 +43,9 @@ prints:
 * the ``-Xptxas -v`` report of the build;
 * a ``{"kernels": [...]}`` JSON line, one entry per kernel, mode and design
   (launches on its main path, error against the plain version, times, the
-  card's lower bound; Logo's rows also name K6, which they inline).  ``ms``
+  card's lower bound; Logo's rows also name K6, which they inline, and the
+  culled rows K7, with ``skipped_share``, the share of group evaluations
+  the plain version skipped at the kernel's tiles, and ``unculled_ms``).  ``ms``
   is the mean time per call by CUDA events over back-to-back calls (launch
   overhead included), ``single_ms`` the median by events of single calls on
   an idle card, ``device_ms`` the mean of torch.profiler's records of the
@@ -45,7 +53,12 @@ prints:
 * per design a ``timing_crosscheck`` line, each kernel's time read those
   three ways and by events over 1, 4, 16 and 64 calls; for Logo a
   ``k6_table_read_model`` line: the time its table reads alone would take at
-  an assumed L1 rate, a model and not a measurement;
+  an assumed L1 rate, a model and not a measurement; and per design a
+  ``k7_chain_ops_model`` line: the FP32 operations of one K7 chain and of one
+  tape evaluation of each culled kernel, counted from the generated code;
+* a ``logo_close_up_k7`` line: in Logo's close-up, where the hoisted cull
+  prunes (phase 5d), its skipped share and the culled and unculled
+  renderers' device ms, alternated;
 * a ``fit_step`` JSON line: one fit step's time by events, split into the
   ray march, the gradient reattachment (forward and backward) and Adam, its
   peak device memory and effective Mrays/s; and a ``fit_step_logo`` line,
@@ -82,6 +95,7 @@ from designcsg_tpu_torch.designs.logo import LETTER_TABLE_READS
 from designcsg_tpu_torch.evaluator import BatchEvaluator
 from designcsg_tpu_torch.export import writers
 from designcsg_tpu_torch.export.pipeline import autodetect_bounding_box_device, export_mesh
+from designcsg_tpu_torch.ops import cull
 from designcsg_tpu_torch.ops.cuda import build as kbuild
 from designcsg_tpu_torch.ops.cuda.march_kernel import (
     make_cuda_cone_march,
@@ -92,6 +106,7 @@ from designcsg_tpu_torch.ops.cuda.march_kernel import (
 from designcsg_tpu_torch.ops.cuda.sdf_kernel import make_grid_eval, make_point_eval
 from designcsg_tpu_torch.ops.cuda.tape import (
     cone_kernel_source,
+    cull_chain_ops,
     march_kernel_source,
     ray_march_kernel_source,
     sdf_kernel_source,
@@ -121,15 +136,28 @@ PEAK_BYTES = 3.35e12
 L1_BYTES_PER_CLOCK = 128
 
 # FP32 operations (a fused multiply-add counts 2).  Each brush carries the
-# count of its CUDA body (Brush.cuda_flops); a brush that ignores its
-# coordinates costs nothing, nor does its frame transform (the compiler drops it).
-FRAME_OPS = 3 + 15  # 3 subtractions + a 3x3 matrix-vector product (9 mul, 6 add)
+# count of its CUDA body (Brush.cuda_flops); a tape slot costs that plus its
+# frame transform, unless the brush ignores its coordinates (the compiler
+# drops its transform): cull.leaf_cost, which the cull's grouping uses too.
 GIZMO_OPS = 3 + 3 * 9 + 2  # 3 divisions, 3 cylinders, 2 mins
 
 EXACT = RenderConfig()
 OVERRELAX = RenderConfig(march_overrelax=1.6)
 HIERARCHICAL = RenderConfig(march_overrelax=1.6, march_hierarchical=True)
 HIERARCHICAL_EXACT = RenderConfig(march_hierarchical=True)
+# K7, the exact per-tile cull inside K2: hoisted and dynamic, from the camera
+# (exact march) and from the cone's t0 plane (over-relaxed, path G's --fast).
+CULLED = {
+    "renderer_cull": (dataclasses.replace(EXACT, march_cull=True), "renderer"),
+    "renderer_cull_dynamic": (dataclasses.replace(EXACT, march_cull="dynamic"), "renderer"),
+    "renderer_t0_cull": (dataclasses.replace(HIERARCHICAL, march_cull=True), "renderer_t0"),
+    "renderer_t0_cull_dynamic": (dataclasses.replace(HIERARCHICAL, march_cull="dynamic"),
+                                 "renderer_t0"),
+}
+# K7 where the hoisted cull prunes: Logo close up and head on with a short
+# march range (from the default camera its view-cone boxes leave no group out).
+NEAR = RenderConfig(max_distance=8.0)
+NEAR_CULLED = dataclasses.replace(NEAR, march_cull=True)
 # The fit (bench.py:284-342): 640x480, exact march of 512 steps, no gizmo.
 FIT = RenderConfig(differentiable=True, soft_silhouette_bandwidth=0.02, gizmo=False)
 FIT_OVERRELAX = dataclasses.replace(FIT, march_overrelax=1.6)
@@ -149,9 +177,18 @@ SOURCES = {
     "renderer_t0": ("designcsg_tpu_torch/csrc/march_kernel.cu", f"{MARCH_PY}:447"),
     "cone_march": ("designcsg_tpu_torch/csrc/cone_kernel.cu", f"{MARCH_PY}:202"),
     "ray_march": ("designcsg_tpu_torch/csrc/ray_march_kernel.cu", f"{MARCH_PY}:45"),
+    # K7 inside K2 (the hoisted branch :468-495, the dynamic one :497-523) and K3.
+    "renderer_cull": ("designcsg_tpu_torch/csrc/march_kernel.cu", f"{MARCH_PY}:468"),
+    "renderer_cull_dynamic": ("designcsg_tpu_torch/csrc/march_kernel.cu", f"{MARCH_PY}:497"),
+    "renderer_t0_cull": ("designcsg_tpu_torch/csrc/march_kernel.cu", f"{MARCH_PY}:468"),
+    "renderer_t0_cull_dynamic": ("designcsg_tpu_torch/csrc/march_kernel.cu", f"{MARCH_PY}:497"),
+    "grid_eval_cull": ("designcsg_tpu_torch/csrc/sdf_kernels.cu",
+                       "designcsg_tpu/ops/pallas/sdf_kernel.py:236"),
 }
 # K6, inlined into every kernel of a scene with baked tables (Logo).
 K6_SOURCE = ("designcsg_tpu_torch/csrc/table.cuh", "designcsg_tpu/ops/pallas/table.py:45")
+# K7's chain, generated per scene over interval.cuh into every culled kernel.
+K7_SOURCE = ("designcsg_tpu_torch/csrc/interval.cuh", "designcsg_tpu/ops/pallas/cull.py:453")
 
 
 def tape_ops(scene) -> int:
@@ -159,10 +196,9 @@ def tape_ops(scene) -> int:
     ops = 0
     for opcode, left, _, _ in scene.arrays.tape:
         if opcode == 0:  # IMPORT
-            brush = scene.brush_flops[int(left)]
-            if brush is None:
+            if scene.brush_flops[int(left)] is None:
                 raise ValueError(f"brush {scene.brush_names[int(left)]!r} has no cuda_flops")
-            ops += brush + (FRAME_OPS if brush else 0)
+            ops += cull.leaf_cost(scene, int(left))
         elif opcode in (2, 3, 4):  # MIN, MAX, NEGATE
             ops += 1
     return ops
@@ -172,6 +208,23 @@ def table_reads(scene) -> int:
     """Four-byte table reads of one tape evaluation (K6, Logo's letters)."""
     return sum(LETTER_TABLE_READS for b in scene.arrays.shape_id
                if scene.brush_names[int(b)].startswith("letter_"))
+
+
+def group_ops(scene, culler) -> list:
+    """FP32 operations of each cull group's slots in one tape evaluation."""
+    slots = [int(left) for opcode, left, _, _ in scene.arrays.tape if opcode == 0]
+
+    def slot_ops(k):
+        return GIZMO_OPS if k == len(slots) else cull.leaf_cost(scene, slots[k])
+
+    return [sum(slot_ops(k) for k in members) for members in culler.groups]
+
+
+def culled_ops(counts, full_ops: int, gops: list, chain_ops: int) -> int:
+    """FP32 operations of a culled kernel's run: every evaluation's full tape
+    less the slots of the groups it skipped, and the chains."""
+    skipped = sum((counts["evals"] - g) * o for g, o in zip(counts["group_evals"], gops))
+    return counts["evals"] * full_ops - skipped + counts["chains"] * chain_ops
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -424,6 +477,10 @@ def main() -> int:
         units[f"{name} cone"] = ("cone", cone_kernel_source(scene, HIERARCHICAL))
         units[f"{name} cone omega=1"] = ("cone", cone_kernel_source(scene, HIERARCHICAL_EXACT))
         units[f"{name} ray_march"] = ("ray_march", ray_march_kernel_source(scene, FIT))
+        for kernel, (config, _) in CULLED.items():
+            units[f"{name} march {kernel}"] = ("march", march_kernel_source(scene, config))
+    units["logo march near"] = ("march", march_kernel_source(scenes["logo"], NEAR))
+    units["logo march near cull"] = ("march", march_kernel_source(scenes["logo"], NEAR_CULLED))
     units["design1 ray_march omega=1.6"] = (
         "ray_march", ray_march_kernel_source(scenes["design1"], FIT_OVERRELAX))
     units["design1 ray_march cli fit"] = (
@@ -455,6 +512,8 @@ def main() -> int:
             hierarchical=make_cuda_hierarchical_renderer(scene, HIERARCHICAL),
             hierarchical_exact=make_cuda_hierarchical_renderer(scene, HIERARCHICAL_EXACT),
             ray_march=make_cuda_ray_march(scene, FIT),
+            grid_eval_cull=make_grid_eval(scene, cull=True),
+            **{kernel: make_cuda_renderer(scene, config) for kernel, (config, _) in CULLED.items()},
         )
     inputs = {}
     images = {}
@@ -543,6 +602,64 @@ def main() -> int:
             golden = np.load(os.path.join(ROOT, "tests", "goldens", f"{name}_160x120.npy"))
             frac = float((np.abs(small.cpu().numpy().astype(int) - golden.astype(int)).max(-1) > 2).mean())
             check(frac < 0.002, f"{name} 160x120 u8 pixels off the golden by > 2 levels: {frac:.4%} < 0.2%")
+
+    phase("5d. K7a: the culled kernels (the interval cull inside K2 and K3) vs the unculled "
+          "kernel and the plain culled version, 640x480 and the 33x257x257 slab")
+    cull_counts = {}  # (kernel, design) -> the plain version's counts at the kernel's tiles
+    for name, scene in scenes.items():
+        k, a = kernels[name], arrays[name]
+        t0_plane = inputs[name]["t0"]
+        for kernel, (config, unculled) in CULLED.items():
+            t0 = t0_plane if unculled == "renderer_t0" else None
+            got = k[kernel](a, *cam, t0=t0)
+            base = k[unculled](a, *cam, t0=t0)
+            counts = {}
+            plain, plain_ms = timed_once(lambda: k[kernel].plain(a, *cam, t0=t0, cull_counts=counts))
+            same = bool(torch.equal(got, base))
+            if same:
+                check(True, f"{name} {kernel} bit-equal to the unculled {unculled} kernel")
+            else:
+                check_render(f"{name} {kernel} vs the unculled {unculled} kernel", got, base)
+            results[(kernel, name)] = dict(
+                max_abs_err=check_render(f"{name} {kernel} vs its plain version", got, plain),
+                plain_ms=plain_ms, bit_equal_to_unculled=same)
+            cull_counts[(kernel, name)] = counts
+        grid = (a, glo, gcell, gz0, 33, 257)
+        got, base = k["grid_eval_cull"](*grid), k["grid_eval"](*grid)
+        counts = {}
+        plain, plain_ms = timed_once(lambda: k["grid_eval_cull"].plain(*grid, counts=counts))
+        for what, ref in (("the unculled grid_eval kernel", base), ("its plain version", plain)):
+            err = (got - ref).abs()
+            check(bool((err <= 1e-5 + 1e-6 * ref.abs()).all()),
+                  f"{name} grid_eval_cull vs {what}: max|d| = {float(err.max()):.3g} within 1e-5 + 1e-6|ref|")
+        results[("grid_eval_cull", name)] = dict(max_abs_err=float((got - plain).abs().max()),
+                                                 plain_ms=plain_ms)
+        cull_counts[("grid_eval_cull", name)] = counts
+        for kernel in list(CULLED) + ["grid_eval_cull"]:
+            c = cull_counts[(kernel, name)]
+            share = cull.skipped_share(c)
+            results[(kernel, name)]["skipped_share"] = share
+            print(f"  {name} {kernel}: skipped share {share:.4f} of {c['evals']} evaluations x "
+                  f"{len(c['group_evals'])} groups, {c['chains']} chains")
+    # From the default camera the hoisted boxes prune nothing; close up they
+    # do, so a box too small would change this frame.
+    near_cam = Camera.initial(apply_default_orbit=False).zoom(6.0).as_arrays()
+    near, near_base = make_cuda_renderer(scenes["logo"], NEAR_CULLED), make_cuda_renderer(scenes["logo"], NEAR)
+    got, counts = near(arrays["logo"], *near_cam), {}
+    base = near_base(arrays["logo"], *near_cam)
+    check(bool(torch.equal(got, base)) and float((base != 1.0).any(-1).float().mean()) > 0.2,
+          "logo close up (max_distance 8): renderer_cull bit-equal to the unculled kernel, "
+          "over a fifth of the pixels hit")
+    check_render("logo close up renderer_cull vs its plain version", got,
+                 near.plain(arrays["logo"], *near_cam, cull_counts=counts))
+    share = cull.skipped_share(counts)
+    check(share > 0.1, f"logo close up renderer_cull: skipped share {share:.4f} > 0.1")
+    # Where it prunes, culled against unculled device ms (A B A B).
+    ab = {"cull": [], "unculled": []}
+    for _ in range(2):
+        for key, fn in (("cull", near), ("unculled", near_base)):
+            ab[key].append(device_ms(lambda: fn(arrays["logo"], *near_cam), "render_kernel", iters=20))
+    print(json.dumps({"logo_close_up_k7": dict(skipped_share=share, device_ms=ab)}))
 
     phase("6. small dense export of Design1 on the card vs the plain CPU path")
     scene = scenes["design1"]
@@ -804,6 +921,35 @@ def main() -> int:
     launches[("ray_march", "logo")] = counted["ray_march"]
     print(json.dumps({"fit_step_logo": fit_logo}))
 
+    for name in ("logo", "design2", "design1"):
+        phase(f"8G. main path G, {name}: render_scene with march_cull 'dynamic' and True, each "
+              f"from the camera and hierarchical at omega = 1.6, and the culled grid over the "
+              f"33x257x257 slab (launches counted)")
+        scene, a = scenes[name], arrays[name]
+        kbuild.LAUNCHES.clear()
+        t0 = time.time()
+        frames_g = {kernel: render_scene(scene, config=CULLED[kernel][0]) for kernel in CULLED}
+        grid_g = make_grid_eval(scene, cull=True)(a, glo, gcell, gz0, 33, 257)
+        torch.cuda.synchronize()
+        main_s = time.time() - t0
+        counted = dict(kbuild.LAUNCHES)
+        print(f"  main path {main_s:.2f} s; launches {counted}")
+        for kernel, image in frames_g.items():
+            ref = images[name]["exact" if CULLED[kernel][1] == "renderer" else "hierarchical"]
+            same = bool(torch.equal(image, ref))
+            if same:
+                check(True, f"{name} {kernel} frame bit-equal to the checked unculled frame")
+            else:
+                check_render(f"{name} {kernel} frame vs the checked unculled frame", image, ref)
+        ref = kernels[name]["grid_eval"](a, glo, gcell, gz0, 33, 257)
+        check(bool(((grid_g - ref).abs() <= 1e-5 + 1e-6 * ref.abs()).all()),
+              f"{name} culled grid within 1e-5 + 1e-6|ref| of the unculled grid")
+        check(counted.get("cone_march") == 2, f"{name} cone_march launched {counted.get('cone_march')} "
+                                              f"times == 2 (the two hierarchical frames)")
+        for kernel in list(CULLED) + ["grid_eval_cull"]:
+            check(counted.get(kernel) == 1, f"{name} {kernel} launched {counted.get(kernel)} times == 1")
+            launches[(kernel, name)] = counted[kernel]
+
     phase("9. timing (CUDA events, after warm-up)")
     frames = {}
     for name, scene in scenes.items():
@@ -889,6 +1035,44 @@ def main() -> int:
             28 * n_rays + tables, x["fit_evals"] * ops)), tape_evals=x["fit_evals"])
         print(f"  {name} ray_march: {x['fit_evals']} tape evals over {n_rays} rays "
               f"({x['fit_evals'] / n_rays:.1f}/ray), {json.dumps(r[('ray_march', name)])}")
+        # K7: the culled kernels beside the unculled ones.  Their work is the
+        # unculled work less the skipped groups' slots, plus one chain per
+        # tile (per tile and step in the dynamic mode), all counted by the
+        # plain version at the kernel's tiles (phase 5d); the chain's FP32
+        # operations are counted from the generated code and printed on a
+        # line of their own, beside the tape's.
+        chain_model = {}
+        for kernel, (config, unculled) in CULLED.items():
+            t0 = t0_plane if unculled == "renderer_t0" else None
+            call = (lambda kernel=kernel, t0=t0: k[kernel](a, *cam, t0=t0))
+            calls[kernel] = (call, "render_kernel")
+            chain = cull_chain_ops(scene, config.gizmo)
+            n_ops = culled_ops(cull_counts[(kernel, name)], ops + GIZMO_OPS,
+                               group_ops(scene, k[kernel].plain.culler), chain)
+            n_bytes = (12 + (4 if t0 is not None else 0)) * n_px + tables
+            chain_model[kernel] = dict(chain_ops=chain, tape_ops=ops + GIZMO_OPS)
+            r[(kernel, name)].update(ms=cuda_ms(call, 20), enqueue_ms=enqueue_ms(call),
+                                     unculled_ms=r[(unculled, name)]["ms"],
+                                     chains=cull_counts[(kernel, name)]["chains"],
+                                     tape_evals=cull_counts[(kernel, name)]["evals"])
+            r[(kernel, name)].update(zip(("bound_ms", "bound_by"), bound_ms(n_bytes, n_ops)))
+        gc = k["grid_eval_cull"]
+        calls["grid_eval_cull"] = (lambda: gc(*grid), "grid_eval_cull_kernel")
+        chain = cull_chain_ops(scene, False)
+        n_ops = culled_ops(cull_counts[("grid_eval_cull", name)], ops, group_ops(scene, gc.culler), chain)
+        chain_model["grid_eval_cull"] = dict(chain_ops=chain, tape_ops=ops)
+        r[("grid_eval_cull", name)].update(
+            ms=cuda_ms(lambda: gc(*grid), 100), enqueue_ms=enqueue_ms(lambda: gc(*grid)),
+            unculled_ms=r[("grid_eval", name)]["ms"],
+            chains=cull_counts[("grid_eval_cull", name)]["chains"], tape_evals=n_grid)
+        r[("grid_eval_cull", name)].update(zip(("bound_ms", "bound_by"), bound_ms(4 * n_grid + tables, n_ops)))
+        for kernel in list(CULLED) + ["grid_eval_cull"]:
+            print(f"  {name} {kernel}: {r[(kernel, name)]['ms']:.4f} ms, unculled "
+                  f"{r[(kernel, name)]['unculled_ms']:.4f} ms, skipped share "
+                  f"{r[(kernel, name)]['skipped_share']:.4f}")
+        # Counts from the generated code, not measurements: FP32 operations
+        # of one chain and of one tape evaluation of each culled kernel.
+        print(json.dumps({f"{name}_k7_chain_ops_model": chain_model}))
         # Every kernel's time read three ways (events over N calls, events
         # around single calls, the profiler's records): the events time per
         # call ("ms") and the profiler's ("device_ms") disagree on some rows.
@@ -1009,10 +1193,12 @@ def main() -> int:
         k6 = {}
         if scenes[name].extras:
             k6 = dict(inlines=K6_SOURCE[0], inlines_replaces=K6_SOURCE[1])
+        # The culled rows run K7's generated chain inside.
+        k7 = dict(cull_inlines=K7_SOURCE[0], cull_inlines_replaces=K7_SOURCE[1])
         line += [
             dict(name=kernel, design=name, route="cuda", source=SOURCES[kernel][0],
                  replaces=SOURCES[kernel][1], launches=launches[(kernel, name)], library_ms=None,
-                 **k6, **results[(kernel, name)])
+                 **k6, **(k7 if "cull" in kernel else {}), **results[(kernel, name)])
             for kernel in SOURCES
             if (kernel, name) in launches
         ]

@@ -26,6 +26,7 @@ from . import scene as _scene
 from . import transforms
 from . import brushes as _b
 from .compiler import CompiledScene, SceneCompiler
+from .ops import cull as _cull
 
 Transform = transforms.Transform
 PI = np.pi
@@ -43,12 +44,17 @@ def new_design() -> SceneCompiler:
     global _current, _sphere, _cylinder, _box
     _current = SceneCompiler()
     _sphere = _current.define_brush(
-        _b.sphere_brush_fn, name="sphere", cuda=_b.SPHERE_CUDA, cuda_flops=7
+        _b.sphere_brush_fn, name="sphere", cuda=_b.SPHERE_CUDA, cuda_flops=7,
+        interval=_cull.sphere_interval, interval_cuda=_cull.SPHERE_INTERVAL_CUDA,
     )
     _cylinder = _current.define_brush(
-        _b.cylinder_brush_fn, name="cylinder", cuda=_b.CYLINDER_CUDA, cuda_flops=8
+        _b.cylinder_brush_fn, name="cylinder", cuda=_b.CYLINDER_CUDA, cuda_flops=8,
+        interval=_cull.cylinder_interval, interval_cuda=_cull.CYLINDER_INTERVAL_CUDA,
     )
-    _box = _current.define_brush(_b.box_brush_fn, name="box", cuda=_b.BOX_CUDA, cuda_flops=8)
+    _box = _current.define_brush(
+        _b.box_brush_fn, name="box", cuda=_b.BOX_CUDA, cuda_flops=8,
+        interval=_cull.box_interval, interval_cuda=_cull.BOX_INTERVAL_CUDA,
+    )
     return _current
 
 
@@ -79,9 +85,10 @@ def box_brush(compiler=None):
 
 
 def define_brush(fn, name="", cuda=None, cuda_flops=None, twin=None, twin_approx=None,
-                 extras=None, compiler=None):
+                 extras=None, interval=None, interval_cuda=None, compiler=None):
     return _c(compiler).define_brush(fn, name=name, cuda=cuda, cuda_flops=cuda_flops,
-                                     twin=twin, twin_approx=twin_approx, extras=extras)
+                                     twin=twin, twin_approx=twin_approx, extras=extras,
+                                     interval=interval, interval_cuda=interval_cuda)
 
 
 def define_material(fn, name="", cuda=None, compiler=None):

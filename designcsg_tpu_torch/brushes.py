@@ -22,6 +22,13 @@ tables the body reads as ``extras``.  Every kernel and its plain version
 compute the twin; the exact ``fn`` serves the plain tape (ops/interpreter.py,
 ``field="exact"``), the evaluator's exact field and the fit's gradients.
 
+A brush may also carry an interval twin for the exact per-tile cull (K7,
+ops/cull.py): ``interval(ia, ib, ic, ctx) -> (lo, hi)`` bounds the brush over
+a box of local coordinates, each argument a ``(lo, hi)`` pair, and
+``interval_cuda`` is its C++ body ``Iv f(Iv a, Iv b, Iv c, const float* ad,
+const float* ex)`` over csrc/interval.cuh.  It must bound both fields, ``fn``
+and ``twin``; a brush without one is never culled.
+
 A material's ``cuda`` body has the signature
 ``Rgb material(float gx, float gy, float gz, float lx, float ly, float lz,
 float nx, float ny, float nz, const Cam& cam, const float* ad)`` where ``g`` is
@@ -56,10 +63,12 @@ class Brush:
 
     ``cuda_flops`` is the FP32 operation count of one call of the CUDA body
     (a fused multiply-add counts 2; fabsf, fmaxf and sqrtf 1 each), from
-    which chip_smoke.py computes the kernels' lower bound.  ``twin`` (the
-    field the CUDA body computes) defaults to ``fn``; ``twin_approx`` is
-    None where the twin is exact; ``extras`` maps a scene-unique name to the
-    f32 table the CUDA body reads at ``ex + EX_<name>``."""
+    which chip_smoke.py computes the kernels' lower bound and the cull its
+    groups.  ``twin`` (the field the CUDA body computes) defaults to ``fn``;
+    ``twin_approx`` is None where the twin is exact; ``extras`` maps a
+    scene-unique name to the f32 table the CUDA body reads at
+    ``ex + EX_<name>``.  ``interval`` and ``interval_cuda`` are the interval
+    twin in torch and C++ (None: never culled)."""
 
     fn: Callable[..., Any]
     bank_index: int
@@ -69,6 +78,8 @@ class Brush:
     twin: Optional[Callable[..., Any]] = None
     twin_approx: Optional[float] = None
     extras: Mapping[str, Any] = dataclasses.field(default_factory=dict, compare=False)
+    interval: Optional[Callable[..., Any]] = None
+    interval_cuda: Optional[str] = None
 
     def __post_init__(self):
         if self.twin is None:

@@ -25,6 +25,7 @@ import torch
 
 from . import brushes as _brushes
 from . import scene as _scene
+from .ops import cull as _cull
 from . import transforms as tf
 from .constants import (
     ARBITRARY_DATA_POINTS,
@@ -157,6 +158,10 @@ class CompiledScene:
     #: ``(name, f32 table)`` of every brush's extras, in bank order, names
     #: unique: scene constants that the kernels read through one pointer.
     extras: Tuple[Tuple[str, np.ndarray], ...] = ()
+    #: Interval twins per bank index (``Brush.interval``, ``interval_cuda``):
+    #: None where a brush has none, and the cull never skips it.
+    brush_interval: Tuple[Optional[Callable], ...] = ()
+    brush_interval_cuda: Tuple[Optional[str], ...] = ()
     _device_extras: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @property
@@ -217,10 +222,12 @@ class SceneCompiler:
         self.brushes: List[_brushes.Brush] = []
         self.materials: List[_brushes.Material] = []
         self.empty_brush = self.define_brush(
-            _brushes.empty_brush_fn, name="empty", cuda=_brushes.EMPTY_CUDA, cuda_flops=0
+            _brushes.empty_brush_fn, name="empty", cuda=_brushes.EMPTY_CUDA, cuda_flops=0,
+            interval=_cull.empty_interval, interval_cuda=_cull.EMPTY_INTERVAL_CUDA,
         )
         self.space_brush = self.define_brush(
-            _brushes.space_brush_fn, name="space", cuda=_brushes.SPACE_CUDA, cuda_flops=0
+            _brushes.space_brush_fn, name="space", cuda=_brushes.SPACE_CUDA, cuda_flops=0,
+            interval=_cull.space_interval, interval_cuda=_cull.SPACE_INTERVAL_CUDA,
         )
         self.abs_normals = self.define_material(
             _brushes.abs_normals_fn, name="abs_normals",
@@ -248,10 +255,13 @@ class SceneCompiler:
         twin: Optional[Callable] = None,
         twin_approx: Optional[float] = None,
         extras: Optional[dict] = None,
+        interval: Optional[Callable] = None,
+        interval_cuda: Optional[str] = None,
     ) -> _brushes.Brush:
         brush = _brushes.Brush(
             fn=fn, bank_index=len(self.brushes), name=name, cuda=cuda, cuda_flops=cuda_flops,
             twin=twin, twin_approx=twin_approx, extras=dict(extras or {}),
+            interval=interval, interval_cuda=interval_cuda,
         )
         self.brushes.append(brush)
         return brush
@@ -406,6 +416,8 @@ class SceneCompiler:
             brush_twin=tuple(b.twin for b in self.brushes),
             twin_tolerance=float(max(approx, default=0.0)),
             extras=tuple((name, np.asarray(t, np.float32)) for name, t in extras.items()),
+            brush_interval=tuple(b.interval for b in self.brushes),
+            brush_interval_cuda=tuple(b.interval_cuda for b in self.brushes),
         )
 
     # -- reference-format artifact emission --------------------------------

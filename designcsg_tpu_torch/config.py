@@ -45,6 +45,11 @@ class RenderConfig:
     hierarchical_factor: int = 5
     cone_strict: bool = False
     cone_safety: float = 1.2
+    # The exact per-tile cull (K7, ops/cull.py) in the fused renderer:
+    # True (any true value but "dynamic") culls once per tile over its view
+    # cone, "dynamic" at every march step over the tile's live rays.  As in
+    # the JAX package, the differentiable renders, the fit's ray march (K4)
+    # and the cone prepass (K5) have no cull and ignore it.
     march_cull: Optional[bool] = None
     march_proxy: Optional[bool] = None
     # TPU loop-unroll knob of the JAX kernel; the CUDA renderer marches each
@@ -53,7 +58,6 @@ class RenderConfig:
 
     def __post_init__(self):
         unported = [
-            (bool(self.march_cull), "march_cull", "queue 2, K7 interval culler"),
             (self.march_proxy is True, "march_proxy=True", "queue 1, item 10"),
             (self.normal_mode != "fd", f"normal_mode={self.normal_mode!r}",
              "queue 1, item 4"),

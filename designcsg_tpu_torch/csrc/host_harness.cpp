@@ -1,6 +1,9 @@
 // Host build of a generated scene source, for tests without a card: the same
 // generated HD functions the kernels inline, driven by plain loops.  Built with
 // a host C++ compiler after the scene code (and march.cuh, for the renderer).
+// With a cull (CULL_MODE), the chain alone, the culled grid tile by tile, and
+// the culled renderer warp by warp, the warp's lock step and reductions
+// emulated over its 32 lanes in order.
 
 // The bank arrays are interleaved as a kernel's shared copy is:
 // BANK_STRIDE floats per object.  ``ex`` is the scene's extra tables, as the
@@ -12,11 +15,41 @@ extern "C" void host_point_eval(const float* pts, float* out, long long n, const
     }
 }
 
+#if CULL_MODE
+// The cull chain on one box f32[6] (x0, x1, y0, y1, z0, z1): the predicate
+// mask and the N_CULL_SLOTS substitutes.
+extern "C" void host_cull_tile(const float* box, const float* bank, const float* ad,
+                               const float* ex, unsigned* preds, float* substs) {
+    cull_tile(Iv{box[0], box[1]}, Iv{box[2], box[3]}, Iv{box[4], box[5]}, bank, ad, ex, *preds,
+              substs);
+}
+
+#ifndef HOST_RENDER
+// The culled grid kernel's tiles, in order (interval.cuh grid_tile_cull).
+extern "C" void host_grid_eval_cull(float* out, int nz, int ny, int nx, float lox, float loy,
+                                    float loz, float cell, float z0, const float* bank,
+                                    const float* ad, const float* ex) {
+    float substs[N_CULL_SLOTS];
+    for (int zb = 0; zb < nz; zb += CULL_TZ)
+        for (int y0 = 0; y0 < ny; y0 += CULL_TY)
+            for (int x0 = 0; x0 < nx; x0 += CULL_TX) {
+                unsigned preds;
+                grid_tile_cull(x0, y0, zb, nz, ny, nx, lox, loy, loz, cell, z0, bank, ad, ex, preds,
+                               substs);
+                for (int zi = zb; zi < nz && zi < zb + CULL_TZ; ++zi)
+                    for (int yi = y0; yi < ny && yi < y0 + CULL_TY; ++yi)
+                        for (int xi = x0; xi < nx && xi < x0 + CULL_TX; ++xi)
+                            out[((long long)zi * ny + yi) * nx + xi] = field_sdf_culled(
+                                lattice(lox, cell, (float)xi), lattice(loy, cell, (float)yi),
+                                lattice(loz, cell, add_rn(z0, (float)zi)), bank, ad, ex, preds,
+                                substs);
+            }
+}
+#endif
+#endif
+
 #ifdef HOST_RENDER
-// The renderer kernel's loop: t0 is the f32[H, W] start plane, or null.
-extern "C" void host_render(float* out, int height, int width, const float* cam_host,
-                            const float* bank, const float* ad, const float* ex,
-                            const float* t0) {
+static Cam host_cam(const float* cam_host) {
     Cam cam;
     for (int k = 0; k < 3; ++k) {
         cam.o[k] = cam_host[k];
@@ -24,6 +57,128 @@ extern "C" void host_render(float* out, int height, int width, const float* cam_
         cam.upp[k] = cam_host[6 + k];
         cam.fwd[k] = cam_host[9 + k];
     }
+    return cam;
+}
+
+#if CULL_MODE
+static Iv host_span(const bool* on, const float* v) {
+    Iv s{INFINITY, -INFINITY};
+    for (int l = 0; l < 32; ++l) {
+        if (on[l]) s = Iv{fminf(s.lo, v[l]), fmaxf(s.hi, v[l])};
+    }
+    return s;
+}
+
+// The rays of the renderer kernel's warp at (x0, y0), a 16x2 patch: which
+// lanes lie in the image, their pixels, rays and start parameters.
+struct HostWarp {
+    bool on[32];
+    long long pixel[32];
+    float rx[32], ry[32], rz[32], t[32];
+
+    HostWarp(int x0, int y0, int height, int width, const Cam& cam, const float* t0) {
+        for (int l = 0; l < 32; ++l) {
+            const int ix = x0 + l % 16, iy = y0 + l / 16;
+            on[l] = ix < width && iy < height;
+            pixel[l] = (long long)iy * width + ix;
+            pixel_ray(ix, iy, width, height, cam, rx[l], ry[l], rz[l]);
+            t[l] = on[l] && t0 ? t0[pixel[l]] : 0.0f;
+        }
+    }
+
+    Box box(const Cam& cam) const {
+        return hoisted_box(cam, host_span(on, rx), host_span(on, ry), host_span(on, rz),
+                           host_span(on, t).lo);
+    }
+};
+
+// The hoisted box f32[6] (x0, x1, y0, y1, z0, z1) of the warp at (x0, y0).
+extern "C" void host_hoisted_box(float* box, int x0, int y0, int height, int width,
+                                 const float* cam_host, const float* t0) {
+    const Cam cam = host_cam(cam_host);
+    const Box b = HostWarp(x0, y0, height, width, cam, t0).box(cam);
+    const Iv ivs[3] = {b.x, b.y, b.z};
+    for (int k = 0; k < 3; ++k) {
+        box[2 * k] = ivs[k].lo;
+        box[2 * k + 1] = ivs[k].hi;
+    }
+}
+
+// One warp of the culled renderer kernel (march.cuh render_pixel_culled and
+// march_dynamic), its 32 lanes in turn: the 16x2 patch at (x0, y0).
+static void host_render_warp(float* out, int x0, int y0, int height, int width, const Cam& cam,
+                             const float* bank, const float* ad, const float* ex,
+                             const float* t0) {
+    const HostWarp w(x0, y0, height, width, cam, t0);
+    const bool* on = w.on;
+    const float *rx = w.rx, *ry = w.ry, *rz = w.rz, *t = w.t;
+    float d[32];
+    CullTile hoisted;
+    const Box b = w.box(cam);
+    cull_tile(b.x, b.y, b.z, bank, ad, ex, hoisted.preds, hoisted.substs);
+    const auto field = [&](float x, float y, float z) {
+        return field_sdf_culled(x, y, z, bank, ad, ex, hoisted.preds, hoisted.substs);
+    };
+#if CULL_MODE == 2
+    Ray ray[32];
+    bool active[32];
+    float vx[32], vy[32], vz[32];
+    for (int l = 0; l < 32; ++l) {
+        ray[l] = ray_start(cam.o[0], cam.o[1], cam.o[2], rx[l], ry[l], rz[l], t[l]);
+        active[l] = on[l] && !(ray[l].d > MAX_D);
+        d[l] = -1.0f;
+    }
+    for (int step = 0; step < MAX_STEPS; ++step) {
+        bool any = false;
+        for (int l = 0; l < 32; ++l) {
+            any = any || active[l];
+            vx[l] = ray[l].vx;
+            vy[l] = ray[l].vy;
+            vz[l] = ray[l].vz;
+        }
+        if (!any) break;
+        CullTile tile;
+        cull_tile(host_span(active, vx), host_span(active, vy), host_span(active, vz), bank, ad, ex,
+                  tile.preds, tile.substs);
+        for (int l = 0; l < 32; ++l) {
+            if (!active[l]) continue;
+            const float s = field_sdf_culled(ray[l].vx, ray[l].vy, ray[l].vz, bank, ad, ex,
+                                             tile.preds, tile.substs) * TOL;
+            const int state = ray_step(ray[l], rx[l], ry[l], rz[l], s);
+            if (state != MARCHING) {
+                active[l] = false;
+                if (state == HIT) d[l] = ray[l].d;
+            }
+        }
+    }
+#else
+    for (int l = 0; l < 32; ++l) {
+        d[l] = on[l] ? march_ray(cam.o[0], cam.o[1], cam.o[2], rx[l], ry[l], rz[l], t[l], field)
+                     : -1.0f;
+    }
+#endif
+    for (int l = 0; l < 32; ++l) {
+        if (!on[l]) continue;
+        const Rgb c = shade_ray(d[l], rx[l], ry[l], rz[l], cam, bank, ad, ex, field);
+        float* px = out + 3 * w.pixel[l];
+        px[0] = c.r;
+        px[1] = c.g;
+        px[2] = c.b;
+    }
+}
+#endif
+
+// The renderer kernel's loop: t0 is the f32[H, W] start plane, or null.  With
+// a cull, warp by warp (16x2 patches of the kernel's 16x8 blocks).
+extern "C" void host_render(float* out, int height, int width, const float* cam_host,
+                            const float* bank, const float* ad, const float* ex,
+                            const float* t0) {
+    const Cam cam = host_cam(cam_host);
+#if CULL_MODE
+    for (int y0 = 0; y0 < height; y0 += 2)
+        for (int x0 = 0; x0 < width; x0 += 16)
+            host_render_warp(out, x0, y0, height, width, cam, bank, ad, ex, t0);
+#else
     for (int iy = 0; iy < height; ++iy) {
         for (int ix = 0; ix < width; ++ix) {
             const long long pixel = (long long)iy * width + ix;
@@ -35,6 +190,7 @@ extern "C" void host_render(float* out, int height, int width, const float* cam_
             px[2] = c.b;
         }
     }
+#endif
 }
 
 // The cone kernel's loop over a ray batch f32[n, 3] from the origin o f32[3].

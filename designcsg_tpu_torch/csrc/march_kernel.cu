@@ -3,7 +3,8 @@
 //
 // Replaces the JAX package's Pallas kernel
 //   ops/pallas/march_kernel.py:make_pallas_renderer (exact and over-relaxed
-//   march, optional t0 input; no cull).
+//   march, optional t0 input, and the exact per-tile cull, K7: the generated
+//   CULL_MODE is 0 off, 1 hoisted, 2 dynamic).
 //
 // What bounds it on Hopper: FP32 issue.  Each pixel runs tens to hundreds of
 // march steps, each a full evaluation of the tape plus the gizmo, then six more
@@ -25,6 +26,14 @@
 // sum rounds as in the plain version, so a ray stops at the same step; with
 // FMA contraction, single pixels at creases shaded up to 1.2e-3 apart.
 //
+// The cull (march.cuh render_pixel_culled): the TPU kernel's tile, an (8, 128)
+// lock-stepped vector with one scalar interval chain, becomes the warp, a
+// 16x2 patch of this block.  Every lane runs the chain on the warp's box
+// (shuffle reductions), so its predicates are warp-uniform and a skipped
+// group costs no divergence; lanes outside the image take part in the
+// reductions and write nothing.  The chain's cost is one more tape-sized
+// evaluation per lane per chain (PERF.md counts both from the generated code).
+//
 // Needs the generated scene code, common.cuh and march.cuh above it.
 #include <cuda_runtime.h>
 
@@ -41,9 +50,16 @@ render_kernel(float* __restrict__ out, int height, int width, Cam cam,
     load_bank(s_bank, pos, right, up, fwd);
     const int ix = blockIdx.x * RENDER_BX + threadIdx.x;
     const int iy = blockIdx.y * RENDER_BY + threadIdx.y;
-    if (ix >= width || iy >= height) return;
+    const bool on = ix < width && iy < height;
     const long long pixel = (long long)iy * width + ix;
+#if CULL_MODE
+    const Rgb c = render_pixel_culled(on, ix, iy, width, height, cam, s_bank, ad, ex,
+                                      on && t0 ? t0[pixel] : 0.0f);
+    if (!on) return;
+#else
+    if (!on) return;
     const Rgb c = render_pixel(ix, iy, width, height, cam, s_bank, ad, ex, t0 ? t0[pixel] : 0.0f);
+#endif
     float* px = out + 3 * pixel;
     px[0] = c.r;
     px[1] = c.g;

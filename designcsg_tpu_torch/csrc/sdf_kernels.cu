@@ -2,7 +2,8 @@
 //
 // Replaces the JAX package's Pallas kernels
 //   ops/pallas/sdf_kernel.py:make_pallas_point_eval (point eval) and
-//   ops/pallas/sdf_kernel.py:make_grid_eval (grid eval).
+//   ops/pallas/sdf_kernel.py:make_grid_eval (grid eval, and with cull=True
+//   its exact per-tile cull, K7: grid_eval_cull_kernel).
 //
 // What bounds them on Hopper: the unrolled tape is FP32 issue.  Design1's tape
 // costs ~300 FP32 operations per point against 16 B moved per point for point
@@ -64,6 +65,41 @@ grid_eval_kernel(float* __restrict__ out, int nz, int ny, int nx, float lox, flo
     out[i] = field_sdf(x, y, z, s_bank, ad, ex);
 }
 
+#if CULL_MODE
+// The culled grid (sdf_kernel.py:205-248 of the JAX package).  A block owns a
+// spatially compact tile of CULL_TX x CULL_TY x CULL_TZ lattice points (a
+// thread per (x, y), a loop over z; interval.cuh), so one interval chain
+// serves 2,048 points: the block's first thread runs it on the tile's box
+// into shared memory.
+__global__ void __launch_bounds__(CULL_TX * CULL_TY)
+grid_eval_cull_kernel(float* __restrict__ out, int nz, int ny, int nx, float lox, float loy,
+                      float loz, float cell, float z0, const float* __restrict__ pos,
+                      const float* __restrict__ right, const float* __restrict__ up,
+                      const float* __restrict__ fwd, const float* __restrict__ ad,
+                      const float* __restrict__ ex) {
+    __shared__ float s_bank[N_OBJ * BANK_STRIDE];
+    __shared__ unsigned s_preds;
+    __shared__ float s_substs[N_CULL_SLOTS];
+    load_bank(s_bank, pos, right, up, fwd);
+    const int x0 = blockIdx.x * CULL_TX, y0 = blockIdx.y * CULL_TY, zb = blockIdx.z * CULL_TZ;
+    if (threadIdx.x == 0 && threadIdx.y == 0) {
+        grid_tile_cull(x0, y0, zb, nz, ny, nx, lox, loy, loz, cell, z0, s_bank, ad, ex, s_preds,
+                       s_substs);
+    }
+    __syncthreads();
+    const int xi = x0 + threadIdx.x, yi = y0 + threadIdx.y;
+    if (xi >= nx || yi >= ny) return;
+    const unsigned preds = s_preds;
+    const float x = lattice(lox, cell, (float)xi), y = lattice(loy, cell, (float)yi);
+    const int z_end = min(zb + CULL_TZ, nz);
+    for (int zi = zb; zi < z_end; ++zi) {
+        const float z = lattice(loz, cell, add_rn(z0, (float)zi));
+        out[((long long)zi * ny + yi) * nx + xi] =
+            field_sdf_culled(x, y, z, s_bank, ad, ex, preds, s_substs);
+    }
+}
+#endif
+
 static unsigned int blocks_for(long long n) {
     return (unsigned int)((n + SDF_THREADS - 1) / SDF_THREADS);
 }
@@ -89,4 +125,24 @@ extern "C" int launch_grid_eval(void* out, int nz, int ny, int nx, float lox, fl
         (const float*)right, (const float*)up, (const float*)fwd, (const float*)ad,
         (const float*)ex);
     return (int)cudaGetLastError();
+}
+
+// Returns cudaErrorInvalidValue (1) for a scene whose tape cannot be culled
+// (its wrapper launches grid_eval_kernel instead).
+extern "C" int launch_grid_eval_cull(void* out, int nz, int ny, int nx, float lox, float loy,
+                                     float loz, float cell, float z0, const void* pos,
+                                     const void* right, const void* up, const void* fwd,
+                                     const void* ad, const void* ex, void* stream) {
+#if CULL_MODE
+    if ((long long)nz * ny * nx <= 0) return 0;
+    const dim3 block(CULL_TX, CULL_TY);
+    const dim3 grid((nx + CULL_TX - 1) / CULL_TX, (ny + CULL_TY - 1) / CULL_TY,
+                    (nz + CULL_TZ - 1) / CULL_TZ);
+    grid_eval_cull_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        (float*)out, nz, ny, nx, lox, loy, loz, cell, z0, (const float*)pos, (const float*)right,
+        (const float*)up, (const float*)fwd, (const float*)ad, (const float*)ex);
+    return (int)cudaGetLastError();
+#else
+    return (int)cudaErrorInvalidValue;
+#endif
 }

@@ -4,7 +4,9 @@ The reference's canonical test model (Designs/Design1.py).  The design defines
 its own sphere/box brushes (bank indices 5 and 6, after the facade's builtin
 0-4) exactly as the reference does, so compiled artifacts are comparable
 line-for-line.  Each brush carries its torch function and its CUDA body; the
-CUDA bodies are the reference's OpenCL strings.
+CUDA bodies are the reference's OpenCL strings.  The interval twins of the
+cull are the builtin sphere's and box's (designs/design1.py:50-62 of the JAX
+package).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 
 from .. import api
 from ..api import Transform
+from ..ops import cull
 
 
 def _sphere_fn(v, ctx):
@@ -36,9 +39,13 @@ def build(compiler=None):
     PI = np.pi
 
     sphere_brush = c.define_brush(
-        _sphere_fn, name="design1_sphere", cuda=_SPHERE_CUDA, cuda_flops=7
+        _sphere_fn, name="design1_sphere", cuda=_SPHERE_CUDA, cuda_flops=7,
+        interval=cull.sphere_interval, interval_cuda=cull.SPHERE_INTERVAL_CUDA,
     )
-    box_brush = c.define_brush(_box_fn, name="design1_box", cuda=_BOX_CUDA, cuda_flops=8)
+    box_brush = c.define_brush(
+        _box_fn, name="design1_box", cuda=_BOX_CUDA, cuda_flops=8,
+        interval=cull.box_interval, interval_cuda=cull.BOX_INTERVAL_CUDA,
+    )
 
     for brush, scale in ((sphere_brush, 1.25), (box_brush, 0.95)):
         api.draw(

@@ -22,6 +22,22 @@ from .. import api
 from ..api import Transform
 from ..constants import MAX_DISTANCE
 from ..ops.cuda.tape import f32_literal
+from ..ops.cull import (
+    f32,
+    fmax,
+    fmin,
+    fmul,
+    fselect,
+    fsub,
+    iv_abs,
+    iv_add,
+    iv_const,
+    iv_max,
+    iv_sqrt,
+    iv_square,
+    iv_sub,
+    register_lipschitz_interval,
+)
 
 LINE_WIDTH = 0.1
 
@@ -197,15 +213,57 @@ BASE_CUDA = (
 # fabsf, sub, fmaxf: 3.
 BASE_FLOPS = 14
 
+# Interval twins of the cull (designs/design2.py:213-246 of the JAX package).
+# Hilbert: the generic Lipschitz and far-field bounds about a strut centre
+# (the 3x quadrant scaling makes L = 3; the solid lies within Chebyshev
+# radius 1.3 of the anchor), so far tiles skip the expensive brush.
+HILBERT_ANCHOR, HILBERT_LIPSCHITZ, HILBERT_ENCLOSURE = (-0.5, -0.5, 0.0), 3.0, 1.3
+
+# Base: by hand (a Lipschitz upper bound would outgrow Hilbert's far-field
+# lower bound and block all pruning).  new_radius = inner + (outer - inner) *
+# (1 - y / height) is affine and decreasing in y, so its interval swaps y's
+# endpoints; where y's sign is open the two branches' intervals are joined.
+_BASE_TOP = f32(0.45 + (0.5 - 0.45))
+_BASE_SLOPE = f32((0.5 - 0.45) / 0.05)
+
+
+def _base_interval(ia, ib, ic, ctx):
+    r = iv_sqrt(iv_add(iv_square(ia), iv_square(ic)))
+    nr = (fsub(_BASE_TOP, fmul(ib[1], _BASE_SLOPE)), fsub(_BASE_TOP, fmul(ib[0], _BASE_SLOPE)))
+    d_pos = iv_sub(r, nr)
+    d_neg = iv_sub(r, iv_const(0.5))
+    both = (fmin(d_pos[0], d_neg[0]), fmax(d_pos[1], d_neg[1]))
+    d = tuple(
+        fselect(ib[0] > 0, d_pos[i], fselect(ib[1] <= 0, d_neg[i], both[i])) for i in range(2)
+    )
+    return iv_max(d, iv_sub(iv_abs(ib), iv_const(0.05)))
+
+
+BASE_INTERVAL_CUDA = (
+    "const Iv r = iv_sqrt(iv_add(iv_square(a), iv_square(c)));\n"
+    f"    const Iv nr = Iv{{sub_rn({f32_literal(_BASE_TOP)}, mul_rn(b.hi, {f32_literal(_BASE_SLOPE)})),\n"
+    f"                    sub_rn({f32_literal(_BASE_TOP)}, mul_rn(b.lo, {f32_literal(_BASE_SLOPE)}))}};\n"
+    "    const Iv d_pos = iv_sub(r, nr), d_neg = iv_sub(r, iv_const(0.5f));\n"
+    "    const Iv d = b.lo > 0.0f ? d_pos\n"
+    "               : b.hi <= 0.0f ? d_neg\n"
+    "               : Iv{fminf(d_pos.lo, d_neg.lo), fmaxf(d_pos.hi, d_neg.hi)};\n"
+    f"    return iv_max(d, iv_sub(iv_abs(b), iv_const({f32_literal(0.05)})));"
+)
+
 
 def build(compiler=None):
     c = api.new_design() if compiler is None else compiler
     hilbert_body, hilbert_flops = hilbert_cuda()
+    hilbert_interval, hilbert_interval_cuda = register_lipschitz_interval(
+        _hilbert_brush_fn, HILBERT_ANCHOR, HILBERT_LIPSCHITZ, HILBERT_ENCLOSURE
+    )
     hilbert_brush = c.define_brush(
-        _hilbert_brush_fn, name="hilbert", cuda=hilbert_body, cuda_flops=hilbert_flops
+        _hilbert_brush_fn, name="hilbert", cuda=hilbert_body, cuda_flops=hilbert_flops,
+        interval=hilbert_interval, interval_cuda=hilbert_interval_cuda,
     )
     base_brush = c.define_brush(
-        _base_brush_fn, name="hilbert_base", cuda=BASE_CUDA, cuda_flops=BASE_FLOPS
+        _base_brush_fn, name="hilbert_base", cuda=BASE_CUDA, cuda_flops=BASE_FLOPS,
+        interval=_base_interval, interval_cuda=BASE_INTERVAL_CUDA,
     )
 
     api.draw(

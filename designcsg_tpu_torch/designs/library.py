@@ -13,6 +13,17 @@ import torch
 
 from .. import api
 from ..api import Transform
+from ..ops.cull import (
+    iv_abs,
+    iv_add,
+    iv_const,
+    iv_max,
+    iv_min,
+    iv_norm3,
+    iv_sqrt,
+    iv_square,
+    iv_sub,
+)
 
 
 def _rounded_box_fn(v, ctx):
@@ -35,6 +46,25 @@ ROUNDED_BOX_CUDA = (
 ROUNDED_BOX_FLOPS = 20
 
 
+def _rounded_box_interval(ia, ib, ic, ctx):
+    """Interval twin (designs/library.py:59-73 of the JAX package)."""
+    qx, qy, qz = (iv_sub(iv_abs(iv), iv_const(0.4)) for iv in (ia, ib, ic))
+    zero = iv_const(0.0)
+    outside = iv_norm3(iv_max(qx, zero), iv_max(qy, zero), iv_max(qz, zero))
+    inside = iv_min(iv_max(qx, iv_max(qy, qz)), zero)
+    return iv_sub(iv_add(outside, inside), iv_const(0.1))
+
+
+ROUNDED_BOX_INTERVAL_CUDA = (
+    "const Iv qx = iv_sub(iv_abs(a), iv_const(0.4f)), qy = iv_sub(iv_abs(b), iv_const(0.4f)),\n"
+    "             qz = iv_sub(iv_abs(c), iv_const(0.4f));\n"
+    "    const Iv zero = iv_const(0.0f);\n"
+    "    const Iv outside = iv_norm3(iv_max(qx, zero), iv_max(qy, zero), iv_max(qz, zero));\n"
+    "    const Iv inside = iv_min(iv_max(qx, iv_max(qy, qz)), zero);\n"
+    "    return iv_sub(iv_add(outside, inside), iv_const(0.1f));"
+)
+
+
 def _torus_fn(v, ctx):
     """Torus in the xz-plane: major radius 0.35, minor 0.15."""
     ring = torch.sqrt(v[..., 0] * v[..., 0] + v[..., 2] * v[..., 2]) - 0.35
@@ -48,17 +78,33 @@ TORUS_CUDA = (
 TORUS_FLOPS = 10  # twice: 2 mul, add, sqrtf, sub
 
 
+def _torus_interval(ia, ib, ic, ctx):
+    """Interval twin (designs/library.py:76-85 of the JAX package)."""
+    ring = iv_sub(iv_sqrt(iv_add(iv_square(ia), iv_square(ic))), iv_const(0.35))
+    return iv_sub(iv_sqrt(iv_add(iv_square(ring), iv_square(ib))), iv_const(0.15))
+
+
+TORUS_INTERVAL_CUDA = (
+    "const Iv ring = iv_sub(iv_sqrt(iv_add(iv_square(a), iv_square(c))), iv_const(0.35f));\n"
+    "    return iv_sub(iv_sqrt(iv_add(iv_square(ring), iv_square(b))), iv_const(0.15f));"
+)
+
+
 def rounded_box(compiler=None, transform=None):
     c = compiler if compiler is not None else api.current()
     brush = c.define_brush(
-        _rounded_box_fn, name="rounded_box", cuda=ROUNDED_BOX_CUDA, cuda_flops=ROUNDED_BOX_FLOPS
+        _rounded_box_fn, name="rounded_box", cuda=ROUNDED_BOX_CUDA, cuda_flops=ROUNDED_BOX_FLOPS,
+        interval=_rounded_box_interval, interval_cuda=ROUNDED_BOX_INTERVAL_CUDA,
     )
     return api.Component(brush, transform=transform, compiler=c)
 
 
 def torus(compiler=None, transform=None):
     c = compiler if compiler is not None else api.current()
-    brush = c.define_brush(_torus_fn, name="torus", cuda=TORUS_CUDA, cuda_flops=TORUS_FLOPS)
+    brush = c.define_brush(
+        _torus_fn, name="torus", cuda=TORUS_CUDA, cuda_flops=TORUS_FLOPS,
+        interval=_torus_interval, interval_cuda=TORUS_INTERVAL_CUDA,
+    )
     return api.Component(brush, transform=transform, compiler=c)
 
 

@@ -37,6 +37,21 @@ import torch
 from .. import api
 from ..api import Transform
 from ..ops.cuda.tape import f32_literal
+from ..ops.cull import (
+    f32,
+    fadd,
+    fmax,
+    fmin,
+    fsub,
+    iv_abs,
+    iv_add,
+    iv_const,
+    iv_max,
+    iv_mul_scalar,
+    iv_sqrt,
+    iv_square,
+    iv_sub,
+)
 from ..ops.table import packed_rank_sample
 
 LETTER_RESOLUTION = 64
@@ -478,6 +493,67 @@ LETTER_FLOPS = 3 + 4 + RANK_SAMPLE_FLOPS + 13 + 8 + 3 + 2
 LETTER_TABLE_READS = 4 * BAKE_RANK
 
 
+# The interval twin of the cull bounds the letter by max(box, slab) below and
+# by its distance to N_ANCHORS curve samples above (designs/logo.py:424-470 of
+# the JAX package).  That upper bound holds for the exact brush; the baked
+# field every kernel evaluates lies above it by up to the bake's error, so the
+# port widens it by TWIN_APPROX (ROADMAP.md section 3, F4).
+N_ANCHORS = 12
+INTERVAL_WIDEN = TWIN_APPROX
+
+
+def letter_anchors(segments) -> np.ndarray:
+    """f32[12, 2]: every (n // 12)-th Bezier sample of the letter, the
+    anchors of its interval twin's upper bound."""
+    samples = _curve_samples_np(segments)
+    step = max(1, samples.shape[0] // N_ANCHORS)
+    return np.asarray(samples[::step][:N_ANCHORS], np.float32)
+
+
+def _letter_interval(anchors: np.ndarray, widen: float = INTERVAL_WIDEN):
+    """``(interval, interval_cuda)`` of a letter: the lower bound is the plate
+    clip ``max(box, slab)`` (the brush is ``max(signed, box, slab)``); the
+    upper bound is ``max(min_a |p2 - a| - THICKNESS, 0) + widen`` over the
+    anchors, clamped at 0 because inside the glyph the brush is ``-d``, and
+    widened for the baked field.  ``interval.anchors`` keeps the anchors for
+    a targeted fuzz."""
+    anchors = [(f32(ax), f32(ay)) for ax, ay in np.asarray(anchors, np.float32)]
+    widen = f32(widen)
+
+    def interval(ia, ib, ic, ctx):
+        x2, y2, z2 = (iv_mul_scalar(iv, 2.0) for iv in (ia, ib, ic))
+        box = iv_sub(iv_max(iv_abs(x2), iv_max(iv_abs(y2), iv_abs(z2))), iv_const(1.25))
+        slab = iv_sub(iv_abs(iv_sub(z2, iv_const(1.25))), iv_const(0.125))
+        clip = iv_max(box, slab)
+        d_hi = None
+        for ax, ay in anchors:
+            dx, dy = iv_sub(x2, iv_const(ax)), iv_sub(y2, iv_const(ay))
+            hi = iv_sqrt(iv_add(iv_square(dx), iv_square(dy)))[1]
+            d_hi = hi if d_hi is None else fmin(d_hi, hi)
+        signed_hi = fadd(fmax(fsub(d_hi, THICKNESS), 0.0), widen)
+        return (clip[0], fmax(signed_hi, clip[1]))
+
+    def anchor_hi(ax, ay):
+        return (f"iv_sqrt(iv_add(iv_square(iv_sub(x2, iv_const({f32_literal(ax)}))), "
+                f"iv_square(iv_sub(y2, iv_const({f32_literal(ay)}))))).hi")
+
+    q, e = f32_literal(1.25), f32_literal(0.125)
+    lines = [
+        "const Iv x2 = iv_mul_scalar(a, 2.0f), y2 = iv_mul_scalar(b, 2.0f), z2 = iv_mul_scalar(c, 2.0f);",
+        f"const Iv clip = iv_max(iv_sub(iv_max(iv_abs(x2), iv_max(iv_abs(y2), iv_abs(z2))), iv_const({q})),",
+        f"                       iv_sub(iv_abs(iv_sub(z2, iv_const({q}))), iv_const({e})));",
+        f"float d_hi = {anchor_hi(*anchors[0])};",
+    ]
+    lines += [f"d_hi = fminf(d_hi, {anchor_hi(ax, ay)});" for ax, ay in anchors[1:]]
+    lines += [
+        f"const float signed_hi = add_rn(fmaxf(sub_rn(d_hi, {f32_literal(THICKNESS)}), 0.0f), "
+        f"{f32_literal(widen)});",
+        "return Iv{clip.lo, fmaxf(signed_hi, clip.hi)};",
+    ]
+    interval.anchors = np.asarray(anchors, np.float32)
+    return interval, "\n    ".join(lines)
+
+
 def _letter_component(c, letter: str, segments, bits, transform, index: int):
     curvedata = []
     for (a, b, cc) in segments:
@@ -488,6 +564,7 @@ def _letter_component(c, letter: str, segments, bits, transform, index: int):
     c.add_arbitrary_data(f"NUMCURVES_{letter}", [float(len(segments))])
     curve_start = c.add_arbitrary_data(f"CURVEDATA_{letter}", curvedata)
     table_name = f"logo_{index}_{letter}"
+    interval, interval_cuda = _letter_interval(letter_anchors(segments))
     brush = c.define_brush(
         _make_letter_brush(curve_start, len(segments), mask_start),
         name=f"letter_{letter}",
@@ -496,6 +573,8 @@ def _letter_component(c, letter: str, segments, bits, transform, index: int):
         twin=_make_letter_twin(table_name),
         twin_approx=TWIN_APPROX,
         extras={table_name: _bake_letter_tables(segments, bits)},
+        interval=interval,
+        interval_cuda=interval_cuda,
     )
     return api.Component(brush, transform=transform, compiler=c)
 

@@ -3,8 +3,9 @@ kernels and their plain versions.
 
 Counterparts of the JAX package's ops/pallas/march_kernel.py
 ``make_pallas_renderer`` (exact and over-relaxed march, optional ``t0``
-input; no cull), ``make_pallas_cone_march``, ``make_hierarchical_renderer``
-and ``make_pallas_ray_march``.  Kernel sources: csrc/march_kernel.cu,
+input, the exact per-tile cull K7 hoisted or dynamic),
+``make_pallas_cone_march``, ``make_hierarchical_renderer`` and
+``make_pallas_ray_march``.  Kernel sources: csrc/march_kernel.cu,
 csrc/cone_kernel.cu, csrc/ray_march_kernel.cu and csrc/march.cuh plus the
 scene code generated by ops/cuda/tape.py.  The plain versions are
 ops/raymarch.py's :func:`make_renderer`, :func:`make_cone_march`,
@@ -14,7 +15,9 @@ Logo the baked letter tables, csrc/table.cuh, K6).
 
 Launch counts: ``renderer`` (exact march from the camera),
 ``renderer_overrelax`` (over-relaxed, from the camera), ``renderer_t0``
-(from a start plane, either march), ``cone_march`` and ``ray_march``.
+(from a start plane, either march), each with ``_cull`` or ``_cull_dynamic``
+appended when the config culls (``renderer_cull``, ``renderer_t0_cull_dynamic``,
+...), ``cone_march`` and ``ray_march``.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from ..raymarch import (
     make_renderer,
 )
 from .build import bank_pointers, check_launch, load, on_cuda, ptr, require_cuda_f32, stream_handle
-from .tape import cone_kernel_source, march_kernel_source, ray_march_kernel_source
+from .tape import cone_kernel_source, cull_mode, march_kernel_source, ray_march_kernel_source
 
 _P = ctypes.c_void_p
 _F = ctypes.c_float
@@ -49,13 +52,18 @@ def make_cuda_renderer(
     the device of ``arrays``: the fused kernel on a CUDA device, the plain
     renderer on the CPU.  The march is exact, or over-relaxed when
     ``config.march_overrelax > 1``; ``t0`` f32[H, W] starts each pixel's
-    march there.  ``render.plain`` is the plain version.  ``fmad=True`` takes
-    a build of the kernel with nvcc's default FMA contraction (library
-    ``march_fma``) instead of the ``-fmad=false`` one; chip_smoke.py times
-    both."""
+    march there.  With ``config.march_cull`` the kernel culls each warp's
+    tape by interval arithmetic (K7), hoisted or ``"dynamic"``, unless the
+    tape has nothing to cull.  ``render.plain`` is the plain version.
+    ``fmad=True`` takes a build of the kernel with nvcc's default FMA
+    contraction (library ``march_fma``) instead of the ``-fmad=false`` one;
+    chip_smoke.py times both."""
     config = config or RenderConfig()
     plain = make_renderer(scene, config)
     mode = "renderer_overrelax" if config.march_overrelax > 1.0 else "renderer"
+    suffix = ""
+    if plain.culler is not None:
+        suffix = "_cull_dynamic" if cull_mode(config) == 2 else "_cull"
     libs = {}
 
     def render(arrays: SceneArrays, campos, rgt, upp, fwd, t0=None) -> torch.Tensor:
@@ -78,7 +86,7 @@ def make_cuda_renderer(
             *bank_pointers(scene, arrays, device), None if t0 is None else ptr(t0),
             stream_handle(device),
         )
-        check_launch(mode if t0 is None else "renderer_t0", rc)
+        check_launch((mode if t0 is None else "renderer_t0") + suffix, rc)
         return out
 
     render.plain = plain

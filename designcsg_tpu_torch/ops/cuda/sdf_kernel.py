@@ -2,8 +2,9 @@
 versions.
 
 Counterparts of the JAX package's ops/pallas/sdf_kernel.py
-(``make_pallas_point_eval``, ``make_grid_eval``).  Kernel source:
-csrc/sdf_kernels.cu plus the scene code generated by ops/cuda/tape.py.
+(``make_pallas_point_eval``, ``make_grid_eval`` with its optional exact
+per-tile cull, K7).  Kernel source: csrc/sdf_kernels.cu plus the scene code
+generated by ops/cuda/tape.py.
 
 Each wrapper takes its plain version for tensors on the CPU, and for tensors
 on a CUDA device launches its kernel or raises.  ``arrays`` is a SceneArrays
@@ -21,7 +22,8 @@ import numpy as np
 import torch
 
 from ...compiler import CompiledScene, SceneArrays
-from ..interpreter import make_primary_sdf
+from ..cull import array_bank_reader, make_culled_sdf, make_tape_culler, stack_cull
+from ..interpreter import eval_context, make_primary_sdf
 from .build import bank_pointers, check_launch, load, on_cuda, ptr, require_cuda_f32, stream_handle
 from .tape import sdf_kernel_source
 
@@ -34,8 +36,9 @@ def _library(scene: CompiledScene) -> ctypes.CDLL:
     lib = load("sdf", sdf_kernel_source(scene))
     lib.launch_point_eval.argtypes = [_P, _P, ctypes.c_longlong] + [_P] * 7
     lib.launch_point_eval.restype = ctypes.c_int
-    lib.launch_grid_eval.argtypes = [_P, _I, _I, _I, _F, _F, _F, _F, _F] + [_P] * 7
-    lib.launch_grid_eval.restype = ctypes.c_int
+    for fn in (lib.launch_grid_eval, lib.launch_grid_eval_cull):
+        fn.argtypes = [_P, _I, _I, _I, _F, _F, _F, _F, _F] + [_P] * 7
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -91,17 +94,59 @@ def lattice_points(lo, cell, z0, slab: int, ny: int, nx: int, device) -> torch.T
     )
 
 
-def make_grid_eval(scene: CompiledScene):
+#: The culled grid kernel's tile, (z, y, x) lattice points (csrc/interval.cuh).
+CULL_TILE = (8, 8, 32)
+
+
+def _axis_tiles(coords: torch.Tensor, size: int):
+    """Per tile of ``size`` consecutive lattice coordinates: (min, max)."""
+    n = coords.shape[0]
+    pad = (-n) % size
+    lo = torch.cat([coords, coords[-1:].expand(pad)]).reshape(-1, size)
+    return lo.amin(1), lo.amax(1)
+
+
+def make_grid_eval(scene: CompiledScene, cull: Optional[bool] = None):
     """``grid_eval(arrays, lo, cell, z0, slab, ny, nx=None) -> f32[slab, ny, nx]``,
     the SDF (twin field) at the lattice ``lo + cell * (x, y, z0 + z)`` —
     z-major, no coordinate input.  The device is that of ``arrays``.
-    ``grid_eval.plain`` is its plain version."""
+    ``grid_eval.plain`` is its plain version.
+
+    With ``cull=True`` and a tape that can be culled (ops/cull.py), the grid
+    is cut into tiles of 8 z by 8 y by 32 x points, each tile's cull is
+    computed once on its box, and the tape skips the groups that cannot
+    change any value in it (kernel ``grid_eval_cull``; the plain version does
+    the same at the same tiles, and ``counts=`` a dict accumulates its
+    ``evals``, ``group_evals`` and ``chains``).  The values equal the
+    unculled grid's."""
     sdf = make_primary_sdf(scene, field="twin")
+    culler = make_tape_culler(scene, gizmo=False) if cull else None
+    culled_sdf = None if culler is None else make_culled_sdf(scene, culler, field="twin")
     libs = {}
 
-    def plain(arrays, lo, cell, z0, slab: int, ny: int, nx: Optional[int] = None):
+    def plain(arrays, lo, cell, z0, slab: int, ny: int, nx: Optional[int] = None, counts=None):
         nx = ny if nx is None else nx
-        return sdf(lattice_points(lo, cell, z0, slab, ny, nx, arrays.ad.device), arrays)
+        pts = lattice_points(lo, cell, z0, slab, ny, nx, arrays.ad.device)
+        if culler is None:
+            return sdf(pts, arrays)
+        spans = [_axis_tiles(pts[:, 0, 0, 2], CULL_TILE[0]), _axis_tiles(pts[0, :, 0, 1], CULL_TILE[1]),
+                 _axis_tiles(pts[0, 0, :, 0], CULL_TILE[2])]
+        shape = tuple(span[0].shape[0] for span in spans)  # tiles along z, y, x
+        box = tuple(
+            (span[0].reshape(view).expand(shape), span[1].reshape(view).expand(shape))
+            for span, view in ((spans[2], (1, 1, -1)), (spans[1], (1, -1, 1)), (spans[0], (-1, 1, 1)))
+        )
+        preds, substs = stack_cull(*culler(box, array_bank_reader(arrays), eval_context(scene, arrays)),
+                                   shape)
+        device = arrays.ad.device
+        tz, ty, tx = (torch.arange(n, device=device) // t for n, t in zip((slab, ny, nx), CULL_TILE))
+        tile = ((tz[:, None, None] * shape[1] + ty[None, :, None]) * shape[2] + tx[None, None, :])
+        tile = tile.reshape(-1)
+        if counts is not None:
+            counts["chains"] = counts.get("chains", 0) + preds[..., 0].numel()
+        preds, substs = preds.reshape(-1, preds.shape[-1]), substs.reshape(-1, substs.shape[-1])
+        out = culled_sdf(pts.reshape(-1, 3), arrays, preds[tile], substs[tile], counts)
+        return out.reshape(slab, ny, nx)
 
     def grid_eval(arrays, lo, cell, z0, slab: int, ny: int, nx: Optional[int] = None):
         if not on_cuda(arrays.ad):
@@ -114,13 +159,15 @@ def make_grid_eval(scene: CompiledScene):
         if out.numel() == 0:
             return out
         lox, loy, loz = (float(v) for v in np.asarray(lo, np.float32).reshape(3))
-        rc = libs["lib"].launch_grid_eval(
+        launch = libs["lib"].launch_grid_eval if culler is None else libs["lib"].launch_grid_eval_cull
+        rc = launch(
             ptr(out), slab, ny, nx, lox, loy, loz,
             float(np.float32(cell)), float(np.float32(z0)),
             *bank_pointers(scene, arrays, device), stream_handle(device),
         )
-        check_launch("grid_eval", rc)
+        check_launch("grid_eval" if culler is None else "grid_eval_cull", rc)
         return out
 
     grid_eval.plain = plain
+    grid_eval.culler = culler
     return grid_eval

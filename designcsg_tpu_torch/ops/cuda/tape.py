@@ -11,6 +11,7 @@ source serves the CUDA kernels and the host build the tests make.
 
 from __future__ import annotations
 
+import re
 from typing import Optional
 
 import numpy as np
@@ -18,6 +19,7 @@ import numpy as np
 from ...compiler import CompiledScene
 from ...config import RenderConfig
 from ...constants import OP_EXPORT, OP_IDENTITY, OP_IMPORT, OP_MAX, OP_MIN, OP_NEGATE
+from ..cull import BIG, CullPlan, make_cull_plan
 from ..raymarch import cone_slope
 from .brushes_kernel import (
     brush_functions,
@@ -49,25 +51,45 @@ def _brush_at(brushes) -> str:
     )
 
 
+def _registers(row):
+    """The registers a tape row reads or writes."""
+    opcode, left, right, dest = row
+    if opcode in (OP_MIN, OP_MAX):
+        return (left, right, dest)
+    if opcode in (OP_NEGATE, OP_IDENTITY):
+        return (left, dest)
+    if opcode == OP_IMPORT:
+        return (dest,)
+    if opcode == OP_EXPORT:
+        return (left,)
+    raise ValueError(f"unknown opcode {opcode}")
+
+
+def _tape_line(opcode, left, right, dest) -> str:
+    """C++ of a tape row other than IMPORT."""
+    if opcode == OP_EXPORT:
+        return f"    result = r{left};"
+    if opcode == OP_MIN:
+        return f"    r{dest} = fminf(r{left}, r{right});"
+    if opcode == OP_MAX:
+        return f"    r{dest} = fmaxf(r{left}, r{right});"
+    if opcode == OP_NEGATE:
+        return f"    r{dest} = -r{left};"
+    if opcode == OP_IDENTITY:
+        return f"    r{dest} = r{left};"
+    raise ValueError(f"unknown opcode {opcode}")
+
+
 def tape_function(scene: CompiledScene, gizmo: bool) -> str:
     """``HD float field_sdf(x, y, z, bank, ad, ex)``: the scene tape unrolled into
     straight-line code over register variables, with the k1 gizmo min-ed onto
     the result when ``gizmo`` (tape.py:101-103 of the JAX package)."""
     tape = [tuple(int(v) for v in row) for row in np.asarray(scene.arrays.tape)]
-    registers = set()
-    for opcode, left, right, dest in tape:
-        if opcode in (OP_MIN, OP_MAX):
-            registers |= {left, right, dest}
-        elif opcode in (OP_NEGATE, OP_IDENTITY):
-            registers |= {left, dest}
-        elif opcode == OP_IMPORT:
-            registers.add(dest)
-        elif opcode == OP_EXPORT:
-            registers.add(left)
+    registers = sorted({r for row in tape for r in _registers(row)})
     lines = [
         "HD float field_sdf(float x, float y, float z, const float* bank, const float* ad,",
         "                   const float* ex) {",
-        "    float " + ", ".join(f"r{i} = MAX_DISTANCE" for i in sorted(registers)) + ";",
+        "    float " + ", ".join(f"r{i} = MAX_DISTANCE" for i in registers) + ";",
         "    float result = MAX_DISTANCE;",
     ]
     for opcode, left, right, dest in tape:
@@ -75,22 +97,226 @@ def tape_function(scene: CompiledScene, gizmo: bool) -> str:
             lines.append(
                 f"    r{dest} = brush_{left}_at(x, y, z, bank + {right} * BANK_STRIDE, ad, ex);"
             )
-        elif opcode == OP_EXPORT:
-            lines.append(f"    result = r{left};")
-        elif opcode == OP_MIN:
-            lines.append(f"    r{dest} = fminf(r{left}, r{right});")
-        elif opcode == OP_MAX:
-            lines.append(f"    r{dest} = fmaxf(r{left}, r{right});")
-        elif opcode == OP_NEGATE:
-            lines.append(f"    r{dest} = -r{left};")
-        elif opcode == OP_IDENTITY:
-            lines.append(f"    r{dest} = r{left};")
         else:
-            raise ValueError(f"unknown opcode {opcode}")
+            lines.append(_tape_line(opcode, left, right, dest))
     if gizmo:
         lines.append("    result = fminf(result, gizmo_sdf(x, y, z));")
     lines += ["    return result;", "}", ""]
     return "\n".join(lines)
+
+
+def interval_functions(scene: CompiledScene, plan: CullPlan) -> str:
+    """``HD Iv ivbrush_<k>(a, b, c, ad, ex)``, the interval twin of every
+    brush with one that the scene uses (csrc/interval.cuh)."""
+    used = [k for k in used_brushes(scene) if plan.twinned[k]]
+    missing = [scene.brush_names[k] or f"bank {k}" for k in used if not scene.brush_interval_cuda[k]]
+    if missing:
+        raise NotImplementedError(
+            f"no CUDA interval twin for brush {missing}: give define_brush(..., interval_cuda=...) "
+            f"the body of its interval function to cull this scene on the card"
+        )
+    return "\n".join(
+        f"HD Iv ivbrush_{k}(Iv a, Iv b, Iv c, const float* ad, const float* ex) {{\n"
+        f"    {scene.brush_interval_cuda[k]}\n}}\n"
+        for k in used
+    )
+
+
+def cull_tile_function(plan: CullPlan) -> str:
+    """``HD void cull_tile(bx, by, bz, bank, ad, ex, preds, substs)``: the
+    culler of ops/cull.py unrolled over the plan's tree -- every slot's padded
+    brush interval and substitute, then relevance top-down into the bit mask
+    ``preds`` (bit g: group g must be evaluated), each interior interval
+    computed where relevance reads it."""
+    lines = [
+        "HD void cull_tile(Iv bx, Iv by, Iv bz, const float* bank, const float* ad, const float* ex,",
+        "                  unsigned& preds, float* substs) {",
+    ]
+    big = f32_literal(BIG)
+    done, names = set(), {}
+
+    def leaves(node):
+        if node.op not in ("leaf", "gizmo"):
+            for c in node.children:
+                leaves(c)
+            return
+        b = f"b{node.slot}"
+        if node.slot in done:
+            return
+        done.add(node.slot)
+        if node.op == "gizmo":
+            lines.append(f"    const Iv {b} = iv_pad(iv_gizmo(bx, by, bz));")
+        elif plan.twinned[node.brush]:
+            lines.append(f"    Iv {b}a, {b}b, {b}c;")
+            lines.append(f"    iv_local(bx, by, bz, bank + {node.obj} * BANK_STRIDE, {b}a, {b}b, {b}c);")
+            lines.append(f"    const Iv {b} = iv_pad(ivbrush_{node.brush}({b}a, {b}b, {b}c, ad, ex));")
+        else:
+            lines.append(f"    const Iv {b} = Iv{{-{big}, {big}}};")
+        lines.append(f"    substs[{node.slot}] = {b}.lo;")
+
+    def fold(op, exprs):
+        expr = exprs[0]
+        for e in exprs[1:]:
+            expr = f"{'iv_min' if op == 'min' else 'iv_max'}({expr}, {e})"
+        return expr
+
+    def emit(node):
+        """C++ name of the node's analysis interval (leaf parity applied)."""
+        if node.op in ("leaf", "gizmo"):
+            return f"iv_neg(b{node.slot})" if node.negated else f"b{node.slot}"
+        if id(node) not in names:
+            expr = fold(node.op, [emit(c) for c in node.children])
+            names[id(node)] = f"n{len(names)}"
+            lines.append(f"    const Iv {names[id(node)]} = {expr};")
+        return names[id(node)]
+
+    leaves(plan.root)
+    lines.append("    preds = 0u;")
+    count = [0]
+
+    def fresh(prefix):
+        count[0] += 1
+        return f"{prefix}{count[0]}"
+
+    def down(node, rel):
+        units = plan.units[id(node)]
+        uivs = []
+        if len(units) > 1:
+            for u in units:
+                expr = fold(node.op, [emit(m) for m in u[2]]) if u[0] == "bucket" else emit(u[1])
+                uivs.append(fresh("u"))
+                lines.append(f"    const Iv {uivs[-1]} = {expr};")
+        for i, u in enumerate(units):
+            rel_u = rel
+            if len(units) > 1:
+                others = [iv for j, iv in enumerate(uivs) if j != i]
+                if node.op == "min":
+                    # unit i can win the min somewhere only if its lower bound
+                    # is below the least upper bound of the others
+                    bound = f"{others[0]}.hi"
+                    for iv in others[1:]:
+                        bound = f"fminf({bound}, {iv}.hi)"
+                    cond = f"{uivs[i]}.lo < {bound}"
+                else:
+                    bound = f"{others[0]}.lo"
+                    for iv in others[1:]:
+                        bound = f"fmaxf({bound}, {iv}.lo)"
+                    cond = f"{uivs[i]}.hi > {bound}"
+                rel_u = fresh("q")
+                lines.append(f"    const bool {rel_u} = {cond if rel == 'true' else f'{rel} && {cond}'};")
+            if u[0] == "bucket":
+                lines.append(f"    preds |= (unsigned)({rel_u}) << {u[1]};")
+            elif u[0] == "sub":
+                down(u[1], rel_u)
+
+    down(plan.root, "true")
+    lines += ["}", ""]
+    return "\n".join(lines)
+
+
+def culled_tape_function(scene: CompiledScene, plan: CullPlan) -> str:
+    """``HD float field_sdf_culled(x, y, z, bank, ad, ex, preds, substs)``:
+    :func:`tape_function`'s field with each group's slots evaluated under
+    ``if (preds & bit)`` and given their substitutes otherwise (the gizmo is
+    slot ``n_imports`` when the plan has it)."""
+    tape = [tuple(int(v) for v in row) for row in np.asarray(scene.arrays.tape)]
+    slots = [(left, right) for opcode, left, right, _ in tape if opcode == OP_IMPORT]
+    grouped = {k for members in plan.groups for k in members}
+    lines = [
+        "HD float field_sdf_culled(float x, float y, float z, const float* bank, const float* ad,",
+        "                          const float* ex, unsigned preds, const float* substs) {",
+    ]
+    if grouped:
+        lines.append("    float " + ", ".join(f"s{k}" for k in sorted(grouped)) + ";")
+
+    def slot_value(k):
+        if k == plan.n_imports:
+            return "gizmo_sdf(x, y, z)"
+        brush, obj = slots[k]
+        return f"brush_{brush}_at(x, y, z, bank + {obj} * BANK_STRIDE, ad, ex)"
+
+    for g, members in enumerate(plan.groups):
+        lines.append(f"    if (preds & {1 << g}u) {{")
+        lines += [f"        s{k} = {slot_value(k)};" for k in members]
+        lines.append("    } else {")
+        lines += [f"        s{k} = substs[{k}];" for k in members]
+        lines.append("    }")
+    registers = sorted({r for row in tape for r in _registers(row)})
+    lines += [
+        "    float " + ", ".join(f"r{i} = MAX_DISTANCE" for i in registers) + ";",
+        "    float result = MAX_DISTANCE;",
+    ]
+    k = 0
+    for opcode, left, right, dest in tape:
+        if opcode == OP_IMPORT:
+            lines.append(f"    r{dest} = {f's{k}' if k in grouped else slot_value(k)};")
+            k += 1
+        else:
+            lines.append(_tape_line(opcode, left, right, dest))
+    if plan.gizmo:
+        gz = f"s{plan.n_imports}" if plan.n_imports in grouped else slot_value(plan.n_imports)
+        lines.append(f"    result = fminf(result, {gz});")
+    lines += ["    return result;", "}", ""]
+    return "\n".join(lines)
+
+
+def cull_source(scene: CompiledScene, plan: Optional[CullPlan], mode: int,
+                config: Optional[RenderConfig] = None) -> str:
+    """``#define CULL_MODE <mode>`` (0 off, 1 hoisted, 2 dynamic; the point
+    and grid unit uses 1) and, with a plan, the cull's constants, the
+    interval twins, ``cull_tile`` and ``field_sdf_culled``.  A renderer's
+    ``config`` adds the hoisted cull's drift pad: accumulated positions
+    stray from o + d*r by up to MAX_STEPS ulps (march_kernel.py:477-491 of
+    the JAX package)."""
+    if plan is None:
+        return "#define CULL_MODE 0\n"
+    if len(plan.groups) > 32:
+        raise NotImplementedError(f"{len(plan.groups)} cull groups: the predicate mask holds 32")
+    drift = ""
+    if config is not None:
+        drift = f"constexpr float CULL_DRIFT = {f32_literal(float(config.max_steps) * 1.5e-7)};\n"
+    return "\n".join(
+        [
+            f"#define CULL_MODE {mode}\n"
+            f"constexpr int N_CULL_SLOTS = {plan.n_slots};\n" + drift,
+            csrc("interval.cuh"),
+            interval_functions(scene, plan),
+            cull_tile_function(plan),
+            culled_tape_function(scene, plan),
+        ]
+    )
+
+
+# FP32 operations of each interval helper and C++ operation that the
+# generated cull chain calls (csrc/interval.cuh; fminf, fmaxf, sqrtf, fabsf,
+# a rounded sum or product and a comparison count 1).
+IV_OPS = {
+    "iv_const": 0, "iv_add": 2, "iv_sub": 2, "iv_neg": 2, "iv_min": 2, "iv_max": 2,
+    "iv_mul_scalar": 4, "iv_mul": 12, "iv_abs": 5, "iv_square": 7, "iv_sqrt": 4, "iv_norm3": 29,
+    "iv_pad": 7, "iv_local": 54, "iv_gizmo": 115, "fminf": 1, "fmaxf": 1, "sqrtf": 1,
+    "fabsf": 1, "mul_rn": 1, "add_rn": 1, "sub_rn": 1,
+}
+_CALL = re.compile(r"\b(" + "|".join(IV_OPS) + r")\(")
+_COMPARE = re.compile(r"(?<![<>-])(<=|>=|<|>)(?![<>=])")
+
+
+def _text_ops(text: str) -> int:
+    return sum(IV_OPS[m] for m in _CALL.findall(text)) + len(_COMPARE.findall(text))
+
+
+def cull_chain_ops(scene: CompiledScene, gizmo: bool) -> Optional[int]:
+    """FP32 operations of one ``cull_tile`` call, counted from the generated
+    code: its own text plus each interval twin's body per leaf that calls
+    it (None when the scene has no cull)."""
+    plan = make_cull_plan(scene, gizmo)
+    if plan is None:
+        return None
+    chain = cull_tile_function(plan)
+    body_ops = {
+        k: _text_ops(scene.brush_interval_cuda[k]) for k in used_brushes(scene) if plan.twinned[k]
+    }
+    calls = re.findall(r"\bivbrush_(\d+)\(", chain)
+    return _text_ops(chain) + sum(body_ops[int(k)] for k in calls)
 
 
 def shade_function(scene: CompiledScene) -> str:
@@ -160,13 +386,25 @@ def _march_constants(config: RenderConfig) -> str:
     )
 
 
-def scene_source(scene: CompiledScene, render_config: Optional[RenderConfig] = None) -> str:
+def cull_mode(config: RenderConfig) -> int:
+    """The renderer's ``CULL_MODE`` for ``config.march_cull``: 0 off, 2 for
+    "dynamic", 1 (hoisted) for any other true value, as the JAX package
+    reads it (march_kernel.py:380-384)."""
+    if not config.march_cull:
+        return 0
+    return 2 if config.march_cull == "dynamic" else 1
+
+
+def scene_source(scene: CompiledScene, render_config: Optional[RenderConfig] = None,
+                 cull: int = 0) -> str:
     """The generated scene code: constants (the extras' offsets among them),
     common.cuh, table.cuh (K6), brush functions and the unrolled tape (the k2
     field, no gizmo).  With ``render_config``: the k1
     field (with the gizmo iff the config says so), the material and shading
     functions and march.cuh's ``render_pixel``, ``cone_ray`` and
-    ``march_ray_closest``."""
+    ``march_ray_closest``.  With ``cull`` (a ``CULL_MODE``) and a scene
+    whose tape can be culled: the interval twins, ``cull_tile`` and
+    ``field_sdf_culled`` of the same field (:func:`cull_source`)."""
     parts = [
         "// Generated from the scene tape by designcsg_tpu_torch/ops/cuda/tape.py.\n"
         f"constexpr int N_OBJ = {scene.num_objects};\n" + extras_constants(scene)
@@ -179,20 +417,24 @@ def scene_source(scene: CompiledScene, render_config: Optional[RenderConfig] = N
         csrc("common.cuh"), csrc("table.cuh"), brush_functions(scene), _brush_at(used_brushes(scene)),
     ]
     parts.append(tape_function(scene, gizmo))
+    parts.append(cull_source(scene, make_cull_plan(scene, gizmo) if cull else None, cull,
+                             render_config))
     if render_config is not None:
         parts += [material_functions(scene), shade_function(scene), csrc("march.cuh")]
     return "\n".join(parts)
 
 
 def sdf_kernel_source(scene: CompiledScene) -> str:
-    """Translation unit of the point and grid eval kernels (k2 field)."""
-    return scene_source(scene) + "\n" + csrc("sdf_kernels.cu")
+    """Translation unit of the point and grid eval kernels (k2 field), the
+    culled grid kernel among them when the tape can be culled."""
+    return scene_source(scene, cull=1) + "\n" + csrc("sdf_kernels.cu")
 
 
 def march_kernel_source(scene: CompiledScene, config: RenderConfig) -> str:
-    """Translation unit of the fused renderer kernel (march mode and cone
-    constants from ``config``)."""
-    return scene_source(scene, render_config=config) + "\n" + csrc("march_kernel.cu")
+    """Translation unit of the fused renderer kernel (march mode, cone
+    constants and cull mode from ``config``)."""
+    return scene_source(scene, render_config=config, cull=cull_mode(config)) + "\n" + csrc(
+        "march_kernel.cu")
 
 
 def cone_kernel_source(scene: CompiledScene, config: RenderConfig) -> str:

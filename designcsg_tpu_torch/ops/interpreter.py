@@ -102,22 +102,31 @@ def eval_context(scene: CompiledScene, arrays: SceneArrays, **frame) -> EvalCont
 
 
 def make_primary_sdf(scene: CompiledScene, gizmo: bool = False, field: str = "exact") -> Callable:
-    """``sdf(points, arrays=None) -> distances`` with the scene's tape unrolled
-    over the brushes of ``field``; ``arrays`` defaults to the scene's own
-    banks."""
+    """``sdf(points, arrays=None, slots=None) -> distances`` with the scene's
+    tape unrolled over the brushes of ``field``; ``arrays`` defaults to the
+    scene's own banks.  ``slots`` maps IMPORT positions (and ``n_imports``,
+    the gizmo) to values that stand in for their evaluation: the culled tape
+    (ops/cull.py) passes the slots it evaluated or substituted."""
     tape = [tuple(int(x) for x in row) for row in scene.arrays.tape]
     brush_fns = brush_bank(scene, field)
+    n_imports = sum(1 for row in tape if row[0] == OP_IMPORT)
 
-    def primary_sdf(points, arrays: Optional[SceneArrays] = None):
+    def primary_sdf(points, arrays: Optional[SceneArrays] = None, slots=None):
         arrays = _device_arrays(scene, arrays, points.device)
         ctx = eval_context(scene, arrays)
+        slots = slots or {}
         regs = {}
         export = torch.full(
             points.shape[:-1], MAX_DISTANCE, dtype=points.dtype, device=points.device
         )
+        k = 0
         for opcode, left, right, dest in tape:
             if opcode == OP_IMPORT:
-                regs[dest] = brush_fns[left](import_local_coords(points, arrays, right), ctx)
+                regs[dest] = (
+                    slots[k] if k in slots
+                    else brush_fns[left](import_local_coords(points, arrays, right), ctx)
+                )
+                k += 1
             elif opcode == OP_EXPORT:
                 export = regs[left]
             elif opcode == OP_MIN:
@@ -131,7 +140,7 @@ def make_primary_sdf(scene: CompiledScene, gizmo: bool = False, field: str = "ex
             else:
                 raise ValueError(f"unknown opcode {opcode}")
         if gizmo:
-            export = torch.minimum(export, gizmo_sdf(points))
+            export = torch.minimum(export, slots[n_imports] if n_imports in slots else gizmo_sdf(points))
         return export
 
     return primary_sdf

@@ -50,6 +50,7 @@ from ..camera import Camera
 from ..compiler import CompiledScene, SceneArrays
 from ..config import RenderConfig
 from ..constants import AXES_SHADE_RADIUS, INITIAL_SCALE, MAX_DISTANCE
+from .cull import array_bank_reader, inflate, make_culled_sdf, make_tape_culler, ray_box, stack_cull
 from .interpreter import (
     axes_cylinder_sdf,
     brush_bank,
@@ -91,6 +92,81 @@ def camera_rows(campos, rgt, upp, fwd) -> np.ndarray:
     return torch.stack([o_proj] + frame[1:]).numpy()
 
 
+#: A warp of the renderer kernel: a 16x2 patch of its 16x8 blocks, the tile of
+#: its exact cull (csrc/march_kernel.cu).
+WARP_W, WARP_H = 16, 2
+
+
+def warp_tiles(config: RenderConfig, device=None):
+    """(i64[H, W] the warp tile of each pixel, the number of tiles)."""
+    tw = -(-config.width // WARP_W)
+    ty = torch.arange(config.height, device=device) // WARP_H
+    tx = torch.arange(config.width, device=device) // WARP_W
+    return ty[:, None] * tw + tx[None, :], tw * -(-config.height // WARP_H)
+
+
+def _tile_span(values, tiles, n_tiles, reduce):
+    """Per tile, the least (``"amin"``) or largest (``"amax"``) of ``values``
+    f32[N, ...] over the rows of each tile."""
+    fill = float("inf") if reduce == "amin" else float("-inf")
+    out = torch.full((n_tiles,) + values.shape[1:], fill, dtype=values.dtype, device=values.device)
+    index = tiles.reshape((-1,) + (1,) * (values.dim() - 1)).expand_as(values)
+    return out.scatter_reduce(0, index, values, reduce)
+
+
+def hoisted_boxes(config: RenderConfig, o_proj, r_proj, t0=None):
+    """The hoisted cull's box of each warp tile (march_kernel.py:468-491 of
+    the JAX package; csrc/march.cuh hoisted_box): the axis box of o + d*r
+    over the tile's rays ``r_proj`` f32[H, W, 3] for d from the tile's least
+    start parameter (``t0`` f32[H, W], else 0) to ``max_distance``, widened by
+    the FD probes' reach and the march's drift.  Returns (the box, (lo, hi)
+    f32[T] per axis; the tile of each ray, i64[H*W]; the number of tiles)."""
+    tiles, n_tiles = warp_tiles(config, r_proj.device)
+    tiles = tiles.reshape(-1)
+    d0 = torch.zeros(tiles.shape, device=r_proj.device) if t0 is None else t0.reshape(-1)
+    r = r_proj.reshape(-1, 3)
+    r_lo, r_hi = _tile_span(r, tiles, n_tiles, "amin"), _tile_span(r, tiles, n_tiles, "amax")
+    seg = (_tile_span(d0, tiles, n_tiles, "amin"), float(np.float32(config.max_distance)))
+    r_ivs = [(r_lo[:, i], r_hi[:, i]) for i in range(3)]
+    drift = float(config.max_steps) * 1.5e-7
+    box = tuple(
+        inflate(iv, config.normal_epsilon, drift)
+        for iv in ray_box([float(v) for v in o_proj], r_ivs, seg)
+    )
+    return box, tiles, n_tiles
+
+
+class MarchCull:
+    """The plain version's per-tile cull of one march (K7): ``tiles`` i64[N]
+    the kernel tile of each ray, and either ``hoisted`` (the per-tile
+    predicates bool[T, G] and substitutes f32[T, S] of the hoisted cull) or,
+    with ``dynamic``, the culler and bank to cull every step on the box of
+    each tile's live rays.  ``counts`` accumulates ``evals``, ``group_evals``
+    and ``chains`` (tile culls)."""
+
+    def __init__(self, culler, culled_sdf, tiles, bank, ctx, hoisted=None, dynamic=False,
+                 counts=None):
+        self.culler, self.culled_sdf = culler, culled_sdf
+        self.tiles, self.bank, self.ctx = tiles, bank, ctx
+        self.hoisted, self.dynamic, self.counts = hoisted, dynamic, counts
+
+    def sdf(self, v, live, arrays):
+        """The culled tape at the live rays' points ``v`` f32[n, 3]."""
+        tl = self.tiles[live]
+        if self.dynamic:
+            present, slot = torch.unique(tl, return_inverse=True)
+            lo = _tile_span(v, slot, present.numel(), "amin")
+            hi = _tile_span(v, slot, present.numel(), "amax")
+            box = tuple((lo[:, i], hi[:, i]) for i in range(3))
+            preds, substs = stack_cull(*self.culler(box, self.bank, self.ctx), (present.numel(),))
+            preds, substs = preds[slot], substs[slot]
+            if self.counts is not None:
+                self.counts["chains"] = self.counts.get("chains", 0) + present.numel()
+        else:
+            preds, substs = self.hoisted[0][tl], self.hoisted[1][tl]
+        return self.culled_sdf(v, arrays, preds, substs, self.counts)
+
+
 def make_march(scene: CompiledScene, config: RenderConfig):
     """``march(origins, dirs, arrays, return_steps=False, t0=None,
     return_closest=False) -> d``: signed hit distance along the
@@ -112,7 +188,8 @@ def make_march(scene: CompiledScene, config: RenderConfig):
     retracts the last step and drops that ray to plain sphere tracing
     (raymarch.py:252-336 and march_kernel.py:565-632 of the JAX package).
     The field is the twin: this is the plain version of the kernels'
-    marches."""
+    marches.  ``cull`` (a :class:`MarchCull`) evaluates the culled tape at
+    each step instead, as the culled renderer kernel does."""
     sdf = make_primary_sdf(scene, gizmo=config.gizmo, field="twin")
     eps = config.sdf_epsilon
     tol = config.march_tolerance
@@ -122,7 +199,7 @@ def make_march(scene: CompiledScene, config: RenderConfig):
         warn_if_not_lipschitz(scene, "over-relaxed march")
 
     def march(origins, dirs, arrays: SceneArrays, return_steps: bool = False, t0=None,
-              return_closest: bool = False):
+              return_closest: bool = False, cull: Optional[MarchCull] = None):
         batch = dirs.shape[:-1]
         r = dirs.reshape(-1, 3)
         v = torch.broadcast_to(origins, r.shape).to(r.dtype).clone()
@@ -144,7 +221,7 @@ def make_march(scene: CompiledScene, config: RenderConfig):
             if live.numel() == 0:
                 break
             steps[live] += 1
-            s = sdf(v[live], arrays) * tol
+            s = (sdf(v[live], arrays) if cull is None else cull.sdf(v[live], live, arrays)) * tol
             if return_closest:
                 closer = s < smin[live]
                 near = live[closer]
@@ -340,30 +417,72 @@ def make_shade(scene: CompiledScene, config: RenderConfig, field: str = "exact")
 
 
 def make_renderer(scene: CompiledScene, config: Optional[RenderConfig] = None):
-    """``render(arrays, campos, rgt, upp, fwd, t0=None) -> f32[H, W, 3]``
-    linear RGB on the device of ``arrays``; wrap with :func:`to_u8` for the
-    reference's byte pixels.  ``t0`` f32[H, W] is a per-pixel start parameter
-    (see :func:`make_march`); a ray that stops at its ``t0 > 0`` is shaded.
-    March, normals and shading ride the twin field: the plain version of the
-    fused renderer kernel."""
+    """``render(arrays, campos, rgt, upp, fwd, t0=None, cull_counts=None) ->
+    f32[H, W, 3]`` linear RGB on the device of ``arrays``; wrap with
+    :func:`to_u8` for the reference's byte pixels.  ``t0`` f32[H, W] is a
+    per-pixel start parameter (see :func:`make_march`); a ray that stops at
+    its ``t0 > 0`` is shaded.  March, normals and shading ride the twin
+    field: the plain version of the fused renderer kernel.
+
+    With ``config.march_cull`` (and a tape that can be culled) it is the
+    plain version of the culled kernel, at the kernel's tiles (warps,
+    :func:`warp_tiles`): each tile's hoisted cull over its view cone
+    (march_kernel.py:462-495 of the JAX package) serves the march (or, with
+    ``"dynamic"``, the cull of each step's live rays does) and the FD
+    normals.  ``cull_counts``, a dict, then accumulates the march's and the
+    hit pixels' normal evaluations (``evals``), per group those that
+    evaluated it (``group_evals``) and the tile culls (``chains``)."""
     config = config or RenderConfig()
     march = make_march(scene, config)
-    normal_fn = make_normal_fn(
-        make_primary_sdf(scene, gizmo=config.gizmo, field="twin"), epsilon=config.normal_epsilon
-    )
+    field = make_primary_sdf(scene, gizmo=config.gizmo, field="twin")
+    normal_fn = make_normal_fn(field, epsilon=config.normal_epsilon)
     shade = make_shade(scene, config, field="twin")
+    culler = make_tape_culler(scene, gizmo=config.gizmo) if config.march_cull else None
+    culled_sdf = None if culler is None else make_culled_sdf(scene, culler, field="twin")
 
-    def render(arrays: SceneArrays, campos, rgt, upp, fwd, t0=None):
+    def cull_for(o_proj, r_proj, t0, arrays, counts):
+        """The frame's :class:`MarchCull` and the FD normal's culled field."""
+        box, tiles, n_tiles = hoisted_boxes(config, o_proj, r_proj, t0)
+        bank, ctx = array_bank_reader(arrays), eval_context(scene, arrays)
+        hoisted = stack_cull(*culler(box, bank, ctx), (n_tiles,))
+        if counts is not None:
+            counts.setdefault("evals", 0)
+            counts.setdefault("group_evals", [0] * len(culler.groups))
+            counts["chains"] = counts.get("chains", 0) + n_tiles
+        mc = MarchCull(culler, culled_sdf, tiles, bank, ctx, hoisted=hoisted,
+                       dynamic=config.march_cull == "dynamic", counts=counts)
+        preds, substs = hoisted[0][tiles], hoisted[1][tiles]
+
+        def normal_field(points, arrays):
+            flat = points.reshape(-1, 3)
+            return culled_sdf(flat, arrays, preds, substs).reshape(points.shape[:-1])
+
+        return mc, normal_field, preds
+
+    def render(arrays: SceneArrays, campos, rgt, upp, fwd, t0=None, cull_counts=None):
         device = arrays.ad.device
         o_proj, rgt, upp, fwd = torch.as_tensor(camera_rows(campos, rgt, upp, fwd), device=device)
         r_proj = project(ray_directions(config, device), rgt, upp, fwd)
-        d = march(o_proj, r_proj, arrays, t0=t0)
+        if culler is None:
+            d = march(o_proj, r_proj, arrays, t0=t0)
+            normals = normal_fn
+        else:
+            mc, normal_field, preds = cull_for(o_proj, r_proj, t0, arrays, cull_counts)
+            d = march(o_proj, r_proj, arrays, t0=t0, cull=mc)
+            normals = make_normal_fn(normal_field, epsilon=config.normal_epsilon)
+            if cull_counts is not None:
+                hit = (d > 0.0).reshape(-1)
+                cull_counts["evals"] += 6 * int(hit.sum())
+                cull_counts["group_evals"] = [
+                    a + 6 * int(b) for a, b in zip(cull_counts["group_evals"], preds[hit].sum(0))
+                ]
         p = o_proj + d[..., None] * r_proj
         ctx = eval_context(scene, arrays, rgt=rgt, upp=upp, fwd=fwd)
-        color = shade(p, normal_fn(p, arrays), arrays, ctx)
+        color = shade(p, normals(p, arrays), arrays, ctx)
         miss_color = torch.tensor(config.miss_color, dtype=color.dtype, device=device)
         return torch.where((d > 0.0)[..., None], color, miss_color)
 
+    render.culler = culler
     return render
 
 

@@ -13,6 +13,7 @@ cases stay in this file (one xdist worker).
 """
 
 import ctypes
+import dataclasses
 import shutil
 import subprocess
 
@@ -24,12 +25,15 @@ from designcsg_tpu_torch import api
 from designcsg_tpu_torch.camera import Camera
 from designcsg_tpu_torch.config import RenderConfig
 from designcsg_tpu_torch.designs import get_design
+from designcsg_tpu_torch.ops import cull
 from designcsg_tpu_torch.ops.cuda.build import csrc
-from designcsg_tpu_torch.ops.cuda.tape import scene_source, sdf_kernel_source
-from designcsg_tpu_torch.ops.interpreter import make_primary_sdf
+from designcsg_tpu_torch.ops.cuda.sdf_kernel import make_grid_eval
+from designcsg_tpu_torch.ops.cuda.tape import cull_chain_ops, cull_mode, scene_source, sdf_kernel_source
+from designcsg_tpu_torch.ops.interpreter import eval_context, make_primary_sdf
 from designcsg_tpu_torch.ops.raymarch import (
     camera_rows,
     coarse_ray_uv,
+    hoisted_boxes,
     make_cone_march,
     make_march,
     make_renderer,
@@ -46,6 +50,12 @@ FAST = RenderConfig(width=160, height=120, max_steps=96, march_overrelax=1.6,
 FIT = RenderConfig(width=128, height=32, max_steps=80, gizmo=False)
 # Logo's renderer at tests/test_logo.py:172's size.
 LOGO_RENDER = RenderConfig(width=32, height=32, max_steps=48)
+# The culled renderer (K7) at 64x48: 16x2 warp tiles, 4 by 24 of them.
+CULL = RenderConfig(width=64, height=48, max_steps=80, march_cull=True)
+CULL_DYNAMIC = RenderConfig(width=64, height=48, max_steps=80, march_cull="dynamic")
+# Logo close up and head on with a short march range, where the hoisted
+# cull leaves groups out (from the orbited cameras it leaves none out).
+CULL_NEAR = RenderConfig(width=64, height=48, max_steps=80, max_distance=8.0, march_cull=True)
 
 
 @pytest.fixture(scope="module")
@@ -70,6 +80,21 @@ def host_libs(tmp_path_factory):
         ("logo", "sdf"): scene_source(scenes["logo"]),
         ("logo", "render"): "#define HOST_RENDER\n" + scene_source(scenes["logo"], LOGO_RENDER),
         ("logo", "fit"): "#define HOST_RENDER\n" + scene_source(scenes["logo"], FIT),
+        # K7: the point/grid unit's cull (no gizmo) and the culled renderers.
+        ("design1", "sdf_cull"): scene_source(scenes["design1"], cull=1),
+        ("design2", "sdf_cull"): scene_source(scenes["design2"], cull=1),
+        ("logo", "sdf_cull"): scene_source(scenes["logo"], cull=1),
+        ("design1", "cull"): "#define HOST_RENDER\n" + scene_source(scenes["design1"], CULL, cull=1),
+        ("logo", "cull"): "#define HOST_RENDER\n" + scene_source(scenes["logo"], CULL, cull=1),
+        ("design2", "cull_dynamic"): "#define HOST_RENDER\n"
+        + scene_source(scenes["design2"], CULL_DYNAMIC, cull=cull_mode(CULL_DYNAMIC)),
+        ("design1", "render64"): "#define HOST_RENDER\n"
+        + scene_source(scenes["design1"], dataclasses.replace(CULL, march_cull=None)),
+        ("design2", "render64"): "#define HOST_RENDER\n"
+        + scene_source(scenes["design2"], dataclasses.replace(CULL, march_cull=None)),
+        ("logo", "cull_near"): "#define HOST_RENDER\n" + scene_source(scenes["logo"], CULL_NEAR, cull=1),
+        ("logo", "render_near"): "#define HOST_RENDER\n"
+        + scene_source(scenes["logo"], dataclasses.replace(CULL_NEAR, march_cull=None)),
     }
     out = tmp_path_factory.mktemp("host_build")
     running = {}
@@ -85,7 +110,13 @@ def host_libs(tmp_path_factory):
         assert proc.returncode == 0, err
         lib = ctypes.CDLL(str(so))
         lib.host_point_eval.argtypes = [_P, _P, ctypes.c_longlong, _P, _P, _P]
-        if key[1] != "sdf":
+        if "cull" in key[1]:
+            lib.host_cull_tile.argtypes = [_P] * 6
+        if "cull" in key[1] and not key[1].startswith("sdf"):
+            lib.host_hoisted_box.argtypes = [_P] + [ctypes.c_int] * 4 + [_P] * 2
+        if key[1] == "sdf_cull":
+            lib.host_grid_eval_cull.argtypes = [_P] + [ctypes.c_int] * 3 + [ctypes.c_float] * 5 + [_P] * 3
+        if not key[1].startswith("sdf"):
             lib.host_render.argtypes = [_P, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P]
             lib.host_cone_march.argtypes = [_P, ctypes.c_longlong, _P, _P, _P, _P, _P]
             lib.host_ray_march.argtypes = [_P, _P, ctypes.c_longlong, _P, _P, _P, _P, _P]
@@ -293,3 +324,121 @@ def test_brush_without_cuda_source_raises():
     api.draw(custom, api.Transform.identity(), compiler=c)
     with pytest.raises(NotImplementedError, match="custom"):
         sdf_kernel_source(c.commit())
+
+
+@pytest.mark.parametrize("gizmo", [False, True])
+@pytest.mark.parametrize("name", ["design1", "design2", "logo"])
+def test_generated_cull_tile_matches_plain_culler(host_libs, name, gizmo):
+    """K7's chain on the host (``cull_tile``, generated from the cull plan over
+    csrc/interval.cuh) against the plain culler on 64 boxes: the same
+    predicate bits and the same substitutes, bit for bit."""
+    scenes, libs = host_libs
+    scene = scenes[name]
+    kind = "sdf_cull" if not gizmo else "cull_dynamic" if name == "design2" else "cull"
+    lib = libs[(name, kind)]
+    culler = cull.make_tape_culler(scene, gizmo=gizmo)
+    rng = np.random.default_rng(5)
+    lo = rng.uniform(-4, 4, (64, 3)).astype(np.float32)
+    hi = (lo + rng.uniform(0.01, 2.0, (64, 3)) * rng.choice([0.05, 1.0], (64, 1))).astype(np.float32)
+    p, s = cull.stack_cull(*culler(
+        tuple((torch.from_numpy(lo[:, i]), torch.from_numpy(hi[:, i])) for i in range(3)),
+        cull.array_bank_reader(scene.arrays), eval_context(scene, scene.arrays.to_torch("cpu"))), (64,))
+    bank, ad, ex = _bank(scene.arrays), scene.arrays.ad, _extras(scene)
+    for b in range(64):
+        box = np.ascontiguousarray(np.stack([lo[b], hi[b]], -1).reshape(6), np.float32)
+        preds = np.zeros(1, np.uint32)
+        substs = np.zeros(culler.n_slots, np.float32)
+        lib.host_cull_tile(box.ctypes.data, bank.ctypes.data, ad.ctypes.data, _ptr(ex),
+                           preds.ctypes.data, substs.ctypes.data)
+        bits = [(int(preds[0]) >> g) & 1 for g in range(len(culler.groups))]
+        np.testing.assert_array_equal(bits, p[b].numpy().astype(int))
+        np.testing.assert_array_equal(substs, s[b].numpy())
+    assert (~p).any() or name == "design2"
+
+
+@pytest.mark.parametrize("name", ["design1", "design2", "logo"])
+def test_generated_culled_grid_matches_plain(host_libs, name):
+    """K3's culled grid on the host, tile by tile, against the plain culled
+    grid (the same tiles, predicates and substitutes; within 1e-6, since
+    PyTorch's float32 square root on the CPU can be an ulp off C's), and the
+    plain culled grid equal to the unculled one (the cull is exact)."""
+    scenes, libs = host_libs
+    scene = scenes[name]
+    lo, cell, z0, nz, ny, nx = np.full(3, -3.5, np.float32), np.float32(7.0 / 48), 4.0, 19, 33, 70
+    out = np.empty((nz, ny, nx), np.float32)
+    libs[(name, "sdf_cull")].host_grid_eval_cull(
+        out.ctypes.data, nz, ny, nx, *(float(v) for v in lo), float(cell), z0,
+        _bank(scene.arrays).ctypes.data, scene.arrays.ad.ctypes.data, _ptr(_extras(scene)))
+    arrays = scene.arrays.to_torch("cpu")
+    counts = {}
+    plain = make_grid_eval(scene, cull=True).plain(arrays, lo, cell, z0, nz, ny, nx, counts=counts)
+    np.testing.assert_allclose(out, plain.numpy(), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(plain.numpy(),
+                                  make_grid_eval(scene).plain(arrays, lo, cell, z0, nz, ny, nx).numpy())
+    assert counts["chains"] == 3 * 5 * 3 and counts["evals"] == nz * ny * nx
+
+
+@pytest.mark.parametrize("name,kind,unculled,config", [
+    ("design1", "cull", "render64", CULL),
+    ("design2", "cull_dynamic", "render64", CULL_DYNAMIC),
+    ("logo", "cull_near", "render_near", CULL_NEAR),
+])
+def test_generated_culled_render_matches_unculled(host_libs, name, kind, unculled, config):
+    """The culled renderer on the host (warp by warp, lock step and
+    reductions emulated) equals the host's unculled render at 64x48 bit for
+    bit, and its plain version (Design1 hoisted, Design2 dynamic, and Logo
+    hoisted close up, where the plain version skips over a tenth of the
+    group evaluations)."""
+    scenes, libs = host_libs
+    scene = scenes[name]
+    if name == "logo":
+        cam_arrays = Camera.initial(apply_default_orbit=False).zoom(6.0).as_arrays()
+    else:
+        cam_arrays = Camera.initial().orbit(0.3, -0.2).as_arrays()
+    img = _render(libs[(name, kind)], scene, config, cam_arrays)
+    ref = _render(libs[(name, unculled)], scene, config, cam_arrays)
+    np.testing.assert_array_equal(img, ref)
+    counts = {}
+    plain = make_renderer(scene, config)(scene.arrays.to_torch("cpu"), *cam_arrays,
+                                         cull_counts=counts).numpy()
+    _assert_render_close(img, plain)
+    assert (ref != 1.0).any(-1).mean() > 0.05
+    if name == "logo":
+        assert cull.skipped_share(counts) > 0.1
+
+
+@pytest.mark.parametrize("hierarchical", [False, True])
+def test_generated_hoisted_box_matches_plain(host_libs, hierarchical):
+    """The culled renderer's hoisted box (march.cuh hoisted_box, over the
+    warp's shuffled spans) equals the plain version's (raymarch.hoisted_boxes,
+    whose boxes hold every point the render evaluates) bit for bit, in every
+    tile of Logo's close-up frame, from the camera and from a t0 plane."""
+    scenes, libs = host_libs
+    config = dataclasses.replace(CULL_NEAR, march_hierarchical=hierarchical)
+    cam_arrays = Camera.initial(apply_default_orbit=False).zoom(6.0).as_arrays()
+    rows = torch.from_numpy(camera_rows(*cam_arrays))
+    r_proj = project(ray_directions(config), *rows[1:])
+    t0 = None
+    if hierarchical:
+        t0 = torch.from_numpy(np.random.default_rng(2).uniform(0.0, 4.0, (config.height, config.width))
+                              .astype(np.float32))
+    box, _, n_tiles = hoisted_boxes(config, rows[0], r_proj, t0)
+    cam = np.ascontiguousarray(rows.numpy(), np.float32)
+    t0_np = None if t0 is None else np.ascontiguousarray(t0.numpy())
+    got = np.empty((n_tiles, 6), np.float32)
+    for tile in range(n_tiles):
+        x0, y0 = 16 * (tile % (config.width // 16)), 2 * (tile // (config.width // 16))
+        libs[("logo", "cull_near")].host_hoisted_box(got[tile].ctypes.data, x0, y0, config.height,
+                                                    config.width, cam.ctypes.data, _ptr(t0_np))
+    want = torch.stack([b for iv in box for b in iv], -1).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_cull_chain_ops_counted_from_generated_code():
+    """The chain's FP32 operations, counted from the generated ``cull_tile``
+    and interval bodies: more than a leaf's frame interval (54) per twinned
+    leaf, and the gizmo adds its interval (115) and a pad (7)."""
+    scene = get_design("design1")
+    ops, with_gizmo = cull_chain_ops(scene, False), cull_chain_ops(scene, True)
+    assert ops > 11 * (54 + 7)
+    assert with_gizmo - ops >= 115 + 7

@@ -7,6 +7,7 @@ no CUDA device is present.  Run on a machine with a card:
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ from designcsg_tpu_torch.config import RenderConfig
 from designcsg_tpu_torch.designs import get_design
 from designcsg_tpu_torch.evaluator import BatchEvaluator
 from designcsg_tpu_torch.export.pipeline import export_mesh
+from designcsg_tpu_torch.ops.cull import skipped_share
 from designcsg_tpu_torch.ops.cuda import build as kbuild
 from designcsg_tpu_torch.ops.cuda.march_kernel import (
     make_cuda_cone_march,
@@ -25,7 +27,15 @@ from designcsg_tpu_torch.ops.cuda.march_kernel import (
     make_cuda_renderer,
 )
 from designcsg_tpu_torch.ops.cuda.sdf_kernel import make_grid_eval, make_point_eval
-from designcsg_tpu_torch.ops.raymarch import camera_rows, coarse_ray_uv, project, ray_directions
+from designcsg_tpu_torch.ops.raymarch import (
+    camera_rows,
+    coarse_ray_uv,
+    compose_hierarchical,
+    make_cone_march,
+    make_renderer,
+    project,
+    ray_directions,
+)
 from designcsg_tpu_torch.parallel.fit import make_fit_harness
 
 pytestmark = pytest.mark.cuda
@@ -283,3 +293,72 @@ def test_logo_cli_export_reports_field(tmp_path, capsys, cuda_device):
         cli.main(["export", "logo", "--sdf-field", field, "--grid-level", "5",
                   "--stl", str(tmp_path / f"logo_{field}.stl")])
         assert f"(sdf field: {expect})" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("cull", [True, "dynamic"])
+@pytest.mark.parametrize("mode", ["exact", "overrelax", "hierarchical"])
+@pytest.mark.parametrize("name", ["design1", "design2", "logo"])
+def test_culled_renderer_kernels(name, mode, cull, cuda_device):
+    """K7 inside K2: the culled renderer (hoisted or dynamic; exact,
+    over-relaxed, or from the cone's t0 plane) equals the unculled kernel bit
+    for bit (both -fmad=false) and follows its plain version by the render
+    rule; each frame launches the culled kernel once."""
+    scene = get_design(name)
+    arrays = scene.arrays.to_torch(cuda_device)
+    base = RenderConfig(width=160, height=120, march_overrelax=1.0 if mode == "exact" else 1.6,
+                        march_hierarchical=mode == "hierarchical")
+    config = dataclasses.replace(base, march_cull=cull)
+    factory = make_cuda_hierarchical_renderer if mode == "hierarchical" else make_cuda_renderer
+    cam = Camera.initial().orbit(0.2, -0.1).as_arrays()
+    kernel = ("renderer_t0" if mode == "hierarchical" else "renderer_overrelax" if mode == "overrelax"
+              else "renderer") + ("_cull_dynamic" if cull == "dynamic" else "_cull")
+    before = kbuild.LAUNCHES[kernel]
+    render = factory(scene, config)
+    got = render(arrays, *cam)
+    torch.cuda.synchronize()
+    assert kbuild.LAUNCHES[kernel] == before + 1
+    assert torch.equal(got, factory(scene, base)(arrays, *cam))
+    assert _render_close(got, render.plain(arrays, *cam))
+
+
+@pytest.mark.parametrize("mode", ["exact", "overrelax", "hierarchical"])
+def test_hoisted_cull_prunes_near_view_kernel(mode, cuda_device):
+    """Logo close up and head on with a short march range (max_distance 8),
+    where the hoisted cull's view-cone boxes leave groups out: the culled
+    kernel equals the unculled kernel bit for bit, and its plain version,
+    which gives the same frame, skips over a tenth of the group
+    evaluations."""
+    scene = get_design("logo")
+    arrays = scene.arrays.to_torch(cuda_device)
+    base = RenderConfig(width=160, height=120, max_distance=8.0,
+                        march_overrelax=1.0 if mode == "exact" else 1.6,
+                        march_hierarchical=mode == "hierarchical")
+    config = dataclasses.replace(base, march_cull=True)
+    factory = make_cuda_hierarchical_renderer if mode == "hierarchical" else make_cuda_renderer
+    cam = Camera.initial(apply_default_orbit=False).zoom(6.0).as_arrays()
+    got = factory(scene, config)(arrays, *cam)
+    ref = factory(scene, base)(arrays, *cam)
+    assert torch.equal(got, ref)
+    assert float((ref != 1.0).any(-1).float().mean()) > 0.2
+    counts = {}
+    plain = functools.partial(make_renderer(scene, config), cull_counts=counts)
+    if mode == "hierarchical":
+        plain = compose_hierarchical(config, make_cone_march(scene, config), plain)
+    assert _render_close(got, plain(arrays, *cam))
+    assert skipped_share(counts) > 0.1
+
+
+@pytest.mark.parametrize("name", ["design1", "design2", "logo"])
+def test_culled_grid_kernel(name, cuda_device):
+    """K7 inside K3: the culled grid kernel against the unculled kernel and
+    its plain version, within K3's 1e-5 + 1e-6|ref|, with a ragged edge."""
+    scene = get_design(name)
+    arrays = scene.arrays.to_torch(cuda_device)
+    grid = (arrays, np.full(3, -3.5, np.float32), np.float32(7.0 / 100), np.float32(20.0), 19, 101, 77)
+    culled = make_grid_eval(scene, cull=True)
+    before = kbuild.LAUNCHES["grid_eval_cull"]
+    got = culled(*grid)
+    torch.cuda.synchronize()
+    assert kbuild.LAUNCHES["grid_eval_cull"] == before + 1
+    assert _close(got, make_grid_eval(scene)(*grid))
+    assert _close(got, culled.plain(*grid))

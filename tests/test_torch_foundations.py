@@ -33,14 +33,23 @@ def test_render_config_fields_and_defaults_equal():
     "knob",
     [
         dict(normal_mode="analytic"),
-        dict(march_cull="dynamic"),
-        dict(march_cull=True),
         dict(march_proxy=True),
     ],
 )
 def test_unported_knobs_raise_naming_roadmap(knob):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tconfig.RenderConfig(**knob)
+
+
+@pytest.mark.parametrize("knob", [dict(march_cull="dynamic"), dict(march_cull=True)])
+def test_cull_knobs_build(knob):
+    """The exact per-tile cull (K7) is ported: both modes build, and the
+    renderer kernel's source takes the mode (1 hoisted, 2 dynamic)."""
+    from designcsg_tpu_torch.ops.cuda.tape import cull_mode
+
+    config = tconfig.RenderConfig(**knob)
+    assert config.march_cull == knob["march_cull"]
+    assert cull_mode(config) == (2 if knob["march_cull"] == "dynamic" else 1)
 
 
 @pytest.mark.parametrize(
