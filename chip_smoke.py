@@ -3,22 +3,29 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels of Design1, Design2 and Logo (point eval, grid eval,
-the fused renderer exact and fast, the cone prepass, the fit's ray march; in
-Logo's, csrc/table.cuh samples the baked letter tables, K6; and the exact
-per-tile cull, K7, inside the renderer, hoisted and dynamic, and inside the
-grid kernel) from the sources in this checkout, all nvcc runs at once, and
-holds each against its plain PyTorch version at the main paths' shapes (the
-culled kernels also against the unculled ones, phase 5d).  Then it drives
-eight main paths through the user entry points, with launch counts set to 0
+Builds the CUDA kernels of Design1, Design2 and Logo (point eval and grid
+eval, each also with the k1 gizmo; the fused renderer exact and fast, the
+cone prepass, the fit's ray march; in Logo's, csrc/table.cuh samples the
+baked letter tables, K6; and the exact per-tile cull, K7, inside the
+renderer, hoisted and dynamic, and inside the grid kernel) and the culled
+kernels of a synthetic scene of 89 cull groups from the sources in this
+checkout, all nvcc runs at once, and holds each against its plain PyTorch
+version at the main paths' shapes (the culled kernels also against the
+unculled ones, phase 5d; a scene without CUDA bodies runs on the plain tape,
+phase 5e; the export strategies agree at 256^3, phase 6).  Then it drives
+nine main paths through the user entry points, with launch counts set to 0
 before each and read after:
 
-* Design1's viewport, a k2 query and the dense 256^3 export to STL/PLY;
+* A: Design1's viewport, a k2 query, k1-field queries (the gizmo kernels)
+  and bench.py's 512^3 ``active`` export (50 refine steps) to STL/PLY;
+* A': ``cli export design1`` at its defaults (auto: the adaptive octree
+  5 -> 7 at grid level 8);
 * Design1's fast viewport: ``cli render design1 --fast`` (cone prepass +
   over-relaxed renderer from its t0 plane) and the over-relaxed renderer
   alone (``RenderConfig(march_overrelax=1.6)``);
-* Design2: the same two fast renders, its exact viewport, a k2 query and the
-  export's bounding-box scan on the card;
+* Design2: the same two fast renders, its exact viewport, a k2 query, the
+  export's bounding-box scan, k1-field queries and its adaptive export at its
+  own configuration (octree 6 -> 8, grid level 9);
 * D: Design1's differentiable fit at 640x480 (bench.py's fit configuration):
   ``make_fit_harness``, ``render_target`` and 10 Adam steps, 11 ray-march
   launches; one step is held against the same step with the plain march;
@@ -26,15 +33,16 @@ before each and read after:
   position error must fall;
 * E: Logo: ``cli render logo`` and ``cli render logo --fast`` at 640x480, the
   over-relaxed viewport, a 2^20-point k2 query on the exact tape and on the
-  baked field, and bench.py's Logo export (128^3 dense, 50 refine steps) on
-  both fields, the baked mesh held to the exact field within 2x the twin's
-  tolerance;
+  baked field, k1-field queries, and bench.py's Logo export (adaptive 5 -> 7
+  at grid level 7, 50 refine steps) on both fields, each mesh held to the
+  other field within 2x the twin's tolerance;
 * F: Logo's fit at 640x480 (bench.py's configuration): ``render_target`` and
   3 Adam steps for ``fit_field`` exact and twin, 8 ray-march launches;
 * G, per design: ``render_scene`` with ``march_cull="dynamic"`` and with
   ``march_cull=True``, each from the camera and hierarchical at omega = 1.6
   (the cone prepass, then the culled t0 renderer), and the culled grid over
-  the 33x257x257 slab; every frame is held to the checked unculled one.
+  the 33x257x257 slab, without and with the gizmo; every frame is held to
+  the checked unculled one.
 
 It times every kernel and its plain version with CUDA events (and Design1's
 renderer built with and without FMA contraction against each other), and
@@ -63,6 +71,9 @@ prints:
   ray march, the gradient reattachment (forward and backward) and Adam, its
   peak device memory and effective Mrays/s; and a ``fit_step_logo`` line,
   Logo's step time and peak memory per ``fit_field``;
+* an ``export`` JSON line per export of the main paths: its strategy, field,
+  stage seconds, triangles, SDF evaluations, per-level triangles and
+  whether the native mesh ops ran, and the whole run's seconds;
 * the card's name and power limit, as nvidia-smi reports them;
 * last, ``{"ok": true, "device": {...}}``.
 
@@ -86,7 +97,7 @@ import time
 import numpy as np
 import torch
 
-from designcsg_tpu_torch import cli
+from designcsg_tpu_torch import cli, native
 from designcsg_tpu_torch.camera import Camera
 from designcsg_tpu_torch.compiler import ExportConfig
 from designcsg_tpu_torch.config import RenderConfig
@@ -95,6 +106,7 @@ from designcsg_tpu_torch.designs.logo import LETTER_TABLE_READS
 from designcsg_tpu_torch.evaluator import BatchEvaluator
 from designcsg_tpu_torch.export import writers
 from designcsg_tpu_torch.export.pipeline import autodetect_bounding_box_device, export_mesh
+from designcsg_tpu_torch.export.retopo import boundary_edges
 from designcsg_tpu_torch.ops import cull
 from designcsg_tpu_torch.ops.cuda import build as kbuild
 from designcsg_tpu_torch.ops.cuda.march_kernel import (
@@ -117,6 +129,8 @@ from designcsg_tpu_torch.ops.raymarch import (
     coarse_ray_uv,
     make_march,
     project,
+    make_renderer,
+    make_scene_renderer,
     ray_directions,
     render_scene,
     to_u8,
@@ -124,6 +138,8 @@ from designcsg_tpu_torch.ops.raymarch import (
 from designcsg_tpu_torch.parallel.fit import make_fit_harness
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "tests"))
+from torch_scenes import custom_brush_scene, many_groups_scene  # noqa: E402
 DESIGNS = ("design1", "design2", "logo")
 GOLDENS = ("design1", "design2")
 
@@ -161,10 +177,17 @@ NEAR_CULLED = dataclasses.replace(NEAR, march_cull=True)
 # The fit (bench.py:284-342): 640x480, exact march of 512 steps, no gizmo.
 FIT = RenderConfig(differentiable=True, soft_silhouette_bandwidth=0.02, gizmo=False)
 FIT_OVERRELAX = dataclasses.replace(FIT, march_overrelax=1.6)
-# bench.py:256-263's Logo export: plates at world radius ~3.1, a 128^3 grid,
-# 50 refine steps (dense: the adaptive strategy is not ported).
+# bench.py:256-263's Logo export: plates at world radius ~3.1, the adaptive
+# octree 5 -> 7 at grid level 7, 50 refine steps.
 LOGO_EXPORT = ExportConfig(bounding_box_half_diameter=3.5, grid_level=7, minimum_octree_level=5,
                            maximum_octree_level=7, gradient_descent_steps=50)
+# bench.py:196-209's Design1 export: 512^3 active, 50 refine steps.
+D1_EXPORT = ExportConfig(bounding_box_half_diameter=10.0, grid_level=9, gradient_descent_steps=50)
+# The JAX package's recorded triangle counts of the same exports
+# (BENCH_r05.json); device-independent, printed beside the card's.
+JAX_TRIANGLES = {"design1_active_512": 2180120, "design2_adaptive": 231888,
+                 "logo_adaptive_baked": 44170, "logo_adaptive_exact": 54878}
+JAX_DESIGN2_LEVELS = {6: 6878, 7: 33273, 8: 159137}
 
 MARCH_PY = "designcsg_tpu/ops/pallas/march_kernel.py"
 SOURCES = {
@@ -184,6 +207,13 @@ SOURCES = {
     "renderer_t0_cull_dynamic": ("designcsg_tpu_torch/csrc/march_kernel.cu", f"{MARCH_PY}:497"),
     "grid_eval_cull": ("designcsg_tpu_torch/csrc/sdf_kernels.cu",
                        "designcsg_tpu/ops/pallas/sdf_kernel.py:236"),
+    # K1 and K3 with the gizmo (sdf_kernel.py:90 and :204, :211 there).
+    "point_eval_gizmo": ("designcsg_tpu_torch/csrc/sdf_kernels.cu",
+                         "designcsg_tpu/ops/pallas/sdf_kernel.py:76"),
+    "grid_eval_gizmo": ("designcsg_tpu_torch/csrc/sdf_kernels.cu",
+                        "designcsg_tpu/ops/pallas/sdf_kernel.py:185"),
+    "grid_eval_cull_gizmo": ("designcsg_tpu_torch/csrc/sdf_kernels.cu",
+                             "designcsg_tpu/ops/pallas/sdf_kernel.py:236"),
 }
 # K6, inlined into every kernel of a scene with baked tables (Logo).
 K6_SOURCE = ("designcsg_tpu_torch/csrc/table.cuh", "designcsg_tpu/ops/pallas/table.py:45")
@@ -431,6 +461,32 @@ def timed_once(fn):
     return out, start.elapsed_time(stop)
 
 
+def export_line(label: str, report, seconds: float) -> None:
+    """Print one export's numbers as an ``export`` JSON line."""
+    out = dict(label=label, seconds=seconds, strategy=report.stats["strategy"],
+               sdf_field=report.stats["sdf_field"], native=report.stats["native"],
+               stage_seconds=report.stage_seconds, triangles=report.num_triangles,
+               vertices=report.num_vertices, sdf_evals=report.sdf_evals,
+               level_triangles=report.stats.get("level_triangles"),
+               open_loops=report.stats.get("open_loops"))
+    if label in JAX_TRIANGLES:
+        out["jax_recorded_triangles"] = JAX_TRIANGLES[label]
+        out["relative_difference"] = report.num_triangles / JAX_TRIANGLES[label] - 1.0
+    print(json.dumps({"export": out}), flush=True)
+
+
+def k1_field_queries(scene, pts, use_kernels=None):
+    """What a user asks of the k1 field (the part and the viewport's gizmo):
+    a point query and its bounding box, through ``BatchEvaluator(gizmo=True)``
+    (the point and grid kernels with the gizmo).  Returns (sdf_field, the
+    values, the box's largest corner): the gizmo's axes reach 5 units out
+    along x, y and z, so every coordinate of that corner passes 4.9."""
+    ev = BatchEvaluator(scene, gizmo=True, use_kernels=use_kernels)
+    vals = ev.eval_sdf_at_points(pts)
+    center, half = autodetect_bounding_box_device(ev, 20.0, 128)
+    return ev.sdf_field, vals, np.asarray(center) + half
+
+
 def fit_rays(config, cam, device):
     """(o_proj f32[3] on the host, r_proj f32[H, W, 3] on ``device``) as the
     fit harness forms them."""
@@ -450,6 +506,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    run_start = time.time()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -481,6 +538,13 @@ def main() -> int:
             units[f"{name} march {kernel}"] = ("march", march_kernel_source(scene, config))
     units["logo march near"] = ("march", march_kernel_source(scenes["logo"], NEAR))
     units["logo march near cull"] = ("march", march_kernel_source(scenes["logo"], NEAR_CULLED))
+    for name, scene in scenes.items():
+        units[f"{name} sdf gizmo"] = ("sdf", sdf_kernel_source(scene, gizmo=True))
+    many = many_groups_scene()
+    units["many sdf"] = ("sdf", sdf_kernel_source(many))
+    for label, config in (("exact", EXACT), ("cull", CULLED["renderer_cull"][0]),
+                          ("cull dynamic", CULLED["renderer_cull_dynamic"][0])):
+        units[f"many march {label}"] = ("march", march_kernel_source(many, config))
     units["design1 ray_march omega=1.6"] = (
         "ray_march", ray_march_kernel_source(scenes["design1"], FIT_OVERRELAX))
     units["design1 ray_march cli fit"] = (
@@ -513,6 +577,9 @@ def main() -> int:
             hierarchical_exact=make_cuda_hierarchical_renderer(scene, HIERARCHICAL_EXACT),
             ray_march=make_cuda_ray_march(scene, FIT),
             grid_eval_cull=make_grid_eval(scene, cull=True),
+            point_eval_gizmo=make_point_eval(scene, gizmo=True),
+            grid_eval_gizmo=make_grid_eval(scene, gizmo=True),
+            grid_eval_cull_gizmo=make_grid_eval(scene, gizmo=True, cull=True),
             **{kernel: make_cuda_renderer(scene, config) for kernel, (config, _) in CULLED.items()},
         )
     inputs = {}
@@ -520,16 +587,19 @@ def main() -> int:
 
     for step, (name, scene) in enumerate(scenes.items()):
         k, a = kernels[name], arrays[name]
-        phase(f"{3 + step}a. {name}: point eval (2^20 points) and grid eval (33x257x257) vs plain")
+        phase(f"{3 + step}a. {name}: point eval (2^20 points) and grid eval (33x257x257), each "
+              f"without and with the gizmo, vs plain")
         # Design1/2: half their export box; Logo: bench.py's export box.
         half = (scene.export_config.bounding_box_half_diameter / 2.0 if scene.export_config
                 else LOGO_EXPORT.bounding_box_half_diameter)
         pts = torch.from_numpy(rng.uniform(-half, half, (1 << 20, 3)).astype(np.float32)).to(dev)
         inputs[name] = dict(pts=pts)
+        grid = (a, glo, gcell, gz0, 33, 257)
         for kernel, got, ref in (
             ("point_eval", k["point_eval"](pts, a), k["point_eval"].plain(pts, a)),
-            ("grid_eval", k["grid_eval"](a, glo, gcell, gz0, 33, 257),
-             k["grid_eval"].plain(a, glo, gcell, gz0, 33, 257)),
+            ("grid_eval", k["grid_eval"](*grid), k["grid_eval"].plain(*grid)),
+            ("point_eval_gizmo", k["point_eval_gizmo"](pts, a), k["point_eval_gizmo"].plain(pts, a)),
+            ("grid_eval_gizmo", k["grid_eval_gizmo"](*grid), k["grid_eval_gizmo"].plain(*grid)),
         ):
             torch.cuda.synchronize()
             err = (got - ref).abs()
@@ -537,6 +607,23 @@ def main() -> int:
             check(bool((err <= 1e-5 + 1e-6 * ref.abs()).all()),
                   f"{name} {kernel} {tuple(got.shape)} max|d| = {float(err.max()):.3g} "
                   f"within 1e-5 + 1e-6|ref|")
+        # The gizmo reaches into this slab: the k1 field is below the k2 one.
+        gz_grid = k["grid_eval_gizmo"](*grid)
+        check(bool((gz_grid < k["grid_eval"](*grid)).any()), f"{name} the gizmo shows in the slab")
+        # The culled gizmo grid (the gizmo in its own cull slot) against the
+        # unculled gizmo kernel and its plain version at the kernel's tiles.
+        counts = {}
+        got = k["grid_eval_cull_gizmo"](*grid)
+        plain, plain_ms = timed_once(lambda: k["grid_eval_cull_gizmo"].plain(*grid, counts=counts))
+        for what, ref in (("the unculled gizmo grid kernel", gz_grid), ("its plain version", plain)):
+            err = (got - ref).abs()
+            check(bool((err <= 1e-5 + 1e-6 * ref.abs()).all()),
+                  f"{name} grid_eval_cull_gizmo vs {what}: max|d| = {float(err.max()):.3g} "
+                  f"within 1e-5 + 1e-6|ref|")
+        results[("grid_eval_cull_gizmo", name)] = dict(
+            max_abs_err=float((got - plain).abs().max()), plain_ms=plain_ms,
+            skipped_share=cull.skipped_share(counts))
+        inputs[name]["gizmo_cull_counts"] = counts
 
         golden = "; u8 160x120 vs golden" if name in GOLDENS else ""
         phase(f"{3 + step}b. {name}: renderers vs plain at 640x480{golden}")
@@ -660,6 +747,45 @@ def main() -> int:
         for key, fn in (("cull", near), ("unculled", near_base)):
             ab[key].append(device_ms(lambda: fn(arrays["logo"], *near_cam), "render_kernel", iters=20))
     print(json.dumps({"logo_close_up_k7": dict(skipped_share=share, device_ms=ab)}))
+    # More cull groups than one 32-bit predicate word holds (89: three words).
+    plan = cull.make_cull_plan(many, False)
+    many_a = many.arrays.to_torch(dev)
+    many_grid = (many_a, np.array([-6.0, -2.5, -1.0], np.float32), np.float32(0.0625), np.float32(0.0),
+                 33, 80, 192)
+    got, base = make_grid_eval(many, cull=True)(*many_grid), make_grid_eval(many)(*many_grid)
+    check(len(plan.groups) == 89 and bool(torch.equal(got, base)) and bool((base < 0).any()),
+          f"{len(plan.groups)} cull groups: the culled grid is bit-equal to the unculled grid kernel")
+    many_cam = Camera.initial(apply_default_orbit=False).zoom(2.0).as_arrays()
+    many_base = make_cuda_renderer(many, EXACT)(many_a, *many_cam)
+    for kernel in ("renderer_cull", "renderer_cull_dynamic"):
+        counts = {}
+        renderer = make_cuda_renderer(many, CULLED[kernel][0])
+        got = renderer(many_a, *many_cam)
+        check(bool(torch.equal(got, many_base)), f"{len(plan.groups)} cull groups: {kernel} bit-equal "
+                                                 f"to the unculled renderer kernel")
+        check_render(f"{len(plan.groups)} cull groups: {kernel} vs its plain version", got,
+                     renderer.plain(many_a, *many_cam, cull_counts=counts))
+        print(f"  {len(plan.groups)} cull groups: {kernel} skipped share {cull.skipped_share(counts):.4f}")
+
+    phase("5e. a scene whose brush has no CUDA body runs on the card through the plain tape")
+    custom = custom_brush_scene()
+    ev = BatchEvaluator(custom)
+    probe_pts = rng.uniform(-1.5, 1.5, (4096, 3)).astype(np.float32)
+    vals = ev.eval_sdf_at_points(probe_pts)
+    ref = make_primary_sdf(custom)(torch.from_numpy(probe_pts), custom.arrays.to_torch("cpu")).numpy()
+    check(ev.sdf_field == "tape-exact" and np.abs(vals - ref).max() <= 1e-5,
+          f"custom brush: evaluator field {ev.sdf_field}, max|d| vs the CPU tape "
+          f"{np.abs(vals - ref).max():.3g} <= 1e-5")
+    small = RenderConfig(width=160, height=120)
+    render = make_scene_renderer(custom, small, dev)
+    frame = render(custom.arrays.to_torch(dev), *cam)
+    check(render.engine == "tape" and bool(torch.isfinite(frame).all()),
+          f"custom brush: renderer engine {render.engine}, frame finite")
+    check_render("custom brush frame on the card vs on the CPU", frame.cpu(),
+                 make_renderer(custom, small)(custom.arrays.to_torch("cpu"), *cam))
+    check(BatchEvaluator(scenes["design1"]).sdf_field == "cuda-exact"
+          and make_scene_renderer(scenes["design1"], small, dev).engine == "cuda",
+          "design1 still takes the kernels (cuda-exact, engine cuda)")
 
     phase("6. small dense export of Design1 on the card vs the plain CPU path")
     scene = scenes["design1"]
@@ -675,20 +801,52 @@ def main() -> int:
     vd = np.sort(m_dev.triangle_soup().reshape(-1, 9), axis=0)
     vc = np.sort(m_cpu.triangle_soup().reshape(-1, 9), axis=0)
     check(np.abs(vd - vc).max() < 1e-3, f"refined triangles agree, max|d| = {np.abs(vd - vc).max():.3g}")
+    # The strategies at 256^3 on the card, before refinement: one triangle
+    # set (compact decodes its vertices in float64, the others add in
+    # float32: 1e-5 apart at most), and the dense export's extract stage
+    # with the native mesh ops beside the numpy ones.
+    check(native.available(), "the native mesh ops built (g++) and loaded")
+    cfg256 = dataclasses.replace(scene.export_config, grid_level=8, gradient_descent_steps=0)
+    soups, extract_s = {}, {}
+    for strategy in ("dense", "active", "compact"):
+        m, r = export_mesh(scene, cfg256, strategy=strategy)
+        check(r.stats["native"] and r.stats["sdf_field"] == "cuda-exact",
+              f"256^3 {strategy}: native mesh ops, field {r.stats['sdf_field']}, "
+              f"{r.num_triangles} triangles, stages {json.dumps(r.stage_seconds)}")
+        soups[strategy] = np.sort(m.triangle_soup().reshape(-1, 9), axis=0)
+        extract_s[strategy] = r.stage_seconds["extract"]
+    check(np.array_equal(soups["active"], soups["dense"]),
+          f"256^3: active's triangle set equals dense's ({len(soups['dense'])} triangles)")
+    err = float(np.abs(soups["compact"] - soups["active"]).max())
+    check(soups["compact"].shape == soups["active"].shape and err <= 1e-5,
+          f"256^3: compact's triangle set equals active's, vertices max|d| {err:.3g} <= 1e-5")
+    saved = native.available
+    native.available = lambda: False
+    try:
+        _, r_np = export_mesh(scene, cfg256, strategy="dense")
+    finally:
+        native.available = saved
+    print(json.dumps({"extract_256_dense_seconds": dict(
+        native=extract_s["dense"], numpy=r_np.stage_seconds["extract"],
+        active=extract_s["active"], compact=extract_s["compact"])}))
 
     launches = {}  # (kernel, design) -> launches on its main path
 
-    phase("7. main path A, Design1: render, point eval, dense 256^3 export (launches counted)")
+    phase("7. main path A, Design1: render, point eval, k1-field queries, bench's 512^3 active "
+          "export (launches counted)")
     kbuild.LAUNCHES.clear()
     t0 = time.time()
     image = render_scene(scene)
     evaluator = BatchEvaluator(scene)
     probe = evaluator.eval_sdf_at_points(np.zeros((1, 3), np.float32))
+    k1_field, k1_vals, k1_top = k1_field_queries(scene, inputs["design1"]["pts"][:65536].cpu().numpy())
     with tempfile.TemporaryDirectory() as tmp:
         stl, ply = os.path.join(tmp, "design1.stl"), os.path.join(tmp, "design1.ply")
+        t1 = time.time()
         mesh, report = export_mesh(
-            scene, stl_path=stl, ply_path=ply, evaluator=evaluator, strategy="dense"
+            scene, D1_EXPORT, stl_path=stl, ply_path=ply, evaluator=evaluator, strategy="active"
         )
+        export_s = time.time() - t1
         back = writers.read_stl(stl)
         ply_back = writers.read_ply(ply)
     torch.cuda.synchronize()
@@ -698,20 +856,43 @@ def main() -> int:
     check(bool(torch.isfinite(image).all()) and tuple(image.shape) == (480, 640, 3),
           "viewport finite, (480, 640, 3)")
     check(probe[0] < 0, f"sdf at the origin {probe[0]:.4f} < 0 (inside Design1)")
+    check(k1_field == "cuda-exact" and np.isfinite(k1_vals).all() and (k1_top > 4.9).all(),
+          f"k1-field queries on {k1_field}: finite, the box reaches {k1_top.tolist()}: the gizmo")
     check(back.num_faces == report.num_triangles > 0 and ply_back.num_faces == back.num_faces,
           f"STL/PLY read back: {back.num_faces} triangles")
     check(bool(np.isfinite(mesh.vertices).all()) and mesh.signed_volume() > 0,
           f"mesh finite, volume {mesh.signed_volume():.3f} > 0")
-    for kernel in ("point_eval", "grid_eval", "renderer"):
+    check(report.stats["native"] and report.stats["strategy"] == "active",
+          "512^3 export: active strategy, native mesh ops")
+    export_line("design1_active_512", report, export_s)
+    for kernel in ("point_eval", "grid_eval", "renderer", "point_eval_gizmo", "grid_eval_gizmo"):
         check(counted.get(kernel, 0) > 0, f"{kernel} launched {counted.get(kernel, 0)} times")
         launches[(kernel, "design1")] = counted[kernel]
-    print(f"  export stage_seconds {json.dumps(report.stage_seconds)}; "
-          f"{report.num_vertices} vertices, {report.num_triangles} triangles, "
-          f"box center {report.bounding_box_center.tolist()}, half {report.bounding_box_half_diameter}")
+
+    phase("7A'. main path A', `cli export design1` at its defaults (launches counted)")
+    kbuild.LAUNCHES.clear()
+    t0 = time.time()
+    printed = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(printed):
+        stl = os.path.join(tmp, "design1.stl")
+        cli.main(["export", "design1", "--stl", stl])
+        back = writers.read_stl(stl)
+    torch.cuda.synchronize()
+    main_s = time.time() - t0
+    counted = dict(kbuild.LAUNCHES)
+    print("  " + printed.getvalue().strip().replace("\n", "\n  "))
+    print(f"  main path {main_s:.2f} s; launches {counted}")
+    check("strategy: adaptive" in printed.getvalue() and "(sdf field: cuda-exact)" in printed.getvalue(),
+          "cli export design1: auto resolved to the adaptive octree on the kernels' field")
+    check(back.num_faces > 2000 and np.isfinite(back.vertices).all(),
+          f"cli export design1: STL read back, {back.num_faces} triangles")
+    for kernel in ("point_eval", "grid_eval"):
+        check(counted.get(kernel, 0) > 0, f"cli export {kernel} launched {counted.get(kernel, 0)} times")
 
     for path, name in (("B", "design1"), ("C", "design2")):
         scene = scenes[name]
-        extra = ", exact viewport, k2 query, bounding-box scan" if name == "design2" else ""
+        extra = (", exact viewport, k2 query, bounding-box scan, k1-field queries, adaptive export "
+                 "at its own config" if name == "design2" else "")
         phase(f"8{path}. main path {path}, {name}: `cli render {name} --fast`, "
               f"over-relaxed viewport{extra} (launches counted)")
         kbuild.LAUNCHES.clear()
@@ -727,6 +908,12 @@ def main() -> int:
             center, half_box = autodetect_bounding_box_device(
                 BatchEvaluator(scene), scene.export_config.bounding_box_half_diameter
             )
+            k1_field, k1_vals, k1_top = k1_field_queries(scene, inputs[name]["pts"][:65536].cpu().numpy())
+            with tempfile.TemporaryDirectory() as tmp:
+                t1 = time.time()
+                d2_mesh, d2_report = export_mesh(scene, stl_path=os.path.join(tmp, "design2.stl"),
+                                                 strategy="adaptive")
+                d2_s = time.time() - t1
         torch.cuda.synchronize()
         main_s = time.time() - t0
         counted = dict(kbuild.LAUNCHES)
@@ -747,7 +934,23 @@ def main() -> int:
                   f"design2 k2 query {probe[0]:.6f} equals the plain SDF {float(ref[0]):.6f}")
             check(np.isfinite(center).all() and 0 < half_box < scene.export_config.bounding_box_half_diameter,
                   f"design2 bounding box centre {center.tolist()}, half {half_box:.4f}")
-            expect += ["renderer", "point_eval", "grid_eval"]
+            check(k1_field == "cuda-exact" and np.isfinite(k1_vals).all() and (k1_top > 4.9).all(),
+                  f"design2 k1-field queries on {k1_field}: finite, the box reaches {k1_top.tolist()}")
+            export_line("design2_adaptive", d2_report, d2_s)
+            open_edges = int(boundary_edges(d2_mesh).shape[0])
+            check(d2_report.stats["strategy"] == "adaptive" and d2_report.stats["native"]
+                  and d2_report.stats.get("open_loops", 0) == 0 and open_edges == 0,
+                  f"design2 adaptive export: native mesh ops, zero open loops, {open_edges} boundary "
+                  f"edges; levels {d2_report.stats['level_triangles']} (JAX recorded "
+                  f"{JAX_DESIGN2_LEVELS}), {d2_report.sdf_evals / 1e6:.1f}M evaluations")
+            # The same export on the exact plain tape (every float32 product
+            # and sum rounded on its own, where the kernel contracts FMAs):
+            # how far rounding alone moves the octree's decisions.
+            t1 = time.time()
+            _, d2_tape = export_mesh(scene, evaluator=BatchEvaluator(scene, use_kernels=False),
+                                     strategy="adaptive")
+            export_line("design2_adaptive_plain_tape", d2_tape, time.time() - t1)
+            expect += ["renderer", "point_eval", "grid_eval", "point_eval_gizmo", "grid_eval_gizmo"]
         for kernel in expect:
             check(counted.get(kernel, 0) > 0, f"{name} {kernel} launched {counted.get(kernel, 0)} times")
             launches[(kernel, name)] = counted[kernel]
@@ -809,7 +1012,8 @@ def main() -> int:
                                            f"times == 151")
 
     phase("8E. main path E, Logo: `cli render logo` with and without --fast, over-relaxed "
-          "viewport, k2 queries and bench's export on both fields (launches counted)")
+          "viewport, k2 queries, k1-field queries, the bounding-box scan and bench's adaptive "
+          "export on both fields (launches counted)")
     scene, a = scenes["logo"], arrays["logo"]
     kbuild.LAUNCHES.clear()
     t0 = time.time()
@@ -825,13 +1029,17 @@ def main() -> int:
     for field, use_kernels in (("exact", None), ("baked", True)):
         ev = BatchEvaluator(scene, use_kernels=use_kernels)
         k2[field] = (ev.sdf_field, ev.eval_sdf_at_points(query))
+    k1_field, k1_vals, k1_top = k1_field_queries(scene, query[:65536], use_kernels=True)
+    # `cli export logo --sdf-field baked`'s scan (Logo has no export config).
+    center, half_box = autodetect_bounding_box_device(BatchEvaluator(scene, use_kernels=True),
+                                                      ExportConfig().bounding_box_half_diameter)
     exports = {}
     with tempfile.TemporaryDirectory() as tmp:
         for field, use_kernels in (("exact", None), ("baked", True)):
             ev = BatchEvaluator(scene, use_kernels=use_kernels)
             t1 = time.time()
             mesh, report = export_mesh(scene, LOGO_EXPORT, stl_path=os.path.join(tmp, f"logo_{field}.stl"),
-                                       evaluator=ev, autodetect=False, strategy="dense")
+                                       evaluator=ev, autodetect=False)
             torch.cuda.synchronize()
             exports[field] = (mesh, report, ev, time.time() - t1)
     torch.cuda.synchronize()
@@ -861,16 +1069,26 @@ def main() -> int:
     check(band.sum() > 200 and gap < scene.twin_tolerance,
           f"logo baked vs exact k2 on {band.sum()} points of the 1e-3..0.1 band: max|d| {gap:.4f} "
           f"< {scene.twin_tolerance}")
+    check(np.isfinite(center).all() and 2.5 < half_box < 5.0,
+          f"logo bounding box (baked field) centre {center.tolist()}, half {half_box:.4f}")
+    check(k1_field == "cuda-baked" and np.isfinite(k1_vals).all() and (k1_top > 4.9).all(),
+          f"logo k1-field queries on {k1_field}: finite, the box reaches {k1_top.tolist()}")
     (m_e, r_e, ev_e, s_e), (m_b, r_b, ev_b, s_b) = exports["exact"], exports["baked"]
-    print(f"  logo export exact {s_e:.2f} s {json.dumps(r_e.stage_seconds)}, {r_e.num_triangles} "
-          f"triangles; baked {s_b:.2f} s {json.dumps(r_b.stage_seconds)}, {r_b.num_triangles} triangles")
+    export_line("logo_adaptive_exact", r_e, s_e)
+    export_line("logo_adaptive_baked", r_b, s_b)
     check(r_e.stats["sdf_field"] == "tape-exact" and r_b.stats["sdf_field"] == "cuda-baked"
           and r_b.stats["twin_tolerance"] == scene.twin_tolerance and "twin_tolerance" not in r_e.stats,
           f"logo export fields: {r_e.stats['sdf_field']}, {r_b.stats['sdf_field']} "
           f"(tolerance {r_b.stats['twin_tolerance']})")
-    check(min(m_e.num_faces, m_b.num_faces) > 500
-          and abs(m_e.num_faces - m_b.num_faces) < 0.05 * m_e.num_faces,
-          f"logo meshes: {m_e.num_faces} exact and {m_b.num_faces} baked triangles, within 5%")
+    # The fields' normals differ near the letters' edges, so the adaptive
+    # octree refines them differently: the counts are compared with the JAX
+    # package's per field (the export lines), not with each other.
+    open_edges = [int(boundary_edges(m).shape[0]) for m in (m_e, m_b)]
+    check(min(m_e.num_faces, m_b.num_faces) > 500 and r_e.stats["strategy"] == "adaptive"
+          and r_b.stats["strategy"] == "adaptive" and open_edges == [0, 0]
+          and r_e.stats.get("open_loops", 0) == r_b.stats.get("open_loops", 0) == 0,
+          f"logo adaptive meshes: {m_e.num_faces} exact and {m_b.num_faces} baked triangles, "
+          f"boundary edges {open_edges}, zero open loops")
     # tests/test_logo.py:267-275: each mesh's vertices lie on the other field's
     # zero set within 2x the twin's tolerance.
     tol = 2 * scene.twin_tolerance
@@ -880,7 +1098,7 @@ def main() -> int:
           f"logo baked vertices on the exact zero set within {resid_b:.4f}, exact vertices on the "
           f"baked zero set within {resid_e:.4f}, both < {tol}")
     for kernel in ("renderer", "renderer_overrelax", "renderer_t0", "cone_march", "point_eval",
-                   "grid_eval"):
+                   "grid_eval", "point_eval_gizmo", "grid_eval_gizmo"):
         check(counted.get(kernel, 0) > 0, f"logo {kernel} launched {counted.get(kernel, 0)} times")
         launches[(kernel, "logo")] = counted[kernel]
 
@@ -930,6 +1148,7 @@ def main() -> int:
         t0 = time.time()
         frames_g = {kernel: render_scene(scene, config=CULLED[kernel][0]) for kernel in CULLED}
         grid_g = make_grid_eval(scene, cull=True)(a, glo, gcell, gz0, 33, 257)
+        grid_gz = make_grid_eval(scene, gizmo=True, cull=True)(a, glo, gcell, gz0, 33, 257)
         torch.cuda.synchronize()
         main_s = time.time() - t0
         counted = dict(kbuild.LAUNCHES)
@@ -944,9 +1163,12 @@ def main() -> int:
         ref = kernels[name]["grid_eval"](a, glo, gcell, gz0, 33, 257)
         check(bool(((grid_g - ref).abs() <= 1e-5 + 1e-6 * ref.abs()).all()),
               f"{name} culled grid within 1e-5 + 1e-6|ref| of the unculled grid")
+        ref = kernels[name]["grid_eval_gizmo"](a, glo, gcell, gz0, 33, 257)
+        check(bool(((grid_gz - ref).abs() <= 1e-5 + 1e-6 * ref.abs()).all()),
+              f"{name} culled gizmo grid within 1e-5 + 1e-6|ref| of the unculled gizmo grid")
         check(counted.get("cone_march") == 2, f"{name} cone_march launched {counted.get('cone_march')} "
                                               f"times == 2 (the two hierarchical frames)")
-        for kernel in list(CULLED) + ["grid_eval_cull"]:
+        for kernel in list(CULLED) + ["grid_eval_cull", "grid_eval_cull_gizmo"]:
             check(counted.get(kernel) == 1, f"{name} {kernel} launched {counted.get(kernel)} times == 1")
             launches[(kernel, name)] = counted[kernel]
 
@@ -979,6 +1201,20 @@ def main() -> int:
         )
         r[("grid_eval", name)].update(
             zip(("bound_ms", "bound_by"), bound_ms(4 * n_grid + tables, ops * n_grid)), tape_evals=n_grid)
+        # K1 and K3 with the gizmo: the tape, the gizmo (GIZMO_OPS, counted
+        # from common.cuh's gizmo_sdf) and the min of the two per point.
+        gops = ops + GIZMO_OPS + 1
+        for kernel, kname, fn, args, n, n_bytes in (
+            ("point_eval_gizmo", "point_eval_kernel", k["point_eval_gizmo"], (pts, a), n_pts,
+             16 * n_pts + tables),
+            ("grid_eval_gizmo", "grid_eval_kernel", k["grid_eval_gizmo"], grid, n_grid,
+             4 * n_grid + tables),
+        ):
+            calls[kernel] = (lambda fn=fn, args=args: fn(*args), kname)
+            r[(kernel, name)].update(ms=cuda_ms(calls[kernel][0], 100), enqueue_ms=enqueue_ms(calls[kernel][0]),
+                                     plain_ms=cuda_ms(lambda fn=fn, args=args: fn.plain(*args), 3),
+                                     tape_evals=n)
+            r[(kernel, name)].update(zip(("bound_ms", "bound_by"), bound_ms(n_bytes, gops * n)))
 
         # A renderer's work: the march steps this image takes (read from the
         # plain version's step counts), 6 normal evaluations per shaded
@@ -1066,7 +1302,18 @@ def main() -> int:
             unculled_ms=r[("grid_eval", name)]["ms"],
             chains=cull_counts[("grid_eval_cull", name)]["chains"], tape_evals=n_grid)
         r[("grid_eval_cull", name)].update(zip(("bound_ms", "bound_by"), bound_ms(4 * n_grid + tables, n_ops)))
-        for kernel in list(CULLED) + ["grid_eval_cull"]:
+        gcz = k["grid_eval_cull_gizmo"]
+        calls["grid_eval_cull_gizmo"] = (lambda: gcz(*grid), "grid_eval_cull_kernel")
+        chain = cull_chain_ops(scene, True)
+        n_ops = culled_ops(x["gizmo_cull_counts"], gops, group_ops(scene, gcz.culler), chain)
+        chain_model["grid_eval_cull_gizmo"] = dict(chain_ops=chain, tape_ops=gops)
+        r[("grid_eval_cull_gizmo", name)].update(
+            ms=cuda_ms(lambda: gcz(*grid), 100), enqueue_ms=enqueue_ms(lambda: gcz(*grid)),
+            unculled_ms=r[("grid_eval_gizmo", name)]["ms"],
+            chains=x["gizmo_cull_counts"]["chains"], tape_evals=n_grid)
+        r[("grid_eval_cull_gizmo", name)].update(
+            zip(("bound_ms", "bound_by"), bound_ms(4 * n_grid + tables, n_ops)))
+        for kernel in list(CULLED) + ["grid_eval_cull", "grid_eval_cull_gizmo"]:
             print(f"  {name} {kernel}: {r[(kernel, name)]['ms']:.4f} ms, unculled "
                   f"{r[(kernel, name)]['unculled_ms']:.4f} ms, skipped share "
                   f"{r[(kernel, name)]['skipped_share']:.4f}")
@@ -1195,14 +1442,19 @@ def main() -> int:
             k6 = dict(inlines=K6_SOURCE[0], inlines_replaces=K6_SOURCE[1])
         # The culled rows run K7's generated chain inside.
         k7 = dict(cull_inlines=K7_SOURCE[0], cull_inlines_replaces=K7_SOURCE[1])
+        # The gizmo rows also run the k1 gizmo (csrc/common.cuh gizmo_sdf).
+        gizmo = dict(gizmo_inlines="designcsg_tpu_torch/csrc/common.cuh",
+                     gizmo_inlines_replaces="designcsg_tpu/ops/pallas/tape.py:109")
         line += [
             dict(name=kernel, design=name, route="cuda", source=SOURCES[kernel][0],
                  replaces=SOURCES[kernel][1], launches=launches[(kernel, name)], library_ms=None,
-                 **k6, **(k7 if "cull" in kernel else {}), **results[(kernel, name)])
+                 **k6, **(k7 if "cull" in kernel else {}), **(gizmo if "gizmo" in kernel else {}),
+                 **results[(kernel, name)])
             for kernel in SOURCES
             if (kernel, name) in launches
         ]
     print(json.dumps({"kernels": line}))
+    print(json.dumps({"chip_smoke_seconds": time.time() - run_start}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

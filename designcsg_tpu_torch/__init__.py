@@ -1,12 +1,14 @@
 """designcsg_tpu_torch — the PyTorch/CUDA port of designcsg_tpu.
 
 Same module layout as the JAX package.  Plain PyTorch versions of every
-computation run on any device; on a CUDA device the SDF point evaluation, the
-SDF grid evaluation, the k1 viewport renderer (exact and over-relaxed march,
-optional start plane), the cone prepass of the hierarchical viewport and the
+computation run on any device; on a CUDA device the SDF point evaluation and
+the SDF grid evaluation (each also with the k1 gizmo), the k1 viewport
+renderer (exact and over-relaxed march, optional start plane, optional exact
+interval cull), the cone prepass of the hierarchical viewport and the
 differentiable fit's ray march run as CUDA kernels generated per scene
-(ops/cuda).  Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``.
+(ops/cuda), for every scene whose brushes and materials have CUDA bodies.
+The export's host stages run in native code (native/).  Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 import torch

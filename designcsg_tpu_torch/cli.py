@@ -7,6 +7,8 @@ has::
     python -m designcsg_tpu_torch.cli render design2 --fast
     python -m designcsg_tpu_torch.cli render path/to/mydesign.py --orbit -0.785 0.785
     python -m designcsg_tpu_torch.cli export design1 --stl out.stl --ply out.ply
+    python -m designcsg_tpu_torch.cli export design2 --strategy active --grid-level 9
+    python -m designcsg_tpu_torch.cli preview out.stl preview.png  # look at a mesh
     python -m designcsg_tpu_torch.cli export logo --sdf-field baked  # the kernels' field
     python -m designcsg_tpu_torch.cli artifacts design1 -d build/   # reference IR
     python -m designcsg_tpu_torch.cli fit design1 --steps 150       # shape fit demo
@@ -41,7 +43,6 @@ SDF_FIELDS = {"auto": None, "baked": True, "exact": False}
 # brings each.
 UNPORTED = {
     "watch": "queue 1, item 11 (shells)",
-    "preview": "queue 1, item 8 (export/preview.py)",
     "bench": "queue 1, item 11 (no benchmark of the port yet)",
     "studio": "queue 1, item 11 (shells)",
 }
@@ -136,8 +137,9 @@ def fast_config(config):
 
 
 def cmd_render(args):
+    from . import resolve_device
     from .config import RenderConfig
-    from .ops.raymarch import render_scene, to_u8
+    from .ops.raymarch import make_scene_renderer, to_u8
 
     scene = load_design(args.design)
     config = RenderConfig(width=args.width, height=args.height, gizmo=not args.no_gizmo)
@@ -145,9 +147,11 @@ def cmd_render(args):
         config = fast_config(config)
     cam = _camera(args)
     t0 = time.time()
-    img = render_scene(scene, camera=cam, config=config, device=args.device)
+    renderer = make_scene_renderer(scene, config, resolve_device(args.device))
+    img = renderer(scene.arrays.to_torch(args.device), *cam.as_arrays())
     u8 = to_u8(img).cpu().numpy()
-    print(f"rendered {config.width}x{config.height} in {time.time() - t0:.2f}s")
+    print(f"rendered {config.width}x{config.height} in {time.time() - t0:.2f}s "
+          f"(engine: {renderer.engine})")
     write_png(args.output, u8)
     print(f"wrote {args.output}")
 
@@ -174,11 +178,27 @@ def cmd_export(args):
     )
     print(
         f"exported {report.num_triangles} triangles ({report.num_vertices} vertices) in "
-        f"{time.time() - t0:.1f}s (sdf field: {report.stats.get('sdf_field', 'tape-exact')})"
+        f"{time.time() - t0:.1f}s (sdf field: {report.stats['sdf_field']})"
     )
+    print(f"  strategy: {report.stats['strategy']}; native mesh ops: {report.stats['native']}")
     for stage, secs in report.stage_seconds.items():
         print(f"  {stage:<14s} {secs:7.2f}s")
     print(f"wrote {stl}" + (f" and {args.ply}" if args.ply else ""))
+
+
+def cmd_preview(args):
+    """Screenshot-style render of an exported mesh (STL/PLY) to a PNG
+    (export/preview.py; cli.py:260-290 of the JAX package)."""
+    from .export.preview import fill_background_pinholes, rasterize_mesh
+    from .export.writers import read_ply, read_stl
+
+    path = args.mesh
+    mesh = read_ply(path) if path.lower().endswith(".ply") else read_stl(path)
+    a, e = np.radians(args.azimuth), np.radians(args.elevation)
+    view = np.array([np.sin(a) * np.cos(e), -np.sin(e), np.cos(a) * np.cos(e)])
+    img = fill_background_pinholes(rasterize_mesh(mesh, view_dir=view, size=args.size))
+    write_png(args.out, img)
+    print(f"{args.out}: {mesh.num_faces} triangles at az {args.azimuth} el {args.elevation}")
 
 
 def cmd_artifacts(args):
@@ -274,15 +294,24 @@ def main(argv=None):
     p.add_argument("--ply")
     p.add_argument("--grid-level", type=int)
     p.add_argument("--resume-dir")
-    p.add_argument("--strategy", choices=["dense"], default="dense",
-                   help="dense is the port's one export strategy (active, compact and "
-                   "adaptive: ROADMAP.md queue 1, item 8)")
+    p.add_argument("--strategy", choices=["auto", "active", "dense", "compact", "adaptive"],
+                   default="auto",
+                   help="extraction dataflow; auto follows the design's octree levels "
+                   "(adaptive) as the JAX CLI does")
     p.add_argument("--sdf-field", choices=list(SDF_FIELDS), default="auto",
                    help="SDF field the export evaluates: exact tape (reference k2 "
                    "semantics), the kernels' baked twin field, or the evaluator's auto "
                    "choice (exact for approximate-twin scenes such as logo)")
     device_arg(p)
     p.set_defaults(fn=cmd_export)
+
+    p = sub.add_parser("preview", help="screenshot-style PNG of an exported STL/PLY mesh")
+    p.add_argument("mesh", help="path to .stl or .ply")
+    p.add_argument("out", nargs="?", default="preview.png")
+    p.add_argument("--azimuth", type=float, default=-30.0)
+    p.add_argument("--elevation", type=float, default=-15.0)
+    p.add_argument("--size", type=int, default=512)
+    p.set_defaults(fn=cmd_preview)
 
     p = sub.add_parser("artifacts", help="emit reference-format IR files")
     p.add_argument("design")

@@ -17,11 +17,12 @@ extern "C" void host_point_eval(const float* pts, float* out, long long n, const
 
 #if CULL_MODE
 // The cull chain on one box f32[6] (x0, x1, y0, y1, z0, z1): the predicate
-// mask and the N_CULL_SLOTS substitutes.
+// mask's N_CULL_WORDS words and the N_CULL_SLOTS substitutes.
 extern "C" void host_cull_tile(const float* box, const float* bank, const float* ad,
                                const float* ex, unsigned* preds, float* substs) {
-    cull_tile(Iv{box[0], box[1]}, Iv{box[2], box[3]}, Iv{box[4], box[5]}, bank, ad, ex, *preds,
-              substs);
+    Preds p;
+    cull_tile(Iv{box[0], box[1]}, Iv{box[2], box[3]}, Iv{box[4], box[5]}, bank, ad, ex, p, substs);
+    for (int i = 0; i < N_CULL_WORDS; ++i) preds[i] = p.w[i];
 }
 
 #ifndef HOST_RENDER
@@ -33,7 +34,7 @@ extern "C" void host_grid_eval_cull(float* out, int nz, int ny, int nx, float lo
     for (int zb = 0; zb < nz; zb += CULL_TZ)
         for (int y0 = 0; y0 < ny; y0 += CULL_TY)
             for (int x0 = 0; x0 < nx; x0 += CULL_TX) {
-                unsigned preds;
+                Preds preds;
                 grid_tile_cull(x0, y0, zb, nz, ny, nx, lox, loy, loz, cell, z0, bank, ad, ex, preds,
                                substs);
                 for (int zi = zb; zi < nz && zi < zb + CULL_TZ; ++zi)

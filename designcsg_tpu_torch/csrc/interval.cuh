@@ -9,6 +9,12 @@ struct Iv {
     float lo, hi;
 };
 
+// A tile's predicate mask: bit g % 32 of word g / 32 is set when group g must
+// be evaluated (N_CULL_WORDS words, one bit per group of the cull plan).
+struct Preds {
+    unsigned w[N_CULL_WORDS];
+};
+
 HD float sub_rn(float a, float b) { return add_rn(a, -b); }
 
 HD Iv iv_const(float c) { return Iv{c, c}; }
@@ -96,11 +102,11 @@ HD Iv lattice_span(float a, float b) { return Iv{fminf(a, b), fmaxf(a, b)}; }
 
 // Generated after this file, from the scene's cull plan (ops/cuda/tape.py).
 HD void cull_tile(Iv bx, Iv by, Iv bz, const float* bank, const float* ad, const float* ex,
-                  unsigned& preds, float* substs);
+                  Preds& preds, float* substs);
 
 HD void grid_tile_cull(int x0, int y0, int zb, int nz, int ny, int nx, float lox, float loy,
                        float loz, float cell, float z0, const float* bank, const float* ad,
-                       const float* ex, unsigned& preds, float* substs) {
+                       const float* ex, Preds& preds, float* substs) {
     const int x1 = (x0 + CULL_TX < nx ? x0 + CULL_TX : nx) - 1;
     const int y1 = (y0 + CULL_TY < ny ? y0 + CULL_TY : ny) - 1;
     const int z1 = (zb + CULL_TZ < nz ? zb + CULL_TZ : nz) - 1;

@@ -219,7 +219,7 @@ HD Rgb render_pixel(int ix, int iy, int width, int height, const Cam& cam, const
 // no divergence.
 
 struct CullTile {
-    unsigned preds;
+    Preds preds;
     float substs[N_CULL_SLOTS];
 };
 

@@ -78,7 +78,7 @@ grid_eval_cull_kernel(float* __restrict__ out, int nz, int ny, int nx, float lox
                       const float* __restrict__ fwd, const float* __restrict__ ad,
                       const float* __restrict__ ex) {
     __shared__ float s_bank[N_OBJ * BANK_STRIDE];
-    __shared__ unsigned s_preds;
+    __shared__ Preds s_preds;
     __shared__ float s_substs[N_CULL_SLOTS];
     load_bank(s_bank, pos, right, up, fwd);
     const int x0 = blockIdx.x * CULL_TX, y0 = blockIdx.y * CULL_TY, zb = blockIdx.z * CULL_TZ;
@@ -89,7 +89,7 @@ grid_eval_cull_kernel(float* __restrict__ out, int nz, int ny, int nx, float lox
     __syncthreads();
     const int xi = x0 + threadIdx.x, yi = y0 + threadIdx.y;
     if (xi >= nx || yi >= ny) return;
-    const unsigned preds = s_preds;
+    const Preds preds = s_preds;
     const float x = lattice(lox, cell, (float)xi), y = lattice(loy, cell, (float)yi);
     const int z_end = min(zb + CULL_TZ, nz);
     for (int zi = zb; zi < z_end; ++zi) {

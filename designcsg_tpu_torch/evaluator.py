@@ -5,12 +5,22 @@ point arrays go through an SDF point evaluation in chunks of ``chunk_size``
 points, which bounds the device memory a call takes.  The evaluation is the
 CUDA point kernel (ops/cuda/sdf_kernel.py, the twin field) or the exact plain
 tape, by the JAX package's rule (evaluator.py:45-100 there): the kernels by
-default on the card, the exact tape for a scene whose kernels compute an
-approximate twin (Logo's baked letters) and on the CPU.
+default on the card for a scene whose brushes and materials all have CUDA
+bodies, the exact tape for a scene whose kernels compute an approximate twin
+(Logo's baked letters), for a scene without CUDA bodies and on the CPU.
+
+The lattice and cell-corner entry points (evaluator.py:237-557 of the JAX
+package) take integer lattice indices and make the points on the device as
+``lo + cell * idx``: one float32 product, then one float32 sum, as the grid
+kernel rounds its lattice.  Index tensors go up once per chunk; corner signs
+and the near-band flag are packed on the device, so two bytes per cell come
+back.  The JAX package's i16 up-link, chunk-tail buckets and asynchronous
+copy windows exist for its TPU host link and are not carried over.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Optional
 
 import numpy as np
@@ -18,8 +28,11 @@ import torch
 
 from . import resolve_device
 from .compiler import CompiledScene, SceneArrays
+from .ops.cuda.brushes_kernel import supports_scene
 from .ops.cuda.sdf_kernel import make_grid_eval, make_point_eval
 from .ops.interpreter import make_normal_fn, make_primary_sdf
+
+logger = logging.getLogger("designcsg_tpu_torch")
 
 # 2^20 points per chunk: 16 MB of points and results on the device, and
 # ~7x that for the temporaries of the plain FD normal.
@@ -27,6 +40,20 @@ DEFAULT_CHUNK = 1 << 20
 
 # An FD normal costs 6 tape evaluations (k2.cl:149-179).
 NORMAL_EVAL_COST = 6
+
+
+def default_use_kernels(scene: CompiledScene, device: torch.device) -> bool:
+    """The evaluator's engine rule (evaluator.py:45-67 of the JAX package):
+    the kernels on the card for a scene whose kernels compute its exact
+    field and whose brushes and materials all have CUDA bodies; the plain
+    tape otherwise (logged when a scene lacks CUDA bodies on the card)."""
+    if device.type != "cuda" or scene.twin_tolerance:
+        return False
+    if not supports_scene(scene):
+        logger.warning("scene has brushes or materials without CUDA bodies; "
+                       "evaluating the plain tape on %s", device)
+        return False
+    return True
 
 
 class BatchEvaluator:
@@ -38,7 +65,13 @@ class BatchEvaluator:
     plain versions on the CPU) or, when False, the exact plain tape on the
     device.  None (the default) takes the kernels on the card unless the
     scene declares an approximate twin (``CompiledScene.twin_tolerance``),
-    whose default is the exact tape, as the reference's k2 is always exact.
+    whose default is the exact tape, as the reference's k2 is always exact,
+    or uses a brush or material without a CUDA body
+    (``brushes_kernel.supports_scene``), which the plain tape evaluates.
+
+    ``gizmo`` evaluates the k1 field (the tape min-ed with the axis gizmo).
+    ``normal_mode`` is "fd" (central differences); "analytic" is not ported
+    yet and raises.
 
     ``sdf_field`` names the field the evaluations ride: "cuda-exact" or
     "cuda-baked" (the CUDA kernels on an exact or baked twin), "tape-exact"
@@ -54,22 +87,28 @@ class BatchEvaluator:
         chunk_size: int = DEFAULT_CHUNK,
         device=None,
         use_kernels: Optional[bool] = None,
+        gizmo: bool = False,
+        normal_mode: str = "fd",
     ):
         self.scene = scene
         self.device = resolve_device(device)
         self.chunk_size = int(chunk_size)
+        self.gizmo = bool(gizmo)
         if use_kernels is None:
-            use_kernels = self.device.type == "cuda" and not scene.twin_tolerance
+            use_kernels = default_use_kernels(scene, self.device)
         self.use_kernels = bool(use_kernels)
         baked = self.use_kernels and bool(scene.twin_tolerance)
         self.twin_tolerance = scene.twin_tolerance if baked else 0.0
         engine = "cuda" if self.use_kernels and self.device.type == "cuda" else "tape"
         self.sdf_field = f"{engine}-{'baked' if baked else 'exact'}"
-        self.grid_eval = make_grid_eval(scene)
+        self.grid_eval = make_grid_eval(scene, gizmo=self.gizmo)
         # The exact tape on the card is plain PyTorch (the JAX package
         # evaluates it in XLA, outside any Pallas kernel).
-        self.point_eval = make_point_eval(scene) if self.use_kernels else make_primary_sdf(scene)
-        self._normal = make_normal_fn(self.point_eval)
+        self.point_eval = (
+            make_point_eval(scene, gizmo=self.gizmo) if self.use_kernels
+            else make_primary_sdf(scene, gizmo=self.gizmo)
+        )
+        self._normal = make_normal_fn(self.point_eval, mode=normal_mode)
         self.set_arrays(arrays if arrays is not None else scene.arrays)
         # Every point evaluated through this evaluator is counted; an FD
         # normal counts as NORMAL_EVAL_COST tape evaluations.
@@ -99,6 +138,83 @@ class BatchEvaluator:
         """f32[N, 3] -> f32[N, 3] (Evaluator.cpp:167-211 semantics)."""
         self.sdf_eval_count += NORMAL_EVAL_COST * len(points)
         return self._run_chunked(self._normal, points, 3)
+
+    # -- lattice and cell-corner entry points ------------------------------
+
+    def _lattice_chunks(self, cells, offsets, lo, cellsize):
+        """Yield ``(start, take, points f32[take * K, 3])`` on the device:
+        ``lo + cellsize * (cells[n] + offsets[k])`` for the cells of each
+        chunk (K = 1 without offsets), ``chunk_size`` points at most."""
+        cells = np.asarray(cells).reshape(-1, 3)
+        k = 1 if offsets is None else len(offsets)
+        lo32 = torch.as_tensor(np.asarray(lo, np.float32).reshape(1, 3), device=self.device)
+        cell32 = torch.tensor(np.float32(cellsize), device=self.device)
+        offs = None
+        if offsets is not None:
+            offs = torch.as_tensor(np.asarray(offsets, np.float32).reshape(1, k, 3), device=self.device)
+        per = max(1, self.chunk_size // k)
+        for start in range(0, cells.shape[0], per):
+            idx = torch.as_tensor(cells[start : start + per].astype(np.int32), device=self.device)
+            f = idx.to(torch.float32)
+            if offs is not None:
+                f = (f[:, None, :] + offs).reshape(-1, 3)
+            yield start, idx.shape[0], lo32 + cell32 * f
+
+    def _run_lattice(self, fn, cells, offsets, lo, cellsize, out_dim: int) -> np.ndarray:
+        n = np.asarray(cells).reshape(-1, 3).shape[0]
+        k = 1 if offsets is None else len(offsets)
+        shape = (n,) if offsets is None else (n, k)
+        out = np.empty(shape + ((out_dim,) if out_dim > 1 else ()), dtype=np.float32)
+        flat = out.reshape((n * k,) + out.shape[len(shape):])
+        for start, take, pts in self._lattice_chunks(cells, offsets, lo, cellsize):
+            flat[start * k : (start + take) * k] = fn(pts, self.device_arrays).cpu().numpy()
+        return out
+
+    def eval_sdf_at_lattice(self, idx, lo, cellsize) -> np.ndarray:
+        """f32[N]: SDF at ``lo + cellsize * idx`` for integer lattice
+        ``idx[N, 3]``."""
+        self.sdf_eval_count += len(idx)
+        return self._run_lattice(self.point_eval, idx, None, lo, cellsize, 1)
+
+    def eval_normal_at_lattice(self, idx, lo, cellsize) -> np.ndarray:
+        """f32[N, 3]: FD normals at ``lo + cellsize * idx``."""
+        self.sdf_eval_count += NORMAL_EVAL_COST * len(idx)
+        return self._run_lattice(self._normal, idx, None, lo, cellsize, 3)
+
+    def eval_sdf_at_cell_corners(self, cells, lo, cellsize, offsets) -> np.ndarray:
+        """f32[N, K]: SDF at ``lo + cellsize * (cells[n] + offsets[k])``."""
+        self.sdf_eval_count += len(offsets) * len(cells)
+        return self._run_lattice(self.point_eval, cells, offsets, lo, cellsize, 1)
+
+    def eval_normal_at_cell_corners(self, cells, lo, cellsize, offsets) -> np.ndarray:
+        """f32[N, K, 3]: FD normals at the cells' ``offsets``."""
+        self.sdf_eval_count += NORMAL_EVAL_COST * len(offsets) * len(cells)
+        return self._run_lattice(self._normal, cells, offsets, lo, cellsize, 3)
+
+    def eval_corner_signs_near(self, cells, lo, cellsize, offsets, near_bound: float):
+        """(signs u8[N], near bool[N]) for the K <= 8 corner offsets: bit k of
+        ``signs[n]`` is set iff the SDF at ``lo + cellsize * (cells[n] +
+        offsets[k])`` is < 0, and ``near[n]`` iff min_k |sdf| <= near_bound,
+        compared in float32 on every path (the JAX package's host path
+        compares against a float64 bound, its device path a float32 one:
+        ROADMAP F3).  Marching cubes consumes exactly this (corner signs pick
+        the table case, the near band drives the octree descent,
+        mesh.hpp:176-183); both are packed on the device."""
+        k = len(offsets)
+        if k > 8:
+            raise ValueError(f"sign packing needs K <= 8, got {k}")
+        n = np.asarray(cells).reshape(-1, 3).shape[0]
+        self.sdf_eval_count += k * n
+        out = np.empty((n, 2), np.uint8)
+        bound = torch.tensor(np.float32(near_bound), device=self.device)
+        weights = torch.tensor([1 << i for i in range(k)], dtype=torch.int32, device=self.device)
+        for start, take, pts in self._lattice_chunks(cells, offsets, lo, cellsize):
+            v = self.point_eval(pts, self.device_arrays).reshape(take, k)
+            signs = ((v < 0.0).to(torch.int32) * weights).sum(1)
+            near = v.abs().amin(1) <= bound
+            packed = torch.stack([signs, near.to(torch.int32)], 1).to(torch.uint8)
+            out[start : start + take] = packed.cpu().numpy()
+        return out[:, 0].copy(), out[:, 1].astype(bool)
 
     def refine_on_device(
         self, vertices: np.ndarray, steps: int, step_scale: float = 1.0

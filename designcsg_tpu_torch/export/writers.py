@@ -20,7 +20,14 @@ from ..ops.marching_cubes import Mesh
 
 def write_stl(path: str, mesh: Mesh, header_text: str = "") -> int:
     """Binary STL with the reference's conventions: zero normals, vertices
-    written as (x, z, y) (utils.hpp:63-76).  Returns the triangle count."""
+    written as (x, z, y) (utils.hpp:63-76).  Returns the triangle count.
+    Without a header the native writer (native/meshops.cpp) writes the same
+    bytes when it is available."""
+    if not header_text:
+        from .. import native
+
+        if native.available():
+            return native.write_stl_soup(path, mesh.triangle_soup())
     tri = mesh.triangle_soup().astype("<f4")  # [F, 3, 3]
     n = tri.shape[0]
     records = np.zeros((n, 50), dtype=np.uint8)

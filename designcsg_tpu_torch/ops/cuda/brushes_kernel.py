@@ -1,10 +1,13 @@
 """Brush and material CUDA bodies of a scene, as device functions.
 
 Counterpart of the JAX package's ops/pallas/brushes_kernel.py.  There, each
-brush registers a component-wise twin and a scene without twins falls back to
-the plain path; here each brush carries its CUDA body (brushes.py) and a
-scene whose tape uses a brush or material without one cannot run on the card:
-generating its source raises.  There is no fallback.
+brush registers a component-wise twin, and a scene without twins takes the
+plain path (``supports_scene``, brushes_kernel.py:56-61 there); here each
+brush carries its CUDA body (brushes.py).  :func:`supports_scene` decides the
+route before anything is built: the evaluator and the renderer take the
+kernels only for a scene it accepts, and the plain tape on the same device
+otherwise.  Generating the source of a scene it rejects raises; a scene it
+accepts whose build or launch fails raises too.
 """
 
 from __future__ import annotations
@@ -20,6 +23,29 @@ def used_brushes(scene: CompiledScene) -> List[int]:
 
 def used_materials(scene: CompiledScene) -> List[int]:
     return sorted({int(m) for m in scene.arrays.material_id})
+
+
+def _has_body(bodies, k: int) -> bool:
+    return k < len(bodies) and bool(bodies[k])
+
+
+def supports_scene(scene: CompiledScene, cull: bool = False, gizmo: bool = False) -> bool:
+    """True iff every brush and material the scene's tape and banks use has
+    a CUDA body and, with ``cull`` (a culled kernel, ``march_cull``), every
+    such brush that the cull plan twins (a torch ``interval``) also has its
+    CUDA interval body (``interval_cuda``)."""
+    brushes = used_brushes(scene)
+    if not all(_has_body(scene.brush_cuda, k) for k in brushes):
+        return False
+    if not all(_has_body(scene.material_cuda, m) for m in used_materials(scene)):
+        return False
+    if cull:
+        from ..cull import make_cull_plan
+
+        plan = make_cull_plan(scene, gizmo)
+        if plan is not None:
+            return all(_has_body(scene.brush_interval_cuda, k) for k in brushes if plan.twinned[k])
+    return True
 
 
 def _require(bodies, indices, kind: str, names=()):

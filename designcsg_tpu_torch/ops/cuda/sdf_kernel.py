@@ -32,8 +32,8 @@ _F = ctypes.c_float
 _I = ctypes.c_int
 
 
-def _library(scene: CompiledScene) -> ctypes.CDLL:
-    lib = load("sdf", sdf_kernel_source(scene))
+def _library(scene: CompiledScene, gizmo: bool) -> ctypes.CDLL:
+    lib = load("sdf", sdf_kernel_source(scene, gizmo))
     lib.launch_point_eval.argtypes = [_P, _P, ctypes.c_longlong] + [_P] * 7
     lib.launch_point_eval.restype = ctypes.c_int
     for fn in (lib.launch_grid_eval, lib.launch_grid_eval_cull):
@@ -42,11 +42,19 @@ def _library(scene: CompiledScene) -> ctypes.CDLL:
     return lib
 
 
-def make_point_eval(scene: CompiledScene):
-    """``point_eval(points f32[N, 3], arrays) -> f32[N]``, the k2 SDF (no gizmo,
-    twin field) at arbitrary points.  ``point_eval.plain`` is its plain
-    version."""
-    plain = make_primary_sdf(scene, field="twin")
+def kernel_name(kernel: str, gizmo: bool) -> str:
+    """The launch-count name of a point or grid kernel: each setting of the
+    gizmo is a library of its own and is counted apart."""
+    return f"{kernel}_gizmo" if gizmo else kernel
+
+
+def make_point_eval(scene: CompiledScene, gizmo: bool = False):
+    """``point_eval(points f32[N, 3], arrays) -> f32[N]``, the SDF (twin
+    field) at arbitrary points: the k2 field, or with ``gizmo`` the k1 field
+    (the tape min-ed with the axis gizmo, sdf_kernel.py:76-90 of the JAX
+    package).  ``point_eval.plain`` is its plain version."""
+    plain = make_primary_sdf(scene, gizmo=gizmo, field="twin")
+    name = kernel_name("point_eval", gizmo)
     libs = {}
 
     def point_eval(points: torch.Tensor, arrays: SceneArrays) -> torch.Tensor:
@@ -57,7 +65,7 @@ def make_point_eval(scene: CompiledScene):
         if points.ndim != 2 or points.shape[1] != 3:
             raise ValueError(f"points must be [N, 3], got {tuple(points.shape)}")
         if "lib" not in libs:
-            libs["lib"] = _library(scene)
+            libs["lib"] = _library(scene, gizmo)
         n = points.shape[0]
         out = torch.empty((n,), dtype=torch.float32, device=device)
         if n == 0:
@@ -65,10 +73,11 @@ def make_point_eval(scene: CompiledScene):
         rc = libs["lib"].launch_point_eval(
             ptr(points), ptr(out), n, *bank_pointers(scene, arrays, device), stream_handle(device)
         )
-        check_launch("point_eval", rc)
+        check_launch(name, rc)
         return out
 
     point_eval.plain = plain
+    point_eval.kernel = name
     return point_eval
 
 
@@ -106,21 +115,24 @@ def _axis_tiles(coords: torch.Tensor, size: int):
     return lo.amin(1), lo.amax(1)
 
 
-def make_grid_eval(scene: CompiledScene, cull: Optional[bool] = None):
+def make_grid_eval(scene: CompiledScene, gizmo: bool = False, cull: Optional[bool] = None):
     """``grid_eval(arrays, lo, cell, z0, slab, ny, nx=None) -> f32[slab, ny, nx]``,
-    the SDF (twin field) at the lattice ``lo + cell * (x, y, z0 + z)`` —
-    z-major, no coordinate input.  The device is that of ``arrays``.
-    ``grid_eval.plain`` is its plain version.
+    the SDF (twin field; with ``gizmo`` min-ed with the axis gizmo) at the
+    lattice ``lo + cell * (x, y, z0 + z)`` — z-major, no coordinate input.
+    The device is that of ``arrays``.  ``grid_eval.plain`` is its plain
+    version.
 
     With ``cull=True`` and a tape that can be culled (ops/cull.py), the grid
     is cut into tiles of 8 z by 8 y by 32 x points, each tile's cull is
     computed once on its box, and the tape skips the groups that cannot
     change any value in it (kernel ``grid_eval_cull``; the plain version does
     the same at the same tiles, and ``counts=`` a dict accumulates its
-    ``evals``, ``group_evals`` and ``chains``).  The values equal the
-    unculled grid's."""
-    sdf = make_primary_sdf(scene, field="twin")
-    culler = make_tape_culler(scene, gizmo=False) if cull else None
+    ``evals``, ``group_evals`` and ``chains``; with ``gizmo`` the gizmo has
+    a cull slot of its own, cull.py:347 of the JAX package).  The values
+    equal the unculled grid's."""
+    sdf = make_primary_sdf(scene, gizmo=gizmo, field="twin")
+    culler = make_tape_culler(scene, gizmo=gizmo) if cull else None
+    name = kernel_name("grid_eval" if culler is None else "grid_eval_cull", gizmo)
     culled_sdf = None if culler is None else make_culled_sdf(scene, culler, field="twin")
     libs = {}
 
@@ -154,7 +166,7 @@ def make_grid_eval(scene: CompiledScene, cull: Optional[bool] = None):
         nx = ny if nx is None else nx
         device = arrays.ad.device
         if "lib" not in libs:
-            libs["lib"] = _library(scene)
+            libs["lib"] = _library(scene, gizmo)
         out = torch.empty((slab, ny, nx), dtype=torch.float32, device=device)
         if out.numel() == 0:
             return out
@@ -165,9 +177,10 @@ def make_grid_eval(scene: CompiledScene, cull: Optional[bool] = None):
             float(np.float32(cell)), float(np.float32(z0)),
             *bank_pointers(scene, arrays, device), stream_handle(device),
         )
-        check_launch("grid_eval" if culler is None else "grid_eval_cull", rc)
+        check_launch(name, rc)
         return out
 
     grid_eval.plain = plain
     grid_eval.culler = culler
+    grid_eval.kernel = name
     return grid_eval

@@ -122,15 +122,20 @@ def interval_functions(scene: CompiledScene, plan: CullPlan) -> str:
     )
 
 
+def cull_words(plan: CullPlan) -> int:
+    """32-bit words of the predicate mask: one bit per group, no cap."""
+    return max(1, -(-len(plan.groups) // 32))
+
+
 def cull_tile_function(plan: CullPlan) -> str:
     """``HD void cull_tile(bx, by, bz, bank, ad, ex, preds, substs)``: the
     culler of ops/cull.py unrolled over the plan's tree -- every slot's padded
     brush interval and substitute, then relevance top-down into the bit mask
-    ``preds`` (bit g: group g must be evaluated), each interior interval
-    computed where relevance reads it."""
+    ``preds`` (bit g % 32 of word g / 32: group g must be evaluated), each
+    interior interval computed where relevance reads it."""
     lines = [
         "HD void cull_tile(Iv bx, Iv by, Iv bz, const float* bank, const float* ad, const float* ex,",
-        "                  unsigned& preds, float* substs) {",
+        "                  Preds& preds, float* substs) {",
     ]
     big = f32_literal(BIG)
     done, names = set(), {}
@@ -171,7 +176,7 @@ def cull_tile_function(plan: CullPlan) -> str:
         return names[id(node)]
 
     leaves(plan.root)
-    lines.append("    preds = 0u;")
+    lines += [f"    preds.w[{i}] = 0u;" for i in range(cull_words(plan))]
     count = [0]
 
     def fresh(prefix):
@@ -205,7 +210,7 @@ def cull_tile_function(plan: CullPlan) -> str:
                 rel_u = fresh("q")
                 lines.append(f"    const bool {rel_u} = {cond if rel == 'true' else f'{rel} && {cond}'};")
             if u[0] == "bucket":
-                lines.append(f"    preds |= (unsigned)({rel_u}) << {u[1]};")
+                lines.append(f"    preds.w[{u[1] >> 5}] |= (unsigned)({rel_u}) << {u[1] & 31};")
             elif u[0] == "sub":
                 down(u[1], rel_u)
 
@@ -217,14 +222,14 @@ def cull_tile_function(plan: CullPlan) -> str:
 def culled_tape_function(scene: CompiledScene, plan: CullPlan) -> str:
     """``HD float field_sdf_culled(x, y, z, bank, ad, ex, preds, substs)``:
     :func:`tape_function`'s field with each group's slots evaluated under
-    ``if (preds & bit)`` and given their substitutes otherwise (the gizmo is
+    ``if (preds.w[word] & bit)`` and given their substitutes otherwise (the gizmo is
     slot ``n_imports`` when the plan has it)."""
     tape = [tuple(int(v) for v in row) for row in np.asarray(scene.arrays.tape)]
     slots = [(left, right) for opcode, left, right, _ in tape if opcode == OP_IMPORT]
     grouped = {k for members in plan.groups for k in members}
     lines = [
         "HD float field_sdf_culled(float x, float y, float z, const float* bank, const float* ad,",
-        "                          const float* ex, unsigned preds, const float* substs) {",
+        "                          const float* ex, const Preds& preds, const float* substs) {",
     ]
     if grouped:
         lines.append("    float " + ", ".join(f"s{k}" for k in sorted(grouped)) + ";")
@@ -236,7 +241,7 @@ def culled_tape_function(scene: CompiledScene, plan: CullPlan) -> str:
         return f"brush_{brush}_at(x, y, z, bank + {obj} * BANK_STRIDE, ad, ex)"
 
     for g, members in enumerate(plan.groups):
-        lines.append(f"    if (preds & {1 << g}u) {{")
+        lines.append(f"    if (preds.w[{g >> 5}] & {1 << (g & 31)}u) {{")
         lines += [f"        s{k} = {slot_value(k)};" for k in members]
         lines.append("    } else {")
         lines += [f"        s{k} = substs[{k}];" for k in members]
@@ -270,15 +275,14 @@ def cull_source(scene: CompiledScene, plan: Optional[CullPlan], mode: int,
     the JAX package)."""
     if plan is None:
         return "#define CULL_MODE 0\n"
-    if len(plan.groups) > 32:
-        raise NotImplementedError(f"{len(plan.groups)} cull groups: the predicate mask holds 32")
     drift = ""
     if config is not None:
         drift = f"constexpr float CULL_DRIFT = {f32_literal(float(config.max_steps) * 1.5e-7)};\n"
     return "\n".join(
         [
             f"#define CULL_MODE {mode}\n"
-            f"constexpr int N_CULL_SLOTS = {plan.n_slots};\n" + drift,
+            f"constexpr int N_CULL_SLOTS = {plan.n_slots};\n"
+            f"constexpr int N_CULL_WORDS = {cull_words(plan)};\n" + drift,
             csrc("interval.cuh"),
             interval_functions(scene, plan),
             cull_tile_function(plan),
@@ -396,10 +400,10 @@ def cull_mode(config: RenderConfig) -> int:
 
 
 def scene_source(scene: CompiledScene, render_config: Optional[RenderConfig] = None,
-                 cull: int = 0) -> str:
+                 cull: int = 0, gizmo: bool = False) -> str:
     """The generated scene code: constants (the extras' offsets among them),
     common.cuh, table.cuh (K6), brush functions and the unrolled tape (the k2
-    field, no gizmo).  With ``render_config``: the k1
+    field, with the k1 gizmo when ``gizmo``).  With ``render_config``: the k1
     field (with the gizmo iff the config says so), the material and shading
     functions and march.cuh's ``render_pixel``, ``cone_ray`` and
     ``march_ray_closest``.  With ``cull`` (a ``CULL_MODE``) and a scene
@@ -409,7 +413,6 @@ def scene_source(scene: CompiledScene, render_config: Optional[RenderConfig] = N
         "// Generated from the scene tape by designcsg_tpu_torch/ops/cuda/tape.py.\n"
         f"constexpr int N_OBJ = {scene.num_objects};\n" + extras_constants(scene)
     ]
-    gizmo = False
     if render_config is not None:
         gizmo = render_config.gizmo
         parts.append(_march_constants(render_config))
@@ -424,10 +427,12 @@ def scene_source(scene: CompiledScene, render_config: Optional[RenderConfig] = N
     return "\n".join(parts)
 
 
-def sdf_kernel_source(scene: CompiledScene) -> str:
-    """Translation unit of the point and grid eval kernels (k2 field), the
-    culled grid kernel among them when the tape can be culled."""
-    return scene_source(scene, cull=1) + "\n" + csrc("sdf_kernels.cu")
+def sdf_kernel_source(scene: CompiledScene, gizmo: bool = False) -> str:
+    """Translation unit of the point and grid eval kernels (the k2 field, or
+    with ``gizmo`` the k1 field: the tape min-ed with the axis gizmo), the
+    culled grid kernel among them when the tape can be culled (the gizmo
+    then has its own cull slot)."""
+    return scene_source(scene, cull=1, gizmo=gizmo) + "\n" + csrc("sdf_kernels.cu")
 
 
 def march_kernel_source(scene: CompiledScene, config: RenderConfig) -> str:

@@ -312,6 +312,7 @@ def extract_surface(
     corner_provider: Optional[Callable[[int, int], np.ndarray]] = None,
     slab_store=None,
     stats: Optional[dict] = None,
+    use_native: Optional[bool] = None,
 ) -> Mesh:
     """March a ``resolution^3`` cell grid over the box ``center ± half_diameter``.
 
@@ -332,7 +333,16 @@ def extract_surface(
     ``stats`` (mutated in place) gains ``slab_triangles[z0] = count`` — the
     per-slab analog of the reference's per-octree-level triangle histogram
     (DesignCSG.cpp:896-924).
+
+    ``use_native`` (default: whether the native library is available)
+    takes native/meshops.cpp's ``mc_slab`` and ``weld``; the triangle set is
+    the numpy path's, the vertex numbering the native weld's (first
+    appearance, not sorted keys).
     """
+    from .. import native
+
+    if use_native is None:
+        use_native = native.available()
     center = np.asarray(center, dtype=np.float64)
     res = int(resolution)
     r1 = res + 1
@@ -366,7 +376,10 @@ def extract_surface(
                 vals = np.asarray(sdf_eval(pts.astype(np.float32))).reshape(
                     sz + 1, r1, r1
                 )
-            keys, pos = _slab_triangles(vals, z0, res, midpoint)
+            if use_native:
+                keys, pos = native.mc_slab(vals, z0, midpoint)
+            else:
+                keys, pos = _slab_triangles(vals, z0, res, midpoint)
             if slab_store is not None:
                 slab_store.save(z0, keys=keys, pos=pos)
         if keys.shape[0]:
@@ -378,7 +391,7 @@ def extract_surface(
             progress("extract", (z0 + sz) / res)
         z0 += sz
 
-    return assemble_mesh(all_keys, all_pos, lo, cell)
+    return assemble_mesh(all_keys, all_pos, lo, cell, use_native=use_native)
 
 
 def assemble_mesh(
@@ -386,17 +399,26 @@ def assemble_mesh(
     all_pos: List[np.ndarray],
     lo: np.ndarray,
     cell: float,
+    use_native: Optional[bool] = None,
 ) -> Mesh:
     """Weld flat (edge-key, grid-unit-position) triangle streams into an
     indexed world-space mesh, dropping degenerate triangles.  Vertices come
-    out in sorted edge-key order (``np.unique``)."""
+    out in sorted edge-key order (``np.unique``), or in order of first
+    appearance with the native weld."""
+    from .. import native
+
+    if use_native is None:
+        use_native = native.available()
     lo = np.asarray(lo, dtype=np.float64)
     if not all_keys:
         return Mesh(np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int64))
 
     keys = np.concatenate(all_keys)
     pos = np.concatenate(all_pos)
-    _, first_idx, inverse = np.unique(keys, return_index=True, return_inverse=True)
+    if use_native:
+        _, inverse, first_idx = native.weld(keys)
+    else:
+        _, first_idx, inverse = np.unique(keys, return_index=True, return_inverse=True)
     vertices_grid = pos[first_idx]
     vertices = (lo[None, :] + cell * vertices_grid).astype(np.float32)
     faces = inverse.reshape(-1, 3)

@@ -625,6 +625,32 @@ def to_u8(image):
     return torch.clamp(torch.trunc(255.0 * image), 0.0, 255.0).to(torch.uint8)
 
 
+def make_scene_renderer(scene: CompiledScene, config: RenderConfig, device: torch.device):
+    """``render(arrays, campos, rgt, upp, fwd) -> f32[H, W, 3]`` for
+    ``device``, routed from the scene before anything is built
+    (raymarch.py:631-651 of the JAX package): on the card the CUDA renderer
+    when every brush and material the scene uses has a CUDA body (and, under
+    ``march_cull``, its CUDA interval twin; brushes_kernel.supports_scene),
+    else the plain renderer on the card; on the CPU the plain renderer.
+    ``render.engine`` names the route: "cuda" or "tape"."""
+    from .cuda.brushes_kernel import supports_scene
+    from .cuda.march_kernel import make_cuda_hierarchical_renderer, make_cuda_renderer
+
+    cuda = device.type == "cuda"
+    if cuda and not supports_scene(scene, cull=bool(config.march_cull), gizmo=config.gizmo):
+        logger.warning("scene has brushes or materials without CUDA bodies; rendering "
+                       "through the plain tape on %s", device)
+        cuda = False
+    if cuda:
+        render = (make_cuda_hierarchical_renderer if config.march_hierarchical
+                  else make_cuda_renderer)(scene, config)
+    else:
+        render = (make_hierarchical_renderer if config.march_hierarchical
+                  else make_renderer)(scene, config)
+    render.engine = "cuda" if cuda else "tape"
+    return render
+
+
 def render_scene(
     scene: CompiledScene,
     camera: Optional[Camera] = None,
@@ -632,20 +658,18 @@ def render_scene(
     arrays: Optional[SceneArrays] = None,
     device=None,
 ):
-    """One-shot viewport render with the default camera: the CUDA renderers
-    on the card (the default), their plain versions with ``device="cpu"``.
-    ``config.march_hierarchical`` takes the cone prepass + ``t0`` renderer,
-    otherwise the fused renderer marches exactly or, with
-    ``march_overrelax > 1``, over-relaxed.  ``arrays`` defaults to the
+    """One-shot viewport render with the default camera through
+    :func:`make_scene_renderer`: the CUDA renderers on the card (the
+    default) for a scene with CUDA bodies, the plain renderer otherwise and
+    with ``device="cpu"``.  ``config.march_hierarchical`` takes the cone
+    prepass + ``t0`` renderer, otherwise the renderer marches exactly or,
+    with ``march_overrelax > 1``, over-relaxed.  ``arrays`` defaults to the
     scene's own banks."""
-    from .cuda.march_kernel import make_cuda_hierarchical_renderer, make_cuda_renderer
-
     device = resolve_device(device)
     camera = camera or Camera.initial()
     config = config or RenderConfig()
     arrays = (arrays or scene.arrays).to_torch(device)
-    factory = make_cuda_hierarchical_renderer if config.march_hierarchical else make_cuda_renderer
-    return factory(scene, config)(arrays, *camera.as_arrays())
+    return make_scene_renderer(scene, config, device)(arrays, *camera.as_arrays())
 
 
 def check_scene_lipschitz(

@@ -1,16 +1,28 @@
 """The port's CLI (``python -m designcsg_tpu_torch.cli``) in process on the
 CPU, mirroring tests/test_cli.py: render (also ``--fast``), render by script
-path, export, artifacts against the JAX package's ``write_artifacts``, fit,
+path, export at its default strategy against the JAX CLI's, preview against
+the JAX package's rasterizer, artifacts against its ``write_artifacts``, fit,
 and the commands that are not ported yet."""
 
 import os
 
 import numpy as np
 import pytest
+import torch
 
 from designcsg_tpu_torch import cli
 from designcsg_tpu_torch.config import RenderConfig
 from designcsg_tpu_torch.parallel.fit import load_checkpoint
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread per test process: the suite runs one process per
+    worker, and a default-sized thread pool in each oversubscribes the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("fast", [False, True])
@@ -46,10 +58,46 @@ def test_render_design_script_by_path(tmp_path):
     assert cli.read_png(out).shape == (48, 64, 3)
 
 
-def test_export_command(tmp_path):
+def test_export_command(tmp_path, capsys):
+    """``export`` at its default strategy ("auto", as the JAX CLI's) gives
+    the JAX CLI's mesh: the same triangle count and the same STL size."""
+    from designcsg_tpu import cli as jcli
+
     stl = str(tmp_path / "d1.stl")
     cli.main(["export", "design1", "--stl", stl, "--grid-level", "4", "--device", "cpu"])
-    assert os.path.getsize(stl) > 84
+    printed = capsys.readouterr().out
+    assert "strategy: active" in printed
+    jstl = str(tmp_path / "j1.stl")
+    jcli.main(["export", "design1", "--stl", jstl, "--grid-level", "4"])
+    jprinted = capsys.readouterr().out
+    count = int(printed.split("exported ")[1].split()[0])
+    assert count > 0 and f"exported {count} triangles" in jprinted
+    assert os.path.getsize(stl) == os.path.getsize(jstl) == 84 + 50 * count
+
+
+def test_preview_command_matches_jax(tmp_path):
+    """``preview`` rasterizes an exported mesh to a PNG; the port's numpy
+    rasterizer gives the JAX package's image."""
+    from designcsg_tpu.export import preview as jpreview
+    from designcsg_tpu.ops.marching_cubes import Mesh as JMesh
+    from designcsg_tpu_torch.designs import get_design
+    from designcsg_tpu_torch.evaluator import BatchEvaluator
+    from designcsg_tpu_torch.export import preview, writers
+    from designcsg_tpu_torch.export.active import extract_surface_active
+
+    stl, png = str(tmp_path / "s.stl"), str(tmp_path / "p.png")
+    ev = BatchEvaluator(get_design("design1"), device="cpu")
+    writers.write_stl(stl, extract_surface_active(ev, np.zeros(3), 3.0, 32, slab_cells=16))
+    cli.main(["preview", stl, png, "--size", "96"])
+    img = cli.read_png(png)
+    assert img.shape == (96, 96) and len(np.unique(img)) > 2
+    mesh = writers.read_stl(stl)
+    view = np.array([0.3, -0.4, 0.86])
+    ours = preview.rasterize_mesh(mesh, view_dir=view, size=64)
+    ref = jpreview.rasterize_mesh(JMesh(mesh.vertices, mesh.faces), view_dir=view, size=64)
+    np.testing.assert_array_equal(ours, ref)
+    np.testing.assert_array_equal(preview.fill_background_pinholes(ours),
+                                  jpreview.fill_background_pinholes(ref))
 
 
 @pytest.mark.parametrize("name", ["design1", "design2"])

@@ -58,6 +58,16 @@ CULL_DYNAMIC = RenderConfig(width=64, height=48, max_steps=80, march_cull="dynam
 CULL_NEAR = RenderConfig(width=64, height=48, max_steps=80, max_distance=8.0, march_cull=True)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread per test process: the suite runs one process per
+    worker, and a default-sized thread pool in each oversubscribes the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def host_libs(tmp_path_factory):
     """{(design, kind): ctypes library} built in parallel from each design's

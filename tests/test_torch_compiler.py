@@ -25,6 +25,16 @@ from designcsg_tpu_torch.designs import get_design
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread per test process: the suite runs one process per
+    worker, and a default-sized thread pool in each oversubscribes the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _jax_fields(arrays):
     return {f: np.asarray(getattr(arrays, f)) for f in SCENE_ARRAY_FIELDS}
 

@@ -33,12 +33,24 @@ from designcsg_tpu_torch.ops.raymarch import (
     compose_hierarchical,
     make_cone_march,
     make_renderer,
+    make_scene_renderer,
     project,
     ray_directions,
 )
 from designcsg_tpu_torch.parallel.fit import make_fit_harness
+from torch_scenes import custom_brush_scene, many_groups_scene
 
 pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread per test process: the suite runs one process per
+    worker, and a default-sized thread pool in each oversubscribes the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -362,3 +374,62 @@ def test_culled_grid_kernel(name, cuda_device):
     assert kbuild.LAUNCHES["grid_eval_cull"] == before + 1
     assert _close(got, make_grid_eval(scene)(*grid))
     assert _close(got, culled.plain(*grid))
+
+
+@pytest.mark.parametrize("name", ["design1", "design2", "logo"])
+def test_gizmo_point_and_grid_kernels(name, cuda_device):
+    """K1 and K3 with the gizmo (a library of their own, counted apart)
+    against their plain versions on the card, and the culled gizmo grid
+    against the unculled one."""
+    scene = get_design(name)
+    arrays = scene.arrays.to_torch(cuda_device)
+    pts = torch.from_numpy(np.random.default_rng(9).uniform(-4, 6, (5000, 3)).astype(np.float32)).to(cuda_device)
+    pe = make_point_eval(scene, gizmo=True)
+    before = kbuild.LAUNCHES["point_eval_gizmo"]
+    assert _close(pe(pts, arrays), pe.plain(pts, arrays))
+    assert kbuild.LAUNCHES["point_eval_gizmo"] == before + 1
+    grid = (arrays, np.full(3, -1.5, np.float32), np.float32(6.5 / 64), np.float32(3.0), 19, 65, 70)
+    ge = make_grid_eval(scene, gizmo=True)
+    got = ge(*grid)
+    assert _close(got, ge.plain(*grid))
+    # The culled unit contracts its own FMAs: K3's rule, not bit equality.
+    assert _close(make_grid_eval(scene, gizmo=True, cull=True)(*grid), got)
+
+
+@pytest.mark.parametrize("cull", [True, "dynamic"])
+def test_many_group_cull_kernels(cull, cuda_device):
+    """89 cull groups (three mask words): the culled grid and renderer on
+    the card equal the unculled kernels bit for bit."""
+    scene = many_groups_scene()
+    arrays = scene.arrays.to_torch(cuda_device)
+    grid = (arrays, np.array([-6.0, -2.5, -1.0], np.float32), np.float32(0.0625), np.float32(0.0), 33, 80, 192)
+    assert torch.equal(make_grid_eval(scene, cull=True)(*grid), make_grid_eval(scene)(*grid))
+    base = RenderConfig(width=320, height=240)
+    cam = Camera.initial(apply_default_orbit=False).zoom(2.0).as_arrays()
+    got = make_cuda_renderer(scene, dataclasses.replace(base, march_cull=cull))(arrays, *cam)
+    assert torch.equal(got, make_cuda_renderer(scene, base)(arrays, *cam))
+
+
+def test_active_and_compact_exports_on_card(cuda_device):
+    """The active and compact strategies on the card give the dense
+    strategy's triangles, with the native mesh ops."""
+    scene = get_design("design1")
+    cfg = dataclasses.replace(scene.export_config, grid_level=7, gradient_descent_steps=0)
+    meshes = {s: export_mesh(scene, cfg, strategy=s, autodetect_resolution=64)
+              for s in ("dense", "active", "compact")}
+    soups = {s: np.sort(m.triangle_soup().reshape(-1, 9), axis=0) for s, (m, _) in meshes.items()}
+    np.testing.assert_array_equal(soups["active"], soups["dense"])
+    np.testing.assert_allclose(soups["compact"], soups["dense"], atol=1e-5)
+    assert all(r.stats["native"] and r.stats["sdf_field"] == "cuda-exact" for _, r in meshes.values())
+
+
+def test_scene_without_cuda_bodies_runs_on_card(cuda_device):
+    """P3: a define_brush(fn)-only scene evaluates and renders on the card
+    through the plain tape."""
+    scene = custom_brush_scene()
+    ev = BatchEvaluator(scene)
+    assert ev.sdf_field == "tape-exact"
+    assert np.isfinite(ev.eval_sdf_at_points(np.zeros((4, 3), np.float32))).all()
+    render = make_scene_renderer(scene, RenderConfig(width=64, height=48), cuda_device)
+    assert render.engine == "tape"
+    assert torch.isfinite(render(scene.arrays.to_torch(cuda_device), *Camera.initial().as_arrays())).all()

@@ -42,6 +42,16 @@ RADIUS = {"design1": 3.0, "design2": 2.0, "logo": 3.5}
 FAR = {"design2": ((-9.0, -12.0, -9.0), (-3.0, -9.5, -3.0))}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread per test process: the suite runs one process per
+    worker, and a default-sized thread pool in each oversubscribes the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def scenes():
     out = {}

@@ -37,6 +37,16 @@ from designcsg_tpu_torch.ops.raymarch import (
 )
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread per test process: the suite runs one process per
+    worker, and a default-sized thread pool in each oversubscribes the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def scenes():
     return {name: get_design(name) for name in ("design1", "design2", "logo")}

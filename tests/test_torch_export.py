@@ -4,12 +4,14 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import designs
 from designcsg_tpu import native as jnative
 from designcsg_tpu.evaluator import BatchEvaluator as JBatchEvaluator
 from designcsg_tpu.export import pipeline as jpipeline
 from designcsg_tpu.export import writers as jwriters
+from designcsg_tpu_torch import native as tnative
 from designcsg_tpu_torch.designs import get_design
 from designcsg_tpu_torch.evaluator import BatchEvaluator
 from designcsg_tpu_torch.export import pipeline as tpipeline
@@ -17,16 +19,29 @@ from designcsg_tpu_torch.export import writers as twriters
 from designcsg_tpu_torch.ops.marching_cubes import Mesh
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread per test process: the suite runs one process per
+    worker, and a default-sized thread pool in each oversubscribes the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def exports():
     """(steps -> (jax mesh, jax report, port mesh, port report)) for the dense
     export at grid level 5 with a 32^3 autodetect, before refinement (0 steps)
-    and after 5 steps.  The JAX side runs its numpy meshing path, the one the
-    port carries (its native weld orders vertices differently)."""
+    and after 5 steps.  Both sides run their numpy meshing paths, whose weld
+    numbers vertices in sorted key order (the native weld numbers them in
+    order of first appearance; tests/test_torch_native.py holds the port's
+    native path to its numpy path and to JAX's native outputs)."""
     jscene, tscene = designs.get_design("design1"), get_design("design1")
     out = {}
     mp = pytest.MonkeyPatch()
     mp.setattr(jnative, "available", lambda: False)
+    mp.setattr(tnative, "available", lambda: False)
     try:
         for steps in (0, 5):
             kw = dict(autodetect_resolution=32, strategy="dense")
@@ -78,10 +93,18 @@ def test_device_autodetect_matches_host(exports):
 
 
 def test_unported_strategies_raise():
-    scene = get_design("design1")
-    for strategy in ("auto", "active", "adaptive", "compact"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            tpipeline.export_mesh(scene, strategy=strategy, device="cpu")
+    """Every strategy of the JAX package is ported: "auto" resolves as JAX's
+    (pipeline.py:283-294 there) and only a strategy that neither package
+    has raises."""
+    config = get_design("design1").export_config
+    assert tpipeline.resolve_strategy("auto", config, 256, 32) == "adaptive"
+    flat = dataclasses.replace(config, minimum_octree_level=7, maximum_octree_level=7)
+    assert tpipeline.resolve_strategy("auto", flat, 256, 32) == "active"
+    assert tpipeline.resolve_strategy("auto", flat, 48, 32) == "dense"
+    for strategy in tpipeline.STRATEGIES:
+        assert tpipeline.resolve_strategy(strategy, config, 256, 32) == strategy
+    with pytest.raises(ValueError, match="unknown export strategy"):
+        tpipeline.export_mesh(get_design("design1"), strategy="octree", device="cpu")
 
 
 def test_writers_byte_equal(tmp_path, exports):

@@ -50,6 +50,16 @@ from designcsg_tpu_torch.ops.raymarch import (
 HIER = dict(width=160, height=160, max_steps=96)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread per test process: the suite runs one process per
+    worker, and a default-sized thread pool in each oversubscribes the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def scenes():
     jscene = designs.get_design("design1")

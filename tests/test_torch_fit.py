@@ -48,6 +48,16 @@ FIT = dict(width=64, height=48, max_steps=128, differentiable=True,
            soft_silhouette_bandwidth=0.02, gizmo=False)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread per test process: the suite runs one process per
+    worker, and a default-sized thread pool in each oversubscribes the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def scenes():
     return designs.get_design("design1"), get_design("design1")

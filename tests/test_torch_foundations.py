@@ -5,6 +5,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from designcsg_tpu import camera as jcamera
 from designcsg_tpu import config as jconfig
@@ -14,6 +15,16 @@ from designcsg_tpu_torch import camera as tcamera
 from designcsg_tpu_torch import config as tconfig
 from designcsg_tpu_torch import constants as tconstants
 from designcsg_tpu_torch import transforms as ttf
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread per test process: the suite runs one process per
+    worker, and a default-sized thread pool in each oversubscribes the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def test_constants_equal():

@@ -32,6 +32,16 @@ from designcsg_tpu_torch.ops.raymarch import render_scene, to_u8
 GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "design1_160x120.npy")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread per test process: the suite runs one process per
+    worker, and a default-sized thread pool in each oversubscribes the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def scenes():
     jscene = designs.get_design("design1")

@@ -31,6 +31,7 @@ from designcsg_tpu.ops.pallas.brushes_kernel import scene_preludes
 from designs import logo as jlogo
 from designcsg_tpu_torch import api as tapi
 from designcsg_tpu_torch import cli
+from designcsg_tpu_torch import native as tnative
 from designcsg_tpu_torch.compiler import SCENE_ARRAY_FIELDS, ExportConfig
 from designcsg_tpu_torch.designs import get_design
 from designcsg_tpu_torch.designs import logo as tlogo
@@ -41,6 +42,16 @@ from designcsg_tpu_torch.ops.interpreter import eval_context, make_primary_sdf
 FONT = os.path.join(
     os.path.dirname(matplotlib.__file__), "mpl-data", "fonts", "ttf", "DejaVuSansMono-Bold.ttf"
 )
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread per test process: the suite runs one process per
+    worker, and a default-sized thread pool in each oversubscribes the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -233,23 +244,26 @@ def test_evaluator_field_rule(scenes):
 @pytest.fixture(scope="module")
 def exports(scenes):
     """Dense exports at grid level 5 (bbox 3.5, 3 refine steps, no
-    autodetect): JAX's exact, the port's exact and the port's baked.  The
-    JAX side runs its numpy meshing path, the one the port carries (its
-    native weld orders vertices differently)."""
+    autodetect): JAX's exact, the port's exact and the port's baked.  Both
+    sides run their numpy meshing paths, whose weld numbers vertices in
+    sorted key order (the native weld numbers them in order of first
+    appearance)."""
     jscene, tscene = scenes
     kw = dict(bounding_box_half_diameter=3.5, grid_level=5, minimum_octree_level=5,
               maximum_octree_level=5, gradient_descent_steps=3)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jnative, "available", lambda: False)
+        mp.setattr(tnative, "available", lambda: False)
         jm, jr = jpipeline.export_mesh(
             jscene, JExportConfig(**kw), evaluator=JBatchEvaluator(jscene, use_pallas=False),
             autodetect=False, strategy="dense",
         )
-    exact = export_mesh(tscene, ExportConfig(**kw), device="cpu", autodetect=False, strategy="dense")
-    baked = export_mesh(
-        tscene, ExportConfig(**kw), evaluator=BatchEvaluator(tscene, device="cpu", use_kernels=True),
-        autodetect=False, strategy="dense",
-    )
+        exact = export_mesh(tscene, ExportConfig(**kw), device="cpu", autodetect=False,
+                            strategy="dense")
+        baked = export_mesh(
+            tscene, ExportConfig(**kw), evaluator=BatchEvaluator(tscene, device="cpu", use_kernels=True),
+            autodetect=False, strategy="dense",
+        )
     return (jm, jr), exact, baked
 
 

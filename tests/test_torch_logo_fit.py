@@ -13,6 +13,7 @@ import matplotlib
 import numpy as np
 import optax
 import pytest
+import torch
 
 from designcsg_tpu.camera import Camera as JCamera
 from designcsg_tpu.config import RenderConfig as JRenderConfig
@@ -28,6 +29,16 @@ FONT = os.path.join(
 )
 FIT = dict(width=24, height=16, max_steps=40, differentiable=True, soft_silhouette_bandwidth=0.02,
            gizmo=False)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread per test process: the suite runs one process per
+    worker, and a default-sized thread pool in each oversubscribes the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

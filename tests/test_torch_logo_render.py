@@ -31,6 +31,16 @@ FONT = os.path.join(
 )
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread per test process: the suite runs one process per
+    worker, and a default-sized thread pool in each oversubscribes the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def scenes():
     return jlogo.build(font_path=FONT), get_design("logo")

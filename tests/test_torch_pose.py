@@ -21,6 +21,16 @@ from designcsg_tpu_torch.pose import make_pose_to_arrays, pose_param_to_arrays, 
 POSE_KEYS = ("position", "yaw", "pitch", "roll", "scale")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread per test process: the suite runs one process per
+    worker, and a default-sized thread pool in each oversubscribes the CPU."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("name", ["design1", "design2"])
 def test_pose_params_equal_jax(name):
     ours, ref = pose_params(get_design(name)), j_pose_params(designs.get_design(name))
