@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """A/B of the port's unculled renderer kernels (exact, over-relaxed, from a
-t0 plane) and its grid kernel between two trees of this repository, on one
-card, in one run:
+t0 plane), its grid kernel, its point kernel (K1, and its FD form where the
+tree has one), the fit's ray march (K4) and the export's refine between two
+trees of this repository, on one card, in one run:
 
     python3 ab_render_timing.py PARENT_DIR [--out RESULTS.json]
 
@@ -9,10 +10,14 @@ card, in one run:
 an ignored directory).  The trees run in the order parent, change, change,
 parent, each in a process of its own with that tree first on ``sys.path`` and
 its own build directory.  Per tree and design it prints each kernel's time by
-CUDA events (mean over 50 back-to-back calls) and by torch.profiler (mean of
-its records), and the ``-Xptxas -v`` registers of each renderer unit.  Compare
-two trees only within one run: the card's clocks and power limit move between
-runs.
+CUDA events (mean over back-to-back calls) and by torch.profiler (mean of its
+records) and the ``-Xptxas -v`` registers of the kernel: the renderers at
+640x480, the grid over a 33x257x257 slab, K1 at 2^20 uniform points in the
+design's box, K4 on the fit's 640x480 rays (bench.py's fit configuration);
+and the seconds of ``BatchEvaluator.refine_on_device`` (the kernels' field)
+over 2^20 + 40,000 such points and 50 steps, two chunks as in bench.py's
+512^3 export, with the launches it made.  Compare two trees only within one
+run: the card's clocks and power limit move between runs.
 """
 import argparse
 import json
@@ -21,7 +26,7 @@ import subprocess
 import sys
 
 CHILD = r'''
-import json, re
+import json, re, time
 import numpy as np
 import torch
 from torch.autograd import DeviceType
@@ -30,15 +35,26 @@ from designcsg_tpu_torch.camera import Camera
 from designcsg_tpu_torch.config import RenderConfig
 from designcsg_tpu_torch.designs import get_design
 from designcsg_tpu_torch.ops.cuda import build as kbuild
-from designcsg_tpu_torch.ops.cuda.march_kernel import make_cuda_cone_march, make_cuda_renderer
-from designcsg_tpu_torch.ops.cuda.sdf_kernel import make_grid_eval
-from designcsg_tpu_torch.ops.cuda.tape import march_kernel_source
-from designcsg_tpu_torch.ops.raymarch import camera_rows, coarse_ray_uv, project
+from designcsg_tpu_torch.evaluator import BatchEvaluator
+from designcsg_tpu_torch.ops.cuda.march_kernel import (make_cuda_cone_march, make_cuda_ray_march,
+                                                       make_cuda_renderer)
+from designcsg_tpu_torch.ops.cuda.sdf_kernel import make_grid_eval, make_point_eval
+from designcsg_tpu_torch.ops.cuda.tape import (march_kernel_source, ray_march_kernel_source,
+                                               sdf_kernel_source)
+from designcsg_tpu_torch.ops.raymarch import camera_rows, coarse_ray_uv, project, ray_directions
 
 dev = torch.device("cuda")
 cam = Camera.initial().as_arrays()
 HIER = RenderConfig(march_overrelax=1.6, march_hierarchical=True)
 MODES = (("exact", RenderConfig()), ("overrelax", RenderConfig(march_overrelax=1.6)), ("t0", HIER))
+FIT = RenderConfig(differentiable=True, soft_silhouette_bandwidth=0.02, gizmo=False)
+FD = "sdf_fd" in kbuild.EXTRA_FLAGS  # this tree has K1's FD form
+
+
+def registers(log, kernel):
+    """ptxas's register count of ``kernel`` in a unit's -Xptxas -v report."""
+    m = re.search(r"entry function '[^']*" + kernel + r"[^']*'.*?Used (\d+) registers", log, re.S)
+    return int(m.group(1)) if m else None
 
 
 def events_ms(fn, n=50):
@@ -84,6 +100,35 @@ for n in ("design1", "design2", "logo"):
     g = make_grid_eval(s)
     call = lambda: g(a, np.full(3, -3.5, np.float32), np.float32(7.0 / 256), 112.0, 33, 257)
     out[f"{n} grid"] = dict(ms=events_ms(call, 100), device_ms=device_ms(call, "grid_eval_kernel"))
+    units = {"sdf": ("sdf", sdf_kernel_source(s)), "ray_march": ("ray_march", ray_march_kernel_source(s, FIT))}
+    if FD:
+        units["sdf_fd"] = ("sdf_fd", sdf_kernel_source(s))
+    logs = kbuild.build(units)
+    half = 3.5 if n == "logo" else s.export_config.bounding_box_half_diameter / 2.0
+    rng = np.random.default_rng(0)
+    host_pts = rng.uniform(-half, half, ((1 << 20) + 40000, 3)).astype(np.float32)
+    pts = torch.from_numpy(host_pts[: 1 << 20]).to(dev)
+    pe = make_point_eval(s)
+    call = lambda: pe(pts, a)
+    out[f"{n} point"] = dict(ms=events_ms(call, 100), device_ms=device_ms(call, "point_eval_kernel"),
+                             registers=registers(logs["sdf"], "point_eval_kernel"))
+    if FD:
+        call = lambda: pe.fd(pts, a)
+        out[f"{n} point_fd"] = dict(ms=events_ms(call, 50), device_ms=device_ms(call, "point_eval_fd_kernel"),
+                                    registers=registers(logs["sdf_fd"], "point_eval_fd_kernel"))
+    rm = make_cuda_ray_march(s, FIT)
+    rows = camera_rows(*cam)
+    r_fit = project(ray_directions(FIT, dev), *torch.as_tensor(rows[1:], device=dev))
+    call = lambda: rm(a, rows[0], r_fit)
+    out[f"{n} ray_march"] = dict(ms=events_ms(call, 20), device_ms=device_ms(call, "ray_march_kernel"),
+                                 registers=registers(logs["ray_march"], "ray_march_kernel"))
+    ev = BatchEvaluator(s, use_kernels=True)
+    ev.refine_on_device(host_pts[:4096], steps=2)
+    before = dict(kbuild.LAUNCHES)
+    t = time.perf_counter()
+    ev.refine_on_device(host_pts, steps=50)
+    out[f"{n} refine"] = dict(seconds=time.perf_counter() - t, launches={
+        k: v - before.get(k, 0) for k, v in kbuild.LAUNCHES.items() if v != before.get(k, 0)})
 print("RESULT " + json.dumps(out))
 '''
 
@@ -109,13 +154,19 @@ def main() -> int:
             return 1
         runs.append((label, json.loads(line[0][len("RESULT "):])))
         print(label, line[0][len("RESULT "):], flush=True)
-    print("events ms / device ms [registers]: parent, change, change, parent")
-    for key in runs[0][1]:
+    print("events ms / device ms [registers], or refine seconds: parent, change, change, parent")
+    for key in dict.fromkeys(k for _, r in runs for k in r):
         cells = []
         for _, r in runs:
-            c = r[key]
-            regs = f" [{c['registers']}]" if c.get("registers") else ""
-            cells.append(f"{c['ms']:.4f}/{c['device_ms']:.4f}{regs}")
+            c = r.get(key)
+            if c is None:
+                cells.append("-")
+            elif "seconds" in c:
+                cells.append(f"{c['seconds']:.4f}s {c['launches']}")
+            else:
+                regs = f" [{c['registers']}]" if c.get("registers") else ""
+                dev_ms = "none" if c["device_ms"] is None else f"{c['device_ms']:.4f}"
+                cells.append(f"{c['ms']:.4f}/{dev_ms}{regs}")
         print(f"{key:18s} " + "  ".join(cells))
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

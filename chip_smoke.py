@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels of Design1, Design2 and Logo (point eval and grid
-eval, each also with the k1 gizmo; the fused renderer exact and fast, the
-cone prepass, the fit's ray march; in Logo's, csrc/table.cuh samples the
-baked letter tables, K6; and the exact per-tile cull, K7, inside the
+Builds the CUDA kernels of Design1, Design2 and Logo (point eval, its FD
+form and grid eval, each also with the k1 gizmo; the fused renderer exact and
+fast, the cone prepass, the fit's ray march; in Logo's, csrc/table.cuh
+samples the letters' dense planes, K6; and the exact per-tile cull, K7, inside the
 renderer, hoisted and dynamic, and inside the grid kernel) and the culled
 kernels of a synthetic scene of 89 cull groups from the sources in this
 checkout, all nvcc runs at once, and holds each against its plain PyTorch
@@ -17,7 +17,10 @@ nine main paths through the user entry points, with launch counts set to 0
 before each and read after:
 
 * A: Design1's viewport, a k2 query, k1-field queries (the gizmo kernels)
-  and bench.py's 512^3 ``active`` export (50 refine steps) to STL/PLY;
+  and bench.py's 512^3 ``active`` export (50 refine steps) to STL/PLY,
+  whose refine must make one launch of K1's FD form per chunk and step (100)
+  and none of the single point kernel (the counts read around it; also on
+  Design2's adaptive export and Logo's baked one, 50);
 * A': ``cli export design1`` at its defaults (auto: the adaptive octree
   5 -> 7 at grid level 8);
 * Design1's fast viewport: ``cli render design1 --fast`` (cone prepass +
@@ -58,6 +61,15 @@ prints:
   overhead included), ``single_ms`` the median by events of single calls on
   an idle card, ``device_ms`` the mean of torch.profiler's records of the
   kernel;
+* a ``k1_sass`` line: the instructions of Design1's, Design2's and Logo's
+  point kernel and its FD form by opcode (``cuobjdump -sass``), with the
+  shared, global and constant loads and the FP32 instructions summed;
+* per design a ``k4_warp_lane_share`` line: the share of a K4 warp's
+  lane-steps that do work, from the plain march's steps, at 640x480 and
+  at ``cli fit``'s 64x48;
+* a ``k1_path_batches`` line: K1 and its FD form timed on the vertex chunks
+  each export's refine took, with their bounds, one refine step as seven
+  launches and glue beside one FD launch, and launches x (ms - bound);
 * per design a ``timing_crosscheck`` line, each kernel's time read those
   three ways and by events over 1, 4, 16 and 64 calls; for Logo a
   ``k6_table_read_model`` line: the time its table reads alone would take at
@@ -102,7 +114,7 @@ from designcsg_tpu_torch.camera import Camera
 from designcsg_tpu_torch.compiler import ExportConfig
 from designcsg_tpu_torch.config import RenderConfig
 from designcsg_tpu_torch.designs import get_design
-from designcsg_tpu_torch.designs.logo import LETTER_TABLE_READS
+from designcsg_tpu_torch.designs.logo import LETTER_PLANE_FLOPS, LETTER_TABLE_BYTES
 from designcsg_tpu_torch.evaluator import BatchEvaluator
 from designcsg_tpu_torch.export import writers
 from designcsg_tpu_torch.export.pipeline import autodetect_bounding_box_device, export_mesh
@@ -123,7 +135,8 @@ from designcsg_tpu_torch.ops.cuda.tape import (
     ray_march_kernel_source,
     sdf_kernel_source,
 )
-from designcsg_tpu_torch.ops.interpreter import dot3, gizmo_sdf, make_primary_sdf
+from designcsg_tpu_torch.ops.interpreter import dot3, gizmo_sdf, make_normal_fn, make_primary_sdf
+from designcsg_tpu_torch.ops.table import packed_rank_sample, plane_sample
 from designcsg_tpu_torch.ops.raymarch import (
     camera_rows,
     coarse_ray_uv,
@@ -156,6 +169,10 @@ L1_BYTES_PER_CLOCK = 128
 # frame transform, unless the brush ignores its coordinates (the compiler
 # drops its transform): cull.leaf_cost, which the cull's grouping uses too.
 GIZMO_OPS = 3 + 3 * 9 + 2  # 3 divisions, 3 cylinders, 2 mins
+# K1's FD form around its seven evaluations (csrc/common.cuh sdf_fd_normal):
+# per axis 6 offset coordinates, a difference, 2e and a division (9); the
+# norm (3 products, 2 sums, a square root) and 3 divisions.
+FD_GLUE_OPS = 3 * 9 + 6 + 3
 
 EXACT = RenderConfig()
 OVERRELAX = RenderConfig(march_overrelax=1.6)
@@ -214,6 +231,11 @@ SOURCES = {
                         "designcsg_tpu/ops/pallas/sdf_kernel.py:185"),
     "grid_eval_cull_gizmo": ("designcsg_tpu_torch/csrc/sdf_kernels.cu",
                              "designcsg_tpu/ops/pallas/sdf_kernel.py:236"),
+    # K1 in its FD form: the point kernel's SDF and FD normal in one launch.
+    "point_eval_fd": ("designcsg_tpu_torch/csrc/sdf_kernels.cu",
+                      "designcsg_tpu/ops/pallas/sdf_kernel.py:76"),
+    "point_eval_fd_gizmo": ("designcsg_tpu_torch/csrc/sdf_kernels.cu",
+                            "designcsg_tpu/ops/pallas/sdf_kernel.py:76"),
 }
 # K6, inlined into every kernel of a scene with baked tables (Logo).
 K6_SOURCE = ("designcsg_tpu_torch/csrc/table.cuh", "designcsg_tpu/ops/pallas/table.py:45")
@@ -221,23 +243,41 @@ K6_SOURCE = ("designcsg_tpu_torch/csrc/table.cuh", "designcsg_tpu/ops/pallas/tab
 K7_SOURCE = ("designcsg_tpu_torch/csrc/interval.cuh", "designcsg_tpu/ops/pallas/cull.py:453")
 
 
+def leaf_ops(scene, brush: int) -> int:
+    """FP32 operations of one tape slot of ``brush`` in the kernels: its
+    CUDA body and its frame transform.  A letter's body samples K6's planes
+    (LETTER_PLANE_FLOPS); its ``cuda_flops`` keeps the rank form's count,
+    which the cull's grouping reads."""
+    flops = scene.brush_flops[brush]
+    if flops is None:
+        raise ValueError(f"brush {scene.brush_names[brush]!r} has no cuda_flops")
+    if scene.brush_names[brush].startswith("letter_"):
+        return cull.leaf_cost(scene, brush) - flops + LETTER_PLANE_FLOPS
+    return cull.leaf_cost(scene, brush)
+
+
 def tape_ops(scene) -> int:
     """FP32 operations of one evaluation of the scene tape."""
     ops = 0
     for opcode, left, _, _ in scene.arrays.tape:
         if opcode == 0:  # IMPORT
-            if scene.brush_flops[int(left)] is None:
-                raise ValueError(f"brush {scene.brush_names[int(left)]!r} has no cuda_flops")
-            ops += cull.leaf_cost(scene, int(left))
+            ops += leaf_ops(scene, int(left))
         elif opcode in (2, 3, 4):  # MIN, MAX, NEGATE
             ops += 1
     return ops
 
 
-def table_reads(scene) -> int:
-    """Four-byte table reads of one tape evaluation (K6, Logo's letters)."""
-    return sum(LETTER_TABLE_READS for b in scene.arrays.shape_id
+def table_bytes(scene) -> int:
+    """Table bytes read by one tape evaluation (K6: a 16-byte cell of the
+    planes per letter)."""
+    return sum(LETTER_TABLE_BYTES for b in scene.arrays.shape_id
                if scene.brush_names[int(b)].startswith("letter_"))
+
+
+def kernel_tables(scene) -> int:
+    """Bytes of the tables the kernels read, each counted once: Logo's
+    planes (the derived extras; the rank tables stay on the host path)."""
+    return 4 * sum(t.size for _, t in scene.derived_extras)
 
 
 def group_ops(scene, culler) -> list:
@@ -245,7 +285,7 @@ def group_ops(scene, culler) -> list:
     slots = [int(left) for opcode, left, _, _ in scene.arrays.tape if opcode == 0]
 
     def slot_ops(k):
-        return GIZMO_OPS if k == len(slots) else cull.leaf_cost(scene, slots[k])
+        return GIZMO_OPS if k == len(slots) else leaf_ops(scene, slots[k])
 
     return [sum(slot_ops(k) for k in members) for members in culler.groups]
 
@@ -449,6 +489,15 @@ def check_ray_march(name: str, got, ref) -> float:
     return err
 
 
+def warp_simt(steps) -> float:
+    """The share of a warp's lane-steps that do work, for warps of 32
+    consecutive rays in row-major order that each run as long as their
+    longest ray: sum(steps) / (32 * sum over warps of max steps)."""
+    flat = steps.reshape(-1).float()
+    flat = torch.cat([flat, flat.new_zeros((-flat.numel()) % 32)]).reshape(-1, 32)
+    return float(flat.sum() / (32 * flat.amax(1).sum()))
+
+
 def timed_once(fn):
     """(fn(), its time in ms by CUDA events) for one call."""
     torch.cuda.synchronize()
@@ -477,14 +526,80 @@ def export_line(label: str, report, seconds: float) -> None:
 
 def k1_field_queries(scene, pts, use_kernels=None):
     """What a user asks of the k1 field (the part and the viewport's gizmo):
-    a point query and its bounding box, through ``BatchEvaluator(gizmo=True)``
-    (the point and grid kernels with the gizmo).  Returns (sdf_field, the
-    values, the box's largest corner): the gizmo's axes reach 5 units out
-    along x, y and z, so every coordinate of that corner passes 4.9."""
+    a point query, the normals at its first 4096 points and its bounding
+    box, through ``BatchEvaluator(gizmo=True)`` (the point, FD and grid
+    kernels with the gizmo).  Returns (sdf_field, the values, the box's
+    largest corner): the gizmo's axes reach 5 units out along x, y and z, so
+    every coordinate of that corner passes 4.9."""
     ev = BatchEvaluator(scene, gizmo=True, use_kernels=use_kernels)
     vals = ev.eval_sdf_at_points(pts)
+    normals = ev.eval_normal_at_points(pts[:4096])
+    if not np.allclose(np.linalg.norm(normals, axis=1), 1.0, atol=1e-5):
+        raise AssertionError("k1-field normals are not of unit length")
     center, half = autodetect_bounding_box_device(ev, 20.0, 128)
     return ev.sdf_field, vals, np.asarray(center) + half
+
+
+def counting_refine(evaluator, sink: dict):
+    """Wrap ``evaluator.refine_on_device`` so that each call records into
+    ``sink`` the kernel launches it made (the counts read just before and
+    just after it), its vertex count and its vertices."""
+    refine = evaluator.refine_on_device
+
+    def wrapped(vertices, *args, **kwargs):
+        torch.cuda.synchronize()
+        before = dict(kbuild.LAUNCHES)
+        t0 = time.time()
+        out = refine(vertices, *args, **kwargs)
+        torch.cuda.synchronize()
+        sink.update(seconds=time.time() - t0, vertices=np.asarray(vertices, np.float32).copy(),
+                    chunk=evaluator.chunk_size, steps=int(kwargs.get("steps", args[0] if args else 0)),
+                    launches={k: v - before.get(k, 0) for k, v in kbuild.LAUNCHES.items()
+                              if v != before.get(k, 0)})
+        return out
+
+    evaluator.refine_on_device = wrapped
+    return evaluator
+
+
+def check_refine_launches(label: str, sink: dict, expect: int) -> None:
+    """One launch of K1's FD form per chunk and step, none of the single
+    point kernel, and ``expect`` of them in all (this export's chunks times
+    its steps)."""
+    n, chunk, steps = len(sink["vertices"]), sink["chunk"], sink["steps"]
+    per = -(-n // chunk) * steps
+    got = sink["launches"]
+    check(got.get("point_eval_fd", 0) == per == expect and got.get("point_eval", 0) == 0,
+          f"{label} refine: {n} vertices, {-(-n // chunk)} chunks x {steps} steps: "
+          f"{got.get('point_eval_fd', 0)} point_eval_fd launches (== {expect}), "
+          f"{got.get('point_eval', 0)} point_eval; launches {got}, {sink['seconds']:.4f} s")
+
+
+def sass_counts(so_path: str, kernels) -> dict:
+    """Per kernel function of a built library, its SASS instructions by
+    opcode (``cuobjdump -sass``), with the shared loads (LDS), global and
+    read-only loads (LDG), constant loads (LDC) and FP32 instructions
+    (FADD, FMUL, FFMA, FMNMX, FSETP, FSEL, FCHK, MUFU) summed."""
+    cuobjdump = os.path.join(os.path.dirname(kbuild.nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", so_path], capture_output=True, text=True,
+                         check=True).stdout
+    counts, current = {}, None
+    for line in out.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            current = next((k for k in kernels if k in head.group(1)), None)
+            if current is not None:
+                counts[current] = {}
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if current is not None and ins:
+            op = ins.group(1)
+            counts[current][op] = counts[current].get(op, 0) + 1
+    fp32 = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FCHK", "MUFU")
+    return {k: dict(total=sum(c.values()), lds=c.get("LDS", 0), ldg=c.get("LDG", 0),
+                    ldc=c.get("LDC", 0), fp32=sum(v for op, v in c.items() if op in fp32),
+                    by_opcode=dict(sorted(c.items(), key=lambda kv: -kv[1])))
+            for k, c in counts.items()}
 
 
 def fit_rays(config, cam, device):
@@ -540,6 +655,9 @@ def main() -> int:
     units["logo march near cull"] = ("march", march_kernel_source(scenes["logo"], NEAR_CULLED))
     for name, scene in scenes.items():
         units[f"{name} sdf gizmo"] = ("sdf", sdf_kernel_source(scene, gizmo=True))
+        # K1's FD form: the same sources built without FMA contraction.
+        units[f"{name} sdf_fd"] = ("sdf_fd", sdf_kernel_source(scene))
+        units[f"{name} sdf_fd gizmo"] = ("sdf_fd", sdf_kernel_source(scene, gizmo=True))
     many = many_groups_scene()
     units["many sdf"] = ("sdf", sdf_kernel_source(many))
     for label, config in (("exact", EXACT), ("cull", CULLED["renderer_cull"][0]),
@@ -558,6 +676,14 @@ def main() -> int:
         print(f"  -- ptxas report, {label}:")
         for line in log.strip().splitlines():
             print(f"     {line}")
+    # What one K1 evaluation issues, from the built code: the point kernel
+    # (one evaluation a thread) and its FD form (seven).
+    sass = {}
+    for name in ("design1", "design2", "logo"):
+        for unit, kernel in (("sdf", "point_eval_kernel"), ("sdf_fd", "point_eval_fd_kernel")):
+            so = kbuild._stem(unit, sdf_kernel_source(scenes[name])).with_suffix(".so")
+            sass[f"{name} {kernel}"] = sass_counts(str(so), (kernel,)).get(kernel)
+    print(json.dumps({"k1_sass": sass}))
 
     results = {}  # (kernel, design) -> numbers
     arrays = {name: scene.arrays.to_torch(dev) for name, scene in scenes.items()}
@@ -582,13 +708,15 @@ def main() -> int:
             grid_eval_cull_gizmo=make_grid_eval(scene, gizmo=True, cull=True),
             **{kernel: make_cuda_renderer(scene, config) for kernel, (config, _) in CULLED.items()},
         )
+        kernels[name]["point_eval_fd"] = kernels[name]["point_eval"].fd
+        kernels[name]["point_eval_fd_gizmo"] = kernels[name]["point_eval_gizmo"].fd
     inputs = {}
     images = {}
 
     for step, (name, scene) in enumerate(scenes.items()):
         k, a = kernels[name], arrays[name]
-        phase(f"{3 + step}a. {name}: point eval (2^20 points) and grid eval (33x257x257), each "
-              f"without and with the gizmo, vs plain")
+        phase(f"{3 + step}a. {name}: point eval and its FD form (2^20 points) and grid eval "
+              f"(33x257x257), each without and with the gizmo, vs plain")
         # Design1/2: half their export box; Logo: bench.py's export box.
         half = (scene.export_config.bounding_box_half_diameter / 2.0 if scene.export_config
                 else LOGO_EXPORT.bounding_box_half_diameter)
@@ -607,6 +735,37 @@ def main() -> int:
             check(bool((err <= 1e-5 + 1e-6 * ref.abs()).all()),
                   f"{name} {kernel} {tuple(got.shape)} max|d| = {float(err.max()):.3g} "
                   f"within 1e-5 + 1e-6|ref|")
+        # K1's FD form against its plain version (the plain SDF and the plain
+        # FD glue) by the point rule, the SDF and each normal component; and
+        # how many values differ at all, also from the point kernel composed
+        # with the plain glue (that unit contracts FMAs, this one does not).
+        for kernel, single in (("point_eval_fd", "point_eval"), ("point_eval_fd_gizmo", "point_eval_gizmo")):
+            fd = k[kernel]
+            (sdf, nrm), (sdf_ref, nrm_ref) = fd(pts, a), fd.plain(pts, a)
+            torch.cuda.synchronize()
+            errs = {}
+            for what, got, ref in (("sdf", sdf, sdf_ref), ("normal", nrm, nrm_ref)):
+                err = (got - ref).abs()
+                errs[what] = float(err.max())
+                check(bool(torch.isfinite(got).all()) and bool((err <= 1e-5 + 1e-6 * ref.abs()).all()),
+                      f"{name} {kernel} {what} {tuple(got.shape)} max|d| = {errs[what]:.3g} within "
+                      f"1e-5 + 1e-6|ref| of its plain version")
+            via_point = make_normal_fn(k[single])(pts, a)
+            results[(kernel, name)] = dict(
+                max_abs_err=max(errs.values()), sdf_max_abs_err=errs["sdf"],
+                normal_max_abs_err=errs["normal"],
+                values_differing_from_plain=int((sdf != sdf_ref).sum() + (nrm != nrm_ref).sum()),
+                normal_max_abs_vs_point_kernel_and_glue=float((nrm - via_point).abs().max()))
+            print(f"  {name} {kernel}: {results[(kernel, name)]}")
+        if scene.derived_extras:
+            # K6: each letter's planes against the rank sum they expand,
+            # both plain on the card, over the table and a cell beyond.
+            _, tabs = scene.device_extras(dev)
+            gx, gy = torch.from_numpy(rng.uniform(-1, 128, (2, 1 << 20)).astype(np.float32)).to(dev)
+            for (tname, _), (pname, _) in zip(scene.extras, scene.derived_extras):
+                err = float((plane_sample(tabs[pname], gx, gy) - packed_rank_sample(tabs[tname], gx, gy))
+                            .abs().max())
+                check(err <= 1e-6, f"{name} K6 {pname} vs the rank sum of {tname}: max|d| = {err:.3g} <= 1e-6")
         # The gizmo reaches into this slab: the k1 field is below the k2 one.
         gz_grid = k["grid_eval_gizmo"](*grid)
         check(bool((gz_grid < k["grid_eval"](*grid)).any()), f"{name} the gizmo shows in the slab")
@@ -680,6 +839,15 @@ def main() -> int:
             max_abs_err=check_ray_march(f"{name} ray_march", got, (d_ref, vmin_ref)),
             plain_ms=plain_ms)
         inputs[name].update(o_fit=o_fit, r_fit=r_fit, fit_evals=int(steps.sum()))
+        # How busy a warp's lanes stay in K4: a warp is 32 neighbouring rays
+        # of a row, and runs as long as its longest march (the plain march's
+        # steps), at this size and at `cli fit`'s 64x48.
+        simt = {"640x480": warp_simt(steps)}
+        small = cli.fit_config(64, 48)
+        o_s, r_s = fit_rays(small, cam, dev)
+        simt["64x48"] = warp_simt(make_march(scene, small)(
+            torch.as_tensor(o_s, device=dev), r_s, a, return_closest=True, return_steps=True)[2])
+        print(json.dumps({f"{name}_k4_warp_lane_share": simt}))
         if name == "design1":
             over = make_cuda_ray_march(scene, FIT_OVERRELAX)
             check_ray_march(f"{name} ray_march omega=1.6", over(a, o_fit, r_fit),
@@ -837,7 +1005,8 @@ def main() -> int:
     kbuild.LAUNCHES.clear()
     t0 = time.time()
     image = render_scene(scene)
-    evaluator = BatchEvaluator(scene)
+    refines = {}  # export label -> its refine's launches, vertices and seconds
+    evaluator = counting_refine(BatchEvaluator(scene), refines.setdefault("design1_active_512", {}))
     probe = evaluator.eval_sdf_at_points(np.zeros((1, 3), np.float32))
     k1_field, k1_vals, k1_top = k1_field_queries(scene, inputs["design1"]["pts"][:65536].cpu().numpy())
     with tempfile.TemporaryDirectory() as tmp:
@@ -865,7 +1034,10 @@ def main() -> int:
     check(report.stats["native"] and report.stats["strategy"] == "active",
           "512^3 export: active strategy, native mesh ops")
     export_line("design1_active_512", report, export_s)
-    for kernel in ("point_eval", "grid_eval", "renderer", "point_eval_gizmo", "grid_eval_gizmo"):
+    # Without the FD form the refine made 7 K1 launches per chunk and step.
+    check_refine_launches("design1 512^3 active", refines["design1_active_512"], 100)
+    for kernel in ("point_eval", "grid_eval", "renderer", "point_eval_gizmo", "grid_eval_gizmo",
+                   "point_eval_fd", "point_eval_fd_gizmo"):
         check(counted.get(kernel, 0) > 0, f"{kernel} launched {counted.get(kernel, 0)} times")
         launches[(kernel, "design1")] = counted[kernel]
 
@@ -886,7 +1058,7 @@ def main() -> int:
           "cli export design1: auto resolved to the adaptive octree on the kernels' field")
     check(back.num_faces > 2000 and np.isfinite(back.vertices).all(),
           f"cli export design1: STL read back, {back.num_faces} triangles")
-    for kernel in ("point_eval", "grid_eval"):
+    for kernel in ("point_eval", "grid_eval", "point_eval_fd"):
         check(counted.get(kernel, 0) > 0, f"cli export {kernel} launched {counted.get(kernel, 0)} times")
 
     for path, name in (("B", "design1"), ("C", "design2")):
@@ -911,8 +1083,9 @@ def main() -> int:
             k1_field, k1_vals, k1_top = k1_field_queries(scene, inputs[name]["pts"][:65536].cpu().numpy())
             with tempfile.TemporaryDirectory() as tmp:
                 t1 = time.time()
-                d2_mesh, d2_report = export_mesh(scene, stl_path=os.path.join(tmp, "design2.stl"),
-                                                 strategy="adaptive")
+                d2_mesh, d2_report = export_mesh(
+                    scene, stl_path=os.path.join(tmp, "design2.stl"), strategy="adaptive",
+                    evaluator=counting_refine(BatchEvaluator(scene), refines.setdefault("design2_adaptive", {})))
                 d2_s = time.time() - t1
         torch.cuda.synchronize()
         main_s = time.time() - t0
@@ -950,7 +1123,10 @@ def main() -> int:
             _, d2_tape = export_mesh(scene, evaluator=BatchEvaluator(scene, use_kernels=False),
                                      strategy="adaptive")
             export_line("design2_adaptive_plain_tape", d2_tape, time.time() - t1)
-            expect += ["renderer", "point_eval", "grid_eval", "point_eval_gizmo", "grid_eval_gizmo"]
+            r2 = refines["design2_adaptive"]
+            check_refine_launches("design2 adaptive", r2, -(-len(r2["vertices"]) // r2["chunk"]) * r2["steps"])
+            expect += ["renderer", "point_eval", "grid_eval", "point_eval_gizmo", "grid_eval_gizmo",
+                       "point_eval_fd", "point_eval_fd_gizmo"]
         for kernel in expect:
             check(counted.get(kernel, 0) > 0, f"{name} {kernel} launched {counted.get(kernel, 0)} times")
             launches[(kernel, name)] = counted[kernel]
@@ -1037,6 +1213,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         for field, use_kernels in (("exact", None), ("baked", True)):
             ev = BatchEvaluator(scene, use_kernels=use_kernels)
+            if use_kernels:
+                counting_refine(ev, refines.setdefault("logo_adaptive_baked", {}))
             t1 = time.time()
             mesh, report = export_mesh(scene, LOGO_EXPORT, stl_path=os.path.join(tmp, f"logo_{field}.stl"),
                                        evaluator=ev, autodetect=False)
@@ -1076,6 +1254,7 @@ def main() -> int:
     (m_e, r_e, ev_e, s_e), (m_b, r_b, ev_b, s_b) = exports["exact"], exports["baked"]
     export_line("logo_adaptive_exact", r_e, s_e)
     export_line("logo_adaptive_baked", r_b, s_b)
+    check_refine_launches("logo adaptive baked", refines["logo_adaptive_baked"], 50)
     check(r_e.stats["sdf_field"] == "tape-exact" and r_b.stats["sdf_field"] == "cuda-baked"
           and r_b.stats["twin_tolerance"] == scene.twin_tolerance and "twin_tolerance" not in r_e.stats,
           f"logo export fields: {r_e.stats['sdf_field']}, {r_b.stats['sdf_field']} "
@@ -1098,7 +1277,8 @@ def main() -> int:
           f"logo baked vertices on the exact zero set within {resid_b:.4f}, exact vertices on the "
           f"baked zero set within {resid_e:.4f}, both < {tol}")
     for kernel in ("renderer", "renderer_overrelax", "renderer_t0", "cone_march", "point_eval",
-                   "grid_eval", "point_eval_gizmo", "grid_eval_gizmo"):
+                   "grid_eval", "point_eval_gizmo", "grid_eval_gizmo", "point_eval_fd",
+                   "point_eval_fd_gizmo"):
         check(counted.get(kernel, 0) > 0, f"logo {kernel} launched {counted.get(kernel, 0)} times")
         launches[(kernel, "logo")] = counted[kernel]
 
@@ -1178,8 +1358,8 @@ def main() -> int:
         k, a, x = kernels[name], arrays[name], inputs[name]
         calls = {}  # kernel -> (a call, the CUDA kernel's name), for the cross-check
         ops = tape_ops(scene)
-        # Logo's baked tables are an input of every kernel, read once.
-        tables = 4 * sum(t.size for _, t in scene.extras)
+        # Logo's planes are an input of every kernel, read once.
+        tables = kernel_tables(scene)
         pts, n_pts = x["pts"], x["pts"].shape[0]
         n_grid = 33 * 257 * 257
         n_px = EXACT.width * EXACT.height
@@ -1215,6 +1395,17 @@ def main() -> int:
                                      plain_ms=cuda_ms(lambda fn=fn, args=args: fn.plain(*args), 3),
                                      tape_evals=n)
             r[(kernel, name)].update(zip(("bound_ms", "bound_by"), bound_ms(n_bytes, gops * n)))
+        # K1's FD form at the same points: seven tape evaluations and the FD
+        # glue per point, 12 B read and 16 B written.
+        for kernel, per_point in (("point_eval_fd", 7 * ops + FD_GLUE_OPS),
+                                  ("point_eval_fd_gizmo", 7 * gops + FD_GLUE_OPS)):
+            fd = k[kernel]
+            calls[kernel] = (lambda fd=fd: fd(pts, a), "point_eval_fd_kernel")
+            r[(kernel, name)].update(ms=cuda_ms(calls[kernel][0], 50), enqueue_ms=enqueue_ms(calls[kernel][0]),
+                                     plain_ms=cuda_ms(lambda fd=fd: fd.plain(pts, a), 2),
+                                     tape_evals=7 * n_pts)
+            r[(kernel, name)].update(zip(("bound_ms", "bound_by"),
+                                         bound_ms(28 * n_pts + tables, per_point * n_pts)))
 
         # A renderer's work: the march steps this image takes (read from the
         # plain version's step counts), 6 normal evaluations per shaded
@@ -1344,7 +1535,7 @@ def main() -> int:
         if scene.extras:
             # A model, not a measurement: the time K6's table reads alone
             # would take at the assumed L1 rate and the largest SM clock.
-            per_eval = 4 * table_reads(scene)
+            per_eval = table_bytes(scene)
             rate = L1_BYTES_PER_CLOCK * sms * sm_clock_hz
             print(json.dumps({f"{name}_k6_table_read_model": dict(
                 assumed_l1_bytes_per_clock_per_sm=L1_BYTES_PER_CLOCK, sms=sms,
@@ -1367,6 +1558,38 @@ def main() -> int:
                               ("hierarchical", "hierarchical_frame_ms"))
         }
         print(f"  {name} frames: {json.dumps(frames[name])}")
+
+    # K1 at the batches its main paths give it: each chunk of the vertices
+    # an export's refine took (path A: 2^20 and the remainder; Design2's
+    # adaptive export; Logo's baked one), in mesh order, by the FD form and
+    # by single evaluations, and one refine step made of seven point
+    # launches and the plain FD glue beside one FD launch.  Per row,
+    # the refine's launches x (FD ms - FD bound).
+    batches = {}
+    for label, name in (("design1_active_512", "design1"), ("design2_adaptive", "design2"),
+                        ("logo_adaptive_baked", "logo")):
+        ref, a, k = refines[label], arrays[name], kernels[name]
+        ops, tables = tape_ops(scenes[name]), kernel_tables(scenes[name])
+        verts = torch.from_numpy(ref["vertices"]).to(dev)
+        pe, fd = k["point_eval"], k["point_eval_fd"]
+        normal_glue = make_normal_fn(pe)
+        for start in range(0, len(verts), ref["chunk"]):
+            p = verts[start:start + ref["chunk"]].contiguous()
+            n = p.shape[0]
+            row = dict(points=n, launches_on_path=ref["steps"])
+            for kernel, fn, kname, per_point, n_bytes in (
+                ("point_eval", lambda p=p: pe(p, a), "point_eval_kernel", ops, 16),
+                ("point_eval_fd", lambda p=p: fd(p, a), "point_eval_fd_kernel",
+                 7 * ops + FD_GLUE_OPS, 28),
+            ):
+                b_ms, by = bound_ms(n_bytes * n + tables, per_point * n)
+                row[kernel] = dict(ms=cuda_ms(fn, 50), device_ms=device_ms(fn, kname, iters=20),
+                                   bound_ms=b_ms, bound_by=by)
+            row["step_ms_seven_launches"] = cuda_ms(lambda p=p: (pe(p, a), normal_glue(p, a)), 20)
+            row["step_ms_fd"] = row["point_eval_fd"]["ms"]
+            row["excess_ms_on_path"] = ref["steps"] * (row["point_eval_fd"]["ms"] - row["point_eval_fd"]["bound_ms"])
+            batches[f"{label}[{start}:{start + n}]"] = row
+    print(json.dumps({"k1_path_batches": batches}))
 
     # Design1's renderer ships built with -fmad=false; the same source with
     # nvcc's default FMA contraction is timed beside it (alternating, A B A

@@ -17,10 +17,12 @@ brush carries both forms:
 Where the CUDA body computes another field than ``fn`` (Logo's letters sample
 a baked table instead of reducing over their Bezier samples), the brush also
 carries ``twin``, the torch function of the field the body computes, with the
-tolerance ``twin_approx`` to which it follows ``fn`` near the surface, and the
-tables the body reads as ``extras``.  Every kernel and its plain version
-compute the twin; the exact ``fn`` serves the plain tape (ops/interpreter.py,
-``field="exact"``), the evaluator's exact field and the fit's gradients.
+tolerance ``twin_approx`` to which it follows ``fn`` near the surface, and its
+tables as ``extras``; ``derived_extras`` holds tables computed from those in
+the form the body reads (Logo's dense planes of its rank tables).  Every
+kernel and its plain version compute the twin; the exact ``fn`` serves the
+plain tape (ops/interpreter.py, ``field="exact"``), the evaluator's exact
+field and the fit's gradients.
 
 A brush may also carry an interval twin for the exact per-tile cull (K7,
 ops/cull.py): ``interval(ia, ib, ic, ctx) -> (lo, hi)`` bounds the brush over
@@ -66,7 +68,8 @@ class Brush:
     which chip_smoke.py computes the kernels' lower bound and the cull its
     groups.  ``twin`` (the field the CUDA body computes) defaults to ``fn``;
     ``twin_approx`` is None where the twin is exact; ``extras`` maps a
-    scene-unique name to the f32 table the CUDA body reads at
+    scene-unique name to an f32 table of the brush, and ``derived_extras``
+    another to a table computed from those; the CUDA body reads either at
     ``ex + EX_<name>``.  ``interval`` and ``interval_cuda`` are the interval
     twin in torch and C++ (None: never culled)."""
 
@@ -78,6 +81,7 @@ class Brush:
     twin: Optional[Callable[..., Any]] = None
     twin_approx: Optional[float] = None
     extras: Mapping[str, Any] = dataclasses.field(default_factory=dict, compare=False)
+    derived_extras: Mapping[str, Any] = dataclasses.field(default_factory=dict, compare=False)
     interval: Optional[Callable[..., Any]] = None
     interval_cuda: Optional[str] = None
 

@@ -158,6 +158,10 @@ class CompiledScene:
     #: ``(name, f32 table)`` of every brush's extras, in bank order, names
     #: unique: scene constants that the kernels read through one pointer.
     extras: Tuple[Tuple[str, np.ndarray], ...] = ()
+    #: ``(name, f32 table)`` of every brush's derived extras (tables computed
+    #: from its extras in the form its CUDA body reads), after the extras
+    #: in the kernels' concatenation.
+    derived_extras: Tuple[Tuple[str, np.ndarray], ...] = ()
     #: Interval twins per bank index (``Brush.interval``, ``interval_cuda``):
     #: None where a brush has none, and the cull never skips it.
     brush_interval: Tuple[Optional[Callable], ...] = ()
@@ -177,30 +181,36 @@ class CompiledScene:
         raise KeyError(f"no arbitrary-data chunk named {name!r}")
 
     def extras_offsets(self) -> Dict[str, int]:
-        """Float offset of each extra table in their concatenation."""
+        """Float offset of each extra table (derived ones after the others)
+        in their concatenation; each starts on a 16-byte boundary, so the
+        kernels may read a table in float4s."""
         offsets, at = {}, 0
-        for name, table in self.extras:
+        for name, table in self.extras + self.derived_extras:
             offsets[name] = at
-            at += table.size
+            at += -(-table.size // 4) * 4
         return offsets
 
     def device_extras(self, device) -> Tuple[Optional[torch.Tensor], Dict[str, torch.Tensor]]:
-        """The extras on ``device``, uploaded once per device: the f32
-        concatenation the kernels read (None for a scene without extras) and
-        ``{name: table}``, views into it, for the plain versions."""
+        """The extras and derived extras on ``device``, uploaded once per
+        device: the f32 concatenation the kernels read (None for a scene
+        without extras) and ``{name: table}``, views into it, for the plain
+        versions."""
         device = torch.device(device)
         key = str(device)
+        every = self.extras + self.derived_extras
         if key not in self._device_extras:
-            if not self.extras:
+            if not every:
                 self._device_extras[key] = (None, {})
             else:
-                flat = torch.from_numpy(
-                    np.concatenate([np.asarray(t, np.float32).reshape(-1) for _, t in self.extras])
-                ).to(device)
                 offsets = self.extras_offsets()
+                name, last = every[-1]
+                host = np.zeros(offsets[name] + last.size, np.float32)
+                for name, t in every:
+                    host[offsets[name] : offsets[name] + t.size] = np.asarray(t, np.float32).reshape(-1)
+                flat = torch.from_numpy(host).to(device)
                 tables = {
                     name: flat[offsets[name] : offsets[name] + t.size].view(t.shape)
-                    for name, t in self.extras
+                    for name, t in every
                 }
                 self._device_extras[key] = (flat, tables)
         return self._device_extras[key]
@@ -257,10 +267,12 @@ class SceneCompiler:
         extras: Optional[dict] = None,
         interval: Optional[Callable] = None,
         interval_cuda: Optional[str] = None,
+        derived_extras: Optional[dict] = None,
     ) -> _brushes.Brush:
         brush = _brushes.Brush(
             fn=fn, bank_index=len(self.brushes), name=name, cuda=cuda, cuda_flops=cuda_flops,
             twin=twin, twin_approx=twin_approx, extras=dict(extras or {}),
+            derived_extras=dict(derived_extras or {}),
             interval=interval, interval_cuda=interval_cuda,
         )
         self.brushes.append(brush)
@@ -379,16 +391,17 @@ class SceneCompiler:
                     f"STACK_MEMORY_PER_PIXEL={STACK_MEMORY_PER_PIXEL}"
                 )
 
-        extras = {}
+        extras, derived = {}, {}
         for brush in self.brushes:
-            for name, table in brush.extras.items():
-                if not name.isidentifier():
-                    raise ValueError(f"extras name {name!r} must be a C identifier")
-                if name in extras and extras[name] is not table:
-                    raise ValueError(
-                        f"duplicate extras name {name!r}: names must be unique per scene"
-                    )
-                extras[name] = table
+            for tables, own in ((extras, brush.extras), (derived, brush.derived_extras)):
+                for name, table in own.items():
+                    if not name.isidentifier():
+                        raise ValueError(f"extras name {name!r} must be a C identifier")
+                    if (name in extras or name in derived) and tables.get(name) is not table:
+                        raise ValueError(
+                            f"duplicate extras name {name!r}: names must be unique per scene"
+                        )
+                    tables[name] = table
         approx = [b.twin_approx for b in self.brushes if b.twin_approx is not None]
 
         position, right, up, forward = frames.astype(np.float32)
@@ -416,6 +429,7 @@ class SceneCompiler:
             brush_twin=tuple(b.twin for b in self.brushes),
             twin_tolerance=float(max(approx, default=0.0)),
             extras=tuple((name, np.asarray(t, np.float32)) for name, t in extras.items()),
+            derived_extras=tuple((name, np.asarray(t, np.float32)) for name, t in derived.items()),
             brush_interval=tuple(b.interval for b in self.brushes),
             brush_interval_cuda=tuple(b.interval_cuda for b in self.brushes),
         )

@@ -56,6 +56,57 @@ HD float add_rn(float a, float b) {
 #endif
 }
 
+HD float sub_rn(float a, float b) { return add_rn(a, -b); }
+
+// IEEE-rounded quotient and square root, whatever the build's flags.
+HD float div_rn(float a, float b) {
+#ifdef __CUDA_ARCH__
+    return __fdiv_rn(a, b);
+#else
+    return a / b;
+#endif
+}
+
+HD float sqrt_rn(float x) {
+#ifdef __CUDA_ARCH__
+    return __fsqrt_rn(x);
+#else
+    return sqrtf(x);
+#endif
+}
+
+// The SDF and its FD normal at (x, y, z), in the order of the plain version
+// (ops/interpreter.py make_normal_fn over a point evaluation): the six
+// offset points are the point plus or minus (NORMAL_EPS, 0, 0) and its
+// permutations, one f32 sum or difference per coordinate (adding 0 turns
+// -0 into +0, as it does there); g_i = f(p + e_i) - f(p - e_i); g / (2e);
+// then g / sqrt((g0*g0 + g1*g1) + g2*g2).  Every operation is rounded on
+// its own, so the result is that composition's bit for bit wherever the
+// seven field values are.  ``field(x, y, z)`` is the unit's SDF; NORMAL_EPS
+// is constants.py's NORMAL_EPSILON, the evaluator's.
+constexpr float NORMAL_EPS = 0.005f;
+
+template <class Field>
+HD float sdf_fd_normal(const Field& field, float x, float y, float z, float& nx, float& ny,
+                       float& nz) {
+    const float e = NORMAL_EPS;
+    const float s = field(x, y, z);
+    float g[3];
+#pragma unroll
+    for (int axis = 0; axis < 3; ++axis) {
+        const float ox = axis == 0 ? e : 0.0f, oy = axis == 1 ? e : 0.0f, oz = axis == 2 ? e : 0.0f;
+        const float hi = field(add_rn(x, ox), add_rn(y, oy), add_rn(z, oz));
+        const float lo = field(sub_rn(x, ox), sub_rn(y, oy), sub_rn(z, oz));
+        g[axis] = div_rn(sub_rn(hi, lo), mul_rn(2.0f, e));
+    }
+    const float norm = sqrt_rn(add_rn(add_rn(mul_rn(g[0], g[0]), mul_rn(g[1], g[1])),
+                                      mul_rn(g[2], g[2])));
+    nx = div_rn(g[0], norm);
+    ny = div_rn(g[1], norm);
+    nz = div_rn(g[2], norm);
+    return s;
+}
+
 HD float rsqrt_(float x) {
 #ifdef __CUDA_ARCH__
     return rsqrtf(x);

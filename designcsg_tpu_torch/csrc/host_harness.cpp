@@ -15,6 +15,24 @@ extern "C" void host_point_eval(const float* pts, float* out, long long n, const
     }
 }
 
+// K6 alone: plane_sample (table.cuh) on one letter's planes at n grid
+// coordinates.
+extern "C" void host_plane_sample(float* out, long long n, const float* planes, const float* gx,
+                                  const float* gy) {
+    for (long long i = 0; i < n; ++i) out[i] = plane_sample(planes, gx[i], gy[i]);
+}
+
+// The FD kernel's per point work (common.cuh sdf_fd_normal): the SDF f32[n]
+// and the FD normal f32[n, 3].
+extern "C" void host_point_eval_fd(const float* pts, float* out, float* normal, long long n,
+                                   const float* bank, const float* ad, const float* ex) {
+    const auto field = [&](float x, float y, float z) { return field_sdf(x, y, z, bank, ad, ex); };
+    for (long long i = 0; i < n; ++i) {
+        out[i] = sdf_fd_normal(field, pts[3 * i], pts[3 * i + 1], pts[3 * i + 2], normal[3 * i],
+                               normal[3 * i + 1], normal[3 * i + 2]);
+    }
+}
+
 #if CULL_MODE
 // The cull chain on one box f32[6] (x0, x1, y0, y1, z0, z1): the predicate
 // mask's N_CULL_WORDS words and the N_CULL_SLOTS substitutes.

@@ -2,8 +2,8 @@
 // helpers of ops/cull.py, operation for operation, so that the generated
 // ``cull_tile`` and the plain culler give the same bits.
 //
-// Every product and sum rounds on its own (mul_rn/add_rn/sub_rn: the point
-// and grid unit contracts FMAs elsewhere).  Needs common.cuh above it.
+// Every product and sum rounds on its own (mul_rn/add_rn/sub_rn of
+// common.cuh: the point and grid unit contracts FMAs elsewhere).  Needs common.cuh above it.
 
 struct Iv {
     float lo, hi;
@@ -14,8 +14,6 @@ struct Iv {
 struct Preds {
     unsigned w[N_CULL_WORDS];
 };
-
-HD float sub_rn(float a, float b) { return add_rn(a, -b); }
 
 HD Iv iv_const(float c) { return Iv{c, c}; }
 

@@ -12,7 +12,14 @@
 //
 // What bounds it on Hopper: FP32 issue, as the renderer: tens to hundreds of
 // tape evaluations per ray against 28 B moved (12 B of ray read, 4 B of d and
-// 12 B of vmin written).  Rays diverge: a warp runs as long as its slowest ray.
+// 12 B of vmin written).  On Logo the letters' table reads used to set it
+// (128 four-byte reads a letter); with K6's dense planes (table.cuh) a
+// letter costs one 16-byte read, and the tape's FP32 issue is what is left.
+// Rays diverge: a warp runs as long as its slowest ray.  Counted from the
+// plain march's steps per ray, a warp of 32 neighbouring pixels keeps 83%
+// (Design1) and 81% (Logo) of its lanes busy at 640x480, 43% and 47% at
+// `cli fit`'s 64x48; at full size the 149 registers Design1's unit takes
+// (ptxas), which cap the warps in flight, are the next question.
 //
 // The simple design, as the cone kernel's: one thread per ray with its own
 // loop (per-ray early exit, which the TPU kernel's masked per-tile loop

@@ -1,4 +1,5 @@
-// SDF point evaluation (k2) and SDF grid evaluation, for one scene.
+// SDF point evaluation (k2), in its single and its FD form, and SDF grid
+// evaluation, for one scene.
 //
 // Replaces the JAX package's Pallas kernels
 //   ops/pallas/sdf_kernel.py:make_pallas_point_eval (point eval) and
@@ -11,6 +12,18 @@
 // are made from the thread index, nothing is read), i.e. roughly 19 and 75
 // operations per byte, above the H100's ~20 FP32 operations per byte of
 // bandwidth: both kernels are compute-bound, the grid kernel clearly so.
+// On the export's refine, though, what bound K1 was the host: each Newton
+// step called it seven times (the SDF and the six FD probes) with a dozen
+// PyTorch operations of glue between, and every launch was paid for on the
+// host.  point_eval_fd_kernel is K1's FD form for that caller: per point the
+// SDF and its FD normal in one launch (common.cuh sdf_fd_normal), seven
+// evaluations against 28 B moved, so compute-bound at any batch the refine
+// gives it.  It is persistent and grid-stride (as many blocks as are
+// resident on the card, each loading the bank once), and a thread's seven
+// evaluations are independent, the instruction-level parallelism that hides
+// the tape's latency.  Its unit is this source built without FMA
+// contraction (ops/cuda/build.py ``sdf_fd``): the normal divides field
+// differences by 0.01, so it must round as its plain version does.
 //
 // The simple design: one thread per point, the tape inlined into straight-line
 // code with its registers in registers, and the object banks (a few hundred
@@ -39,6 +52,31 @@ point_eval_kernel(const float* __restrict__ pts, float* __restrict__ out, long l
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     out[i] = field_sdf(pts[3 * i], pts[3 * i + 1], pts[3 * i + 2], s_bank, ad, ex);
+}
+
+// K1 in its FD form: per point the SDF and its FD normal (six more
+// evaluations at the offset points), one launch for what the plain path
+// makes of seven point launches and the normal's glue (common.cuh
+// sdf_fd_normal).  Persistent and grid-stride: the launcher starts as many
+// blocks as fit on the card at once, so each block loads the bank once for
+// many points; a thread's seven evaluations are independent of each other.
+__global__ void __launch_bounds__(SDF_THREADS)
+point_eval_fd_kernel(const float* __restrict__ pts, float* __restrict__ out,
+                     float* __restrict__ normal, long long n, const float* __restrict__ pos,
+                     const float* __restrict__ right, const float* __restrict__ up,
+                     const float* __restrict__ fwd, const float* __restrict__ ad,
+                     const float* __restrict__ ex) {
+    __shared__ float s_bank[N_OBJ * BANK_STRIDE];
+    load_bank(s_bank, pos, right, up, fwd);
+    const auto field = [&](float x, float y, float z) { return field_sdf(x, y, z, s_bank, ad, ex); };
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+        float nx, ny, nz;
+        out[i] = sdf_fd_normal(field, pts[3 * i], pts[3 * i + 1], pts[3 * i + 2], nx, ny, nz);
+        normal[3 * i] = nx;
+        normal[3 * i + 1] = ny;
+        normal[3 * i + 2] = nz;
+    }
 }
 
 // SDF at lo + cell * (x, y, z0 + z) for the (nz, ny, nx) lattice, each
@@ -111,6 +149,43 @@ extern "C" int launch_point_eval(const void* pts, void* out, long long n, const 
     point_eval_kernel<<<blocks_for(n), SDF_THREADS, 0, (cudaStream_t)stream>>>(
         (const float*)pts, (float*)out, n, (const float*)pos, (const float*)right,
         (const float*)up, (const float*)fwd, (const float*)ad, (const float*)ex);
+    return (int)cudaGetLastError();
+}
+
+// The FD kernel's grid: as many blocks as can be resident on the card at
+// once (cudaOccupancyMaxActiveBlocksPerMultiprocessor on every SM), fewer
+// for a small batch.  Computed once per process.
+static int fd_resident_blocks(int* blocks) {
+    static int resident = 0;
+    if (resident == 0) {
+        int dev = 0, sms = 0, per_sm = 0;
+        int rc = (int)cudaGetDevice(&dev);
+        if (rc == 0) rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        if (rc == 0) {
+            rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, point_eval_fd_kernel,
+                                                                    SDF_THREADS, 0);
+        }
+        if (rc != 0) return rc;
+        resident = sms * (per_sm > 0 ? per_sm : 1);
+    }
+    *blocks = resident;
+    return 0;
+}
+
+extern "C" int launch_point_eval_fd(const void* pts, void* out, void* normal, long long n,
+                                    const void* pos, const void* right, const void* up,
+                                    const void* fwd, const void* ad, const void* ex,
+                                    void* stream) {
+    if (n <= 0) return 0;
+    int resident = 0;
+    const int rc = fd_resident_blocks(&resident);
+    if (rc != 0) return rc;
+    const long long need = (long long)blocks_for(n);
+    const unsigned int blocks = (unsigned int)(need < resident ? need : resident);
+    point_eval_fd_kernel<<<blocks, SDF_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)pts, (float*)out, (float*)normal, n, (const float*)pos,
+        (const float*)right, (const float*)up, (const float*)fwd, (const float*)ad,
+        (const float*)ex);
     return (int)cudaGetLastError();
 }
 

@@ -1,57 +1,52 @@
-// K6: sampling of a baked rank-factored 2D field, inlined into every kernel
-// whose scene has a brush that reads one (Logo's letters).
+// K6: sampling of a baked 2D field, inlined into every kernel whose scene has
+// a brush that reads one (Logo's letters).
 //
 // Replaces the JAX package's in-kernel sampler
 //   ops/pallas/table.py:packed_rank_sample,
 // which its Pallas kernels (point, grid, renderer, cone, ray march) call
-// through Logo's brush twins.  Plain version: ops/table.py.
+// through Logo's brush twins.  Plain version: ops/table.py plane_sample.
 //
-// The field is b(gx, gy) = sum_k (UA_k[c0] + fx*US_k[c0]) * (VA_k[r0] + fy*VS_k[r0])
-// over a f32[4*RANK_K, 128] table (blocks UA, US, VA, VS), at grid coordinates
-// clipped to [0, 126.999], with c0 = floor(gx), fx = gx - c0 (and r0, fy).
-// The terms are summed from 0 in k order, as the plain version sums them.
+// The JAX package stores each letter as a rank-32 factorization,
+//   b(gx, gy) = sum_k (UA_k[c0] + fx*US_k[c0]) * (VA_k[r0] + fy*VS_k[r0]),
+// because Mosaic can gather only within one vreg, so a dense 2D table is out
+// on the TPU (ops/pallas/table.py:1-30 there).  On Hopper a dense 2D gather
+// is one load, so the port samples the same function in its expanded form:
+// four f32[128, 128] planes AA = UA'VA, AS = UA'VS, SA = US'VA, SS = US'VS
+// (designs/logo.py letter_planes, summed in float64 and rounded once), stored
+// interleaved as f32[128][128][4], rows r0 (y) then columns c0 (x), and
+//   b = (AA + fy*AS) + fx*(SA + fy*SS)
+// at [r0][c0], the grid coordinates clipped to [0, 126.999] with
+// c0 = floor(gx), fx = gx - c0 (and r0, fy) as the rank form clips them.
 //
-// What bounds it on Hopper: per evaluation 4*RANK_K = 128 four-byte reads at
-// two columns of the table (c0 for the x blocks, r0 for the y blocks), each a
-// stride-512 B walk down the rows, and ~200 FP32 operations.  Neighbouring
-// rays read neighbouring columns, so a warp's reads of one row fall in a few
-// 32 B sectors; the table (64 KB a letter, 192 KB for Logo's three) stays in
-// L2 and, read-only, in the SM's L1/texture cache.
+// What bounds it on Hopper: per letter evaluation one 16-byte read and 14
+// FP32 operations (clip, floor, fractions, then 3 products and 3 sums),
+// against the rank form's 128 four-byte reads and ~200 operations.  The
+// planes of a letter take 256 KB (768 KB for Logo), more than a block's
+// shared memory, so the design reads them through the read-only data cache
+// (__ldg of a float4) and leaves them in L2 and L1; rays or points that
+// step along a letter's x read neighbouring 16-byte cells of one row.  What
+// is left is the latency of one dependent load per letter, which the
+// kernels' other warps hide.
 //
-// The simple design: the table stays in global memory and is read through
-// the read-only data cache (__ldg under nvcc, plain loads on the host).
-// Three letters' tables are too large for shared memory beside a kernel's
-// bank at useful occupancy; staging them (per letter, or in bf16) is later
-// work.
+// Every product and sum is rounded on its own (mul_rn/add_rn: no FMA
+// contraction, also in the point and grid units, which build with it), so
+// the card and the host build give the plain version's bits.
 //
 // Needs common.cuh above it.
 
-constexpr int RANK_K = 32;
 constexpr int TABLE_W = 128;
 
-HD float table_load(const float* p) {
-#ifdef __CUDA_ARCH__
-    return __ldg(p);
-#else
-    return *p;
-#endif
-}
-
-HD float rank_sample(const float* tbl, float gx, float gy) {
+HD float plane_sample(const float* planes, float gx, float gy) {
     gx = fminf(fmaxf(gx, 0.0f), 126.999f);
     gy = fminf(fmaxf(gy, 0.0f), 126.999f);
     const float x0 = floorf(gx), y0 = floorf(gy);
     const float fx = gx - x0, fy = gy - y0;
-    const float* ua = tbl + (int)x0;
-    const float* us = ua + RANK_K * TABLE_W;
-    const float* va = tbl + 2 * RANK_K * TABLE_W + (int)y0;
-    const float* vs = va + RANK_K * TABLE_W;
-    float acc = 0.0f;
-#pragma unroll 8
-    for (int k = 0; k < RANK_K; ++k) {
-        const float uk = table_load(ua + k * TABLE_W) + fx * table_load(us + k * TABLE_W);
-        const float vk = table_load(va + k * TABLE_W) + fy * table_load(vs + k * TABLE_W);
-        acc = acc + uk * vk;
-    }
-    return acc;
+    const float* cell = planes + 4 * ((int)y0 * TABLE_W + (int)x0);
+#ifdef __CUDA_ARCH__
+    const float4 v = __ldg(reinterpret_cast<const float4*>(cell));
+    const float aa = v.x, as = v.y, sa = v.z, ss = v.w;
+#else
+    const float aa = cell[0], as = cell[1], sa = cell[2], ss = cell[3];
+#endif
+    return add_rn(add_rn(aa, mul_rn(fy, as)), mul_rn(fx, add_rn(sa, mul_rn(fy, ss))));
 }

@@ -13,15 +13,17 @@ Two fields per letter:
   ``x^2 + y^2 + min_j(-2 s_j.p + |s_j|^2)`` chunked over the samples, signed
   by the bitmask and clipped to the letter's plate;
 * the baked twin (``twin``, the field of every kernel): a weighted rank-32
-  factorization of the same letter field on a 128x128 grid, sampled by
-  csrc/table.cuh on the card and ops/table.py in PyTorch, within 0.02 of the
-  exact brush near the surface (``twin_approx``).
+  factorization of the same letter field on a 128x128 grid, within 0.02 of
+  the exact brush near the surface (``twin_approx``).  The kernels and the
+  twin sample it in its expanded form, four dense planes per letter
+  (:func:`letter_planes`): csrc/table.cuh ``plane_sample`` on the card,
+  ops/table.py ``plane_sample`` in PyTorch.
 
 The glyph data is committed (data/logo_glyphs.npz, extracted from
 matplotlib's DejaVuSansMono-Bold.ttf), so building Logo needs neither
 fontTools nor matplotlib; another font or letter set is read with fontTools.
-The factor tables are baked from it at build time in float64 numpy and cached
-in memory, once per process.
+The factor tables and their planes are baked from it at build time in
+float64 numpy and cached in memory, once per process.
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ from ..ops.cull import (
     iv_square,
     iv_sub,
 )
-from ..ops.table import packed_rank_sample
+from ..ops.table import PLANES, plane_sample
 
 LETTER_RESOLUTION = 64
 SUBSEGMENTS = 64
@@ -75,6 +77,7 @@ BIG = 3.0e37
 
 _GLYPHS: dict = {}
 _TABLES: dict = {}
+_PLANES: dict = {}
 
 
 def _default_font() -> str:
@@ -367,6 +370,28 @@ def _bake_letter_tables(segments, bits) -> np.ndarray:
     return table
 
 
+def letter_planes(table: np.ndarray) -> np.ndarray:
+    """The rank table's expanded form, f32[128, 128, 4]: at row ``r`` (y
+    cell) and column ``c`` (x cell) the four sums over k of
+
+        AA = UA_k[c] VA_k[r],  AS = UA_k[c] VS_k[r],
+        SA = US_k[c] VA_k[r],  SS = US_k[c] VS_k[r],
+
+    so that ``sum_k (UA_k + fx US_k)(VA_k + fy VS_k) = (AA + fy AS) + fx (SA
+    + fy SS)`` exactly.  The products are summed in float64 from the f32
+    table and rounded once to f32, which puts the planes closer to the rank
+    form's float64 value than its own f32 sum.  Rows are y and columns x, so
+    rays or points that step along a letter's x read neighbouring 16-byte
+    cells.  Cached in memory by table content."""
+    key = hashlib.sha256(np.ascontiguousarray(table, np.float32).tobytes()).hexdigest()
+    if key not in _PLANES:
+        k = table.shape[0] // 4
+        ua, us, va, vs = (np.asarray(table[i * k : (i + 1) * k], np.float64) for i in range(4))
+        planes = np.stack([va.T @ ua, vs.T @ ua, va.T @ us, vs.T @ us], axis=-1)
+        _PLANES[key] = planes.astype(np.float32)
+    return _PLANES[key]
+
+
 # ---------------------------------------------------------------------------
 # The letter brush: the exact torch field, its baked twin and the CUDA body.
 # ---------------------------------------------------------------------------
@@ -443,18 +468,18 @@ def _make_letter_brush(curve_start: int, n_curves: int, mask_start: int):
 _GRID_SCALE = (BAKE_RES - 1) / (2.0 * BAKE_L)
 
 
-def _make_letter_twin(table_name: str):
+def _make_letter_twin(planes_name: str):
     """The baked twin (designs/logo.py:378-421 of the JAX package): the
-    rank-32 table sampled at the grid coordinates of ``(2a, 2b)``, bounded
-    below beyond the bake domain by the distance to it, and clipped to the
-    plate as the brush is."""
+    rank-32 table, in its planes form, sampled at the grid coordinates of
+    ``(2a, 2b)``, bounded below beyond the bake domain by the distance to
+    it, and clipped to the plate as the brush is."""
 
     def twin(v, ctx):
         v = 2.0 * v
         x, y, z = v[..., 0], v[..., 1], v[..., 2]
         gx = (x + BAKE_L) * _GRID_SCALE
         gy = (y + BAKE_L) * _GRID_SCALE
-        bs = packed_rank_sample(ctx.extras[table_name], gx, gy)
+        bs = plane_sample(ctx.extras[planes_name], gx, gy)
         # Beyond the bake domain the clamped sample is stale; the distance to
         # the domain's rectangle bounds the field from below.  The epsilon
         # keeps sqrt differentiable where both are 0 (fit_field="twin").
@@ -466,16 +491,16 @@ def _make_letter_twin(table_name: str):
     return twin
 
 
-def letter_cuda(table_name: str) -> str:
-    """The CUDA body of the twin: csrc/table.cuh's ``rank_sample`` (K6) on
-    the letter's table at ``ex + EX_<table_name>``, in the torch twin's
+def letter_cuda(planes_name: str) -> str:
+    """The CUDA body of the twin: csrc/table.cuh's ``plane_sample`` (K6) on
+    the letter's planes at ``ex + EX_<planes_name>``, in the torch twin's
     order of operations."""
     L, gs, T = f32_literal(BAKE_L), f32_literal(_GRID_SCALE), f32_literal(THICKNESS)
     q, e = f32_literal(1.25), f32_literal(0.125)
     return "\n    ".join(
         [
             "const float x = 2.0f * a, y = 2.0f * b, z = 2.0f * c;",
-            f"float bs = rank_sample(ex + EX_{table_name}, (x + {L}) * {gs}, (y + {L}) * {gs});",
+            f"float bs = plane_sample(ex + EX_{planes_name}, (x + {L}) * {gs}, (y + {L}) * {gs});",
             f"const float ox = fmaxf(fabsf(x) - {L}, 0.0f), oy = fmaxf(fabsf(y) - {L}, 0.0f);",
             f"bs = fmaxf(bs, sqrtf(ox * ox + oy * oy + 1e-30f) - {T});",
             f"const float box = fmaxf(fabsf(x) - {q}, fmaxf(fabsf(y) - {q}, fabsf(z) - {q}));",
@@ -484,13 +509,23 @@ def letter_cuda(table_name: str) -> str:
     )
 
 
-# FP32 operations of one call of letter_cuda's body: 2a, 2b, 2c (3); the grid
-# coordinates (4); rank_sample (RANK_SAMPLE_FLOPS); the bound beyond the bake
-# domain (6 + 7); the box (8), the slab (3) and two maxima (2).
-RANK_SAMPLE_FLOPS = 8 + 6 * BAKE_RANK  # clip, floor, fractions; 3 mul+add per term
-LETTER_FLOPS = 3 + 4 + RANK_SAMPLE_FLOPS + 13 + 8 + 3 + 2
-# Four-byte table reads per letter evaluation: UA, US, VA, VS per term.
-LETTER_TABLE_READS = 4 * BAKE_RANK
+# FP32 operations of one letter evaluation around K6: 2a, 2b, 2c (3); the
+# grid coordinates (4); the bound beyond the bake domain (6 + 7); the box
+# (8), the slab (3) and two maxima (2).
+_LETTER_CLIP_FLOPS = 3 + 4 + 13 + 8 + 3 + 2
+# The rank form's sampler: clip, floor, fractions (8); 3 mul+add per term.
+RANK_SAMPLE_FLOPS = 8 + 6 * BAKE_RANK
+# The letter's cost as the JAX package's rank form counts it.  The cull's
+# cost-aware grouping reads it (``cuda_flops``), so Logo's groups stay the
+# JAX package's.
+LETTER_FLOPS = _LETTER_CLIP_FLOPS + RANK_SAMPLE_FLOPS
+# What letter_cuda's body runs: csrc/table.cuh plane_sample's clip, floor and
+# fractions (8) and (AA + fy*AS) + fx*(SA + fy*SS) (6); the kernels' bound
+# counts this.
+PLANE_SAMPLE_FLOPS = 8 + 6
+LETTER_PLANE_FLOPS = _LETTER_CLIP_FLOPS + PLANE_SAMPLE_FLOPS
+# Table bytes per letter evaluation: one 16-byte cell of the planes.
+LETTER_TABLE_BYTES = 4 * PLANES
 
 
 # The interval twin of the cull bounds the letter by max(box, slab) below and
@@ -564,15 +599,18 @@ def _letter_component(c, letter: str, segments, bits, transform, index: int):
     c.add_arbitrary_data(f"NUMCURVES_{letter}", [float(len(segments))])
     curve_start = c.add_arbitrary_data(f"CURVEDATA_{letter}", curvedata)
     table_name = f"logo_{index}_{letter}"
+    planes_name = f"{table_name}_planes"
+    table = _bake_letter_tables(segments, bits)
     interval, interval_cuda = _letter_interval(letter_anchors(segments))
     brush = c.define_brush(
         _make_letter_brush(curve_start, len(segments), mask_start),
         name=f"letter_{letter}",
-        cuda=letter_cuda(table_name),
+        cuda=letter_cuda(planes_name),
         cuda_flops=LETTER_FLOPS,
-        twin=_make_letter_twin(table_name),
+        twin=_make_letter_twin(planes_name),
         twin_approx=TWIN_APPROX,
-        extras={table_name: _bake_letter_tables(segments, bits)},
+        extras={table_name: table},
+        derived_extras={planes_name: letter_planes(table)},
         interval=interval,
         interval_cuda=interval_cuda,
     )

@@ -108,7 +108,17 @@ class BatchEvaluator:
             make_point_eval(scene, gizmo=self.gizmo) if self.use_kernels
             else make_primary_sdf(scene, gizmo=self.gizmo)
         )
-        self._normal = make_normal_fn(self.point_eval, mode=normal_mode)
+        normal = make_normal_fn(self.point_eval, mode=normal_mode)
+        # The SDF and its FD normal: on the kernels' field one launch of K1's
+        # FD form per chunk (ops/cuda/sdf_kernel.py), else the composition
+        # that launch equals.
+        if self.use_kernels:
+            self._sdf_normal = self.point_eval.fd
+            self._normal = lambda points, arrays: self._sdf_normal(points, arrays)[1]
+        else:
+            self._sdf_normal = lambda points, arrays: (
+                self.point_eval(points, arrays), normal(points, arrays))
+            self._normal = normal
         self.set_arrays(arrays if arrays is not None else scene.arrays)
         # Every point evaluated through this evaluator is counted; an FD
         # normal counts as NORMAL_EVAL_COST tape evaluations.
@@ -222,7 +232,8 @@ class BatchEvaluator:
         """The Newton-projection loop ``p <- p - n(p)*sdf(p)`` (the reference's
         "gradient descent", mesh.hpp:540-590), with the vertices kept on the
         device across steps: each step is one SDF evaluation and one FD
-        normal (7 point evaluations), chunk by chunk."""
+        normal (7 point evaluations; on the kernels' field one launch of K1's
+        FD form), chunk by chunk."""
         v = np.asarray(vertices, dtype=np.float32)
         n = v.shape[0]
         self.sdf_eval_count += int(steps) * n * (1 + NORMAL_EVAL_COST)
@@ -230,8 +241,7 @@ class BatchEvaluator:
         for start in range(0, n, self.chunk_size):
             p = torch.from_numpy(v[start : start + self.chunk_size]).to(self.device)
             for _ in range(int(steps)):
-                s = self.point_eval(p, self.device_arrays)
-                nrm = self._normal(p, self.device_arrays)
+                s, nrm = self._sdf_normal(p, self.device_arrays)
                 p = p - step_scale * nrm * s[:, None]
             out[start : start + p.shape[0]] = p.cpu().numpy()
         return out

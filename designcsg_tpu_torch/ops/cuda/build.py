@@ -36,9 +36,15 @@ NVCC_FLAGS = (
 # ray stops at, and with contraction a 640x480 Design1 frame had a pixel
 # 1.16e-3 off its plain version on an H100 (PERF.md).  The point and grid
 # kernels keep contraction, and so does ``march_fma``, the same renderer
-# source built with contraction so that chip_smoke.py can time both.
+# source built with contraction so that chip_smoke.py can time both.  K1's
+# FD form is the point unit's source built without contraction (``sdf_fd``):
+# its normal divides differences of the field by 2 * 0.005, and where the
+# gradient is small a contracted field, within 1e-6 of the plain one, moved
+# Design2's normals by up to 0.019 on an H100 (PERF.md); built so, it gives
+# its plain version's bits.
 EXTRA_FLAGS = {
     "march": ("-fmad=false",), "cone": ("-fmad=false",), "ray_march": ("-fmad=false",),
+    "sdf_fd": ("-fmad=false",),
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

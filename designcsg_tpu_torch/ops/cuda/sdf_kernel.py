@@ -23,7 +23,7 @@ import torch
 
 from ...compiler import CompiledScene, SceneArrays
 from ..cull import array_bank_reader, make_culled_sdf, make_tape_culler, stack_cull
-from ..interpreter import eval_context, make_primary_sdf
+from ..interpreter import eval_context, make_normal_fn, make_primary_sdf
 from .build import bank_pointers, check_launch, load, on_cuda, ptr, require_cuda_f32, stream_handle
 from .tape import sdf_kernel_source
 
@@ -32,10 +32,14 @@ _F = ctypes.c_float
 _I = ctypes.c_int
 
 
-def _library(scene: CompiledScene, gizmo: bool) -> ctypes.CDLL:
-    lib = load("sdf", sdf_kernel_source(scene, gizmo))
+def _library(scene: CompiledScene, gizmo: bool, fd: bool = False) -> ctypes.CDLL:
+    """The point/grid unit, or with ``fd`` the same source built without FMA
+    contraction for K1's FD form (build.EXTRA_FLAGS)."""
+    lib = load("sdf_fd" if fd else "sdf", sdf_kernel_source(scene, gizmo))
     lib.launch_point_eval.argtypes = [_P, _P, ctypes.c_longlong] + [_P] * 7
     lib.launch_point_eval.restype = ctypes.c_int
+    lib.launch_point_eval_fd.argtypes = [_P, _P, _P, ctypes.c_longlong] + [_P] * 7
+    lib.launch_point_eval_fd.restype = ctypes.c_int
     for fn in (lib.launch_grid_eval, lib.launch_grid_eval_cull):
         fn.argtypes = [_P, _I, _I, _I, _F, _F, _F, _F, _F] + [_P] * 7
         fn.restype = ctypes.c_int
@@ -52,32 +56,69 @@ def make_point_eval(scene: CompiledScene, gizmo: bool = False):
     """``point_eval(points f32[N, 3], arrays) -> f32[N]``, the SDF (twin
     field) at arbitrary points: the k2 field, or with ``gizmo`` the k1 field
     (the tape min-ed with the axis gizmo, sdf_kernel.py:76-90 of the JAX
-    package).  ``point_eval.plain`` is its plain version."""
+    package).  ``point_eval.plain`` is its plain version.
+
+    ``point_eval.fd(points, arrays) -> (f32[N], f32[N, 3])`` is K1 in its FD
+    form: the same SDF and its central-difference normal (six more
+    evaluations at ``NORMAL_EPSILON``) from one launch (kernel
+    ``point_eval_fd``, with ``gizmo`` ``point_eval_fd_gizmo``; the unit
+    built without FMA contraction, so that every product and sum rounds as
+    in the plain version), in the order of its plain version
+    ``point_eval.fd.plain``: ``point_eval.plain`` composed with
+    ops/interpreter.py ``make_normal_fn``."""
     plain = make_primary_sdf(scene, gizmo=gizmo, field="twin")
+    plain_normal = make_normal_fn(plain)
     name = kernel_name("point_eval", gizmo)
+    fd_name = kernel_name("point_eval_fd", gizmo)
     libs = {}
 
-    def point_eval(points: torch.Tensor, arrays: SceneArrays) -> torch.Tensor:
-        if not on_cuda(points):
-            return plain(points, arrays)
+    def checked(points: torch.Tensor, fd: bool = False):
         device = points.device
         require_cuda_f32("points", points, device)
         if points.ndim != 2 or points.shape[1] != 3:
             raise ValueError(f"points must be [N, 3], got {tuple(points.shape)}")
-        if "lib" not in libs:
-            libs["lib"] = _library(scene, gizmo)
+        if fd not in libs:
+            libs[fd] = _library(scene, gizmo, fd)
+        return device, libs[fd]
+
+    def point_eval(points: torch.Tensor, arrays: SceneArrays) -> torch.Tensor:
+        if not on_cuda(points):
+            return plain(points, arrays)
+        device, lib = checked(points)
         n = points.shape[0]
         out = torch.empty((n,), dtype=torch.float32, device=device)
         if n == 0:
             return out
-        rc = libs["lib"].launch_point_eval(
+        rc = lib.launch_point_eval(
             ptr(points), ptr(out), n, *bank_pointers(scene, arrays, device), stream_handle(device)
         )
         check_launch(name, rc)
         return out
 
+    def fd_plain(points: torch.Tensor, arrays: SceneArrays):
+        return plain(points, arrays), plain_normal(points, arrays)
+
+    def fd(points: torch.Tensor, arrays: SceneArrays):
+        if not on_cuda(points):
+            return fd_plain(points, arrays)
+        device, lib = checked(points, fd=True)
+        n = points.shape[0]
+        out = torch.empty((n,), dtype=torch.float32, device=device)
+        normal = torch.empty((n, 3), dtype=torch.float32, device=device)
+        if n == 0:
+            return out, normal
+        rc = lib.launch_point_eval_fd(
+            ptr(points), ptr(out), ptr(normal), n, *bank_pointers(scene, arrays, device),
+            stream_handle(device),
+        )
+        check_launch(fd_name, rc)
+        return out, normal
+
     point_eval.plain = plain
     point_eval.kernel = name
+    fd.plain = fd_plain
+    fd.kernel = fd_name
+    point_eval.fd = fd
     return point_eval
 
 

@@ -162,7 +162,11 @@ def make_normal_fn(sdf_fn: Callable, mode: str = "fd", epsilon: float = NORMAL_E
     """Surface normals ``normals(points, arrays) -> f32[..., 3]`` by the
     reference's central finite differences: 6 extra SDF evals at offset
     ``epsilon``, divided by ``2*epsilon`` and normalized (k1.cl:381-418).
-    The analytic mode is not ported yet (ROADMAP.md queue 1, item 4)."""
+    The norm's square root is taken through float64, so it is IEEE-rounded
+    on every device (PyTorch's float32 ``sqrt`` on the CPU can be an ulp off)
+    and the glue gives the bits of K1's FD form (csrc/common.cuh
+    ``sdf_fd_normal``) over the same seven field values.  The analytic mode
+    is not ported yet (ROADMAP.md queue 1, item 4)."""
     if mode != "fd":
         raise NotImplementedError(
             f"normal mode {mode!r} is not ported yet (ROADMAP.md queue 1, item 4)"
@@ -176,6 +180,6 @@ def make_normal_fn(sdf_fn: Callable, mode: str = "fd", epsilon: float = NORMAL_E
             offset[axis] = e
             g.append(sdf_fn(points + offset, arrays) - sdf_fn(points - offset, arrays))
         g = torch.stack(g, dim=-1) / (2.0 * e)
-        return g / torch.sqrt(dot3(g, g))[..., None]
+        return g / torch.sqrt(dot3(g, g).double()).to(g.dtype)[..., None]
 
     return normals

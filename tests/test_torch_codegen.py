@@ -25,11 +25,12 @@ from designcsg_tpu_torch import api
 from designcsg_tpu_torch.camera import Camera
 from designcsg_tpu_torch.config import RenderConfig
 from designcsg_tpu_torch.designs import get_design
+from designcsg_tpu_torch.evaluator import BatchEvaluator
 from designcsg_tpu_torch.ops import cull
 from designcsg_tpu_torch.ops.cuda.build import csrc
 from designcsg_tpu_torch.ops.cuda.sdf_kernel import make_grid_eval
 from designcsg_tpu_torch.ops.cuda.tape import cull_chain_ops, cull_mode, scene_source, sdf_kernel_source
-from designcsg_tpu_torch.ops.interpreter import eval_context, make_primary_sdf
+from designcsg_tpu_torch.ops.interpreter import eval_context, make_normal_fn, make_primary_sdf
 from designcsg_tpu_torch.ops.raymarch import (
     camera_rows,
     coarse_ray_uv,
@@ -40,6 +41,7 @@ from designcsg_tpu_torch.ops.raymarch import (
     project,
     ray_directions,
 )
+from designcsg_tpu_torch.ops.table import plane_sample
 
 _P = ctypes.c_void_p
 RENDER = RenderConfig(width=128, height=32, max_steps=80)
@@ -120,6 +122,8 @@ def host_libs(tmp_path_factory):
         assert proc.returncode == 0, err
         lib = ctypes.CDLL(str(so))
         lib.host_point_eval.argtypes = [_P, _P, ctypes.c_longlong, _P, _P, _P]
+        lib.host_point_eval_fd.argtypes = [_P, _P, _P, ctypes.c_longlong, _P, _P, _P]
+        lib.host_plane_sample.argtypes = [_P, ctypes.c_longlong, _P, _P, _P]
         if "cull" in key[1]:
             lib.host_cull_tile.argtypes = [_P] * 6
         if "cull" in key[1] and not key[1].startswith("sdf"):
@@ -283,7 +287,7 @@ def test_generated_ray_march_matches_plain(host_libs, name, kind):
 
 def test_generated_logo_k6_matches_plain_twin(host_libs):
     """K6 on the host: Logo's generated tape (three letters, each sampling its
-    baked table through ``rank_sample``) against the plain twin tape within
+    baked planes through ``plane_sample``) against the plain twin tape within
     1e-6, and away from the exact brush where the twin differs from it."""
     scenes, libs = host_libs
     scene = scenes["logo"]
@@ -298,6 +302,84 @@ def test_generated_logo_k6_matches_plain_twin(host_libs):
     assert (ref < 0).sum() > 100
     np.testing.assert_allclose(out, ref, atol=1e-6)
     assert np.abs(out - exact).max() > 1e-3
+
+
+def test_host_plane_sample_bit_equal_to_plain(host_libs):
+    """K6's C++ (csrc/table.cuh ``plane_sample``, every product and sum
+    rounded on its own) against ops/table.py's plain version on each
+    letter's planes: the same bits."""
+    scenes, libs = host_libs
+    rng = np.random.default_rng(6)
+    gx, gy = rng.uniform(-1.0, 128.0, (2, 65536)).astype(np.float32)
+    for name, planes in scenes["logo"].derived_extras:
+        planes = np.ascontiguousarray(planes, np.float32)
+        out = np.empty(len(gx), np.float32)
+        libs[("logo", "sdf")].host_plane_sample(out.ctypes.data, len(gx), planes.ctypes.data,
+                                                gx.ctypes.data, gy.ctypes.data)
+        ref = plane_sample(torch.from_numpy(planes), torch.from_numpy(gx), torch.from_numpy(gy))
+        np.testing.assert_array_equal(out, ref.numpy(), err_msg=name)
+
+
+# The host units of each design without and with the gizmo in their field.
+FIELD_UNITS = {("design1", False): "sdf", ("design1", True): "gizmo", ("design2", False): "sdf",
+               ("design2", True): "fast", ("logo", False): "sdf", ("logo", True): "render"}
+
+
+@pytest.mark.parametrize("gizmo", [False, True])
+@pytest.mark.parametrize("name", ["design1", "design2", "logo"])
+def test_host_point_eval_fd_matches_point_eval_and_normal(host_libs, name, gizmo):
+    """K1's FD form on the host (csrc/common.cuh ``sdf_fd_normal``): the SDF
+    and normal equal, bit for bit, the host point evaluation composed with
+    the plain FD glue (ops/interpreter.py ``make_normal_fn``), and the plain
+    tape composed with the same glue within 1e-6 and 1e-4 (PyTorch's float32
+    square root on the CPU, inside the brushes, can be an ulp off C's; the
+    normal divides field differences by 0.01)."""
+    scenes, libs = host_libs
+    scene, lib = scenes[name], libs[(name, FIELD_UNITS[(name, gizmo)])]
+    half = 3.4 if name == "logo" else 6.0
+    pts = np.random.default_rng(7).uniform(-half, half, (4096, 3)).astype(np.float32)
+    pts[:64, 1] = -0.0  # the glue's +0 turns -0 into +0; so must the kernel's
+    out, normal = np.empty(len(pts), np.float32), np.empty((len(pts), 3), np.float32)
+    bank, ex = _bank(scene.arrays), _extras(scene)
+    lib.host_point_eval_fd(pts.ctypes.data, out.ctypes.data, normal.ctypes.data, len(pts),
+                           bank.ctypes.data, scene.arrays.ad.ctypes.data, _ptr(ex))
+
+    def host_point_eval(p, arrays=None):
+        return torch.from_numpy(_point_eval(lib, scene, np.ascontiguousarray(p.numpy())))
+
+    tpts = torch.from_numpy(pts)
+    np.testing.assert_array_equal(out, host_point_eval(tpts).numpy())
+    np.testing.assert_array_equal(normal, make_normal_fn(host_point_eval)(tpts).numpy())
+    plain = make_primary_sdf(scene, gizmo=gizmo, field="twin")
+    np.testing.assert_allclose(out, plain(tpts).numpy(), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(normal, make_normal_fn(plain)(tpts).numpy(), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(np.linalg.norm(normal, axis=1), 1.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["design1", "logo"])
+def test_refine_through_fd_wrapper_equals_point_and_normal_loop(host_libs, name):
+    """``BatchEvaluator.refine_on_device`` on the kernels' field takes K1's
+    FD form (one launch per chunk and step on the card); on the CPU its
+    plain version equals the loop it replaced, a point evaluation and an FD
+    normal per step, bit for bit."""
+    scenes, _ = host_libs
+    scene = scenes[name]
+    half = 3.4 if name == "logo" else 6.0
+    v = np.random.default_rng(8).uniform(-half, half, (3000, 3)).astype(np.float32)
+    ev = BatchEvaluator(scene, device="cpu", use_kernels=True, chunk_size=1024)
+    got = ev.refine_on_device(v, steps=3)
+    sdf = make_primary_sdf(scene, field="twin")
+    normal = make_normal_fn(sdf)
+    arrays = scene.arrays.to_torch("cpu")
+    ref = np.empty_like(v)
+    for start in range(0, len(v), 1024):
+        p = torch.from_numpy(v[start : start + 1024])
+        for _ in range(3):
+            p = p - 1.0 * normal(p, arrays) * sdf(p, arrays)[:, None]
+        ref[start : start + len(p)] = p.numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert ev.sdf_eval_count == 3 * len(v) * 7
+    assert np.abs(got - v).max() > 1e-3
 
 
 def test_generated_logo_render_matches_plain(host_libs):

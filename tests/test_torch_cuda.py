@@ -433,3 +433,64 @@ def test_scene_without_cuda_bodies_runs_on_card(cuda_device):
     render = make_scene_renderer(scene, RenderConfig(width=64, height=48), cuda_device)
     assert render.engine == "tape"
     assert torch.isfinite(render(scene.arrays.to_torch(cuda_device), *Camera.initial().as_arrays())).all()
+
+
+@pytest.mark.parametrize("gizmo", [False, True])
+@pytest.mark.parametrize("name", ["design1", "design2", "logo"])
+def test_point_eval_fd_kernel(name, gizmo, cuda_device):
+    """K1's FD form (one launch: the SDF and its FD normal) against its plain
+    version, the plain SDF composed with the plain FD glue: both within
+    1e-5 + 1e-6|ref| (the unit builds without FMA contraction), and the
+    normals of unit length."""
+    scene = get_design(name)
+    arrays = scene.arrays.to_torch(cuda_device)
+    half = 3.5 if name == "logo" else 6.0
+    pts = torch.from_numpy(np.random.default_rng(11).uniform(-half, half, (70_001, 3))
+                           .astype(np.float32)).to(cuda_device)
+    fd = make_point_eval(scene, gizmo=gizmo).fd
+    before = kbuild.LAUNCHES[fd.kernel]
+    sdf, normal = fd(pts, arrays)
+    torch.cuda.synchronize()
+    assert kbuild.LAUNCHES[fd.kernel] == before + 1
+    sdf_ref, normal_ref = fd.plain(pts, arrays)
+    assert _close(sdf, sdf_ref) and _close(normal, normal_ref)
+    assert float((normal.norm(dim=1) - 1.0).abs().max()) <= 1e-5
+
+
+def test_refine_makes_one_fd_launch_per_chunk_and_step(design1, cuda_device):
+    """The export's refine on the card: one K1 launch (its FD form) per chunk
+    and step, none of the single-point kernel, and the vertices of the same
+    loop on the plain tape on the card (point evaluations and the plain FD
+    glue) within 1e-5."""
+    scene, _ = design1
+    v = np.random.default_rng(12).uniform(-3.0, 3.0, (5000, 3)).astype(np.float32)
+    ev = BatchEvaluator(scene, chunk_size=2048)
+    before = dict(kbuild.LAUNCHES)
+    got = ev.refine_on_device(v, steps=4)
+    launched = {k: kbuild.LAUNCHES[k] - before.get(k, 0) for k in ("point_eval", "point_eval_fd")}
+    assert launched == {"point_eval": 0, "point_eval_fd": 3 * 4}
+    ref = BatchEvaluator(scene, use_kernels=False, chunk_size=2048).refine_on_device(v, 4)
+    assert np.abs(got - ref).max() <= 1e-5
+
+
+def test_logo_planes_and_cone_on_card(logo, cuda_device):
+    """K6's planes against the rank sum they expand, both plain on the card
+    (atol 1e-6), and K5 on Logo's baked field against its plain version."""
+    from designcsg_tpu_torch.ops.table import packed_rank_sample, plane_sample
+
+    scene, arrays = logo
+    _, tables = scene.device_extras(cuda_device)
+    g = torch.from_numpy(np.random.default_rng(13).uniform(-1, 128, (2, 1 << 18)).astype(np.float32))
+    gx, gy = g.to(cuda_device)
+    for name, _ in scene.extras:
+        got = plane_sample(tables[f"{name}_planes"], gx, gy)
+        assert float((got - packed_rank_sample(tables[name], gx, gy)).abs().max()) <= 1e-6
+    config = RenderConfig(march_overrelax=1.6, march_hierarchical=True)
+    cone = make_cuda_cone_march(scene, config)
+    rows = camera_rows(*Camera.initial().as_arrays())
+    rays = project(torch.from_numpy(coarse_ray_uv(config)), *torch.from_numpy(rows[1:])).to(cuda_device)
+    got, ref = cone(arrays, rows[0], rays), cone.plain(arrays, rows[0], rays)
+    far = config.max_distance
+    assert float(((got > far) == (ref > far)).float().mean()) >= 0.99
+    both = (got <= far) & (ref <= far)
+    assert float((got - ref).abs()[both].max()) <= 1e-4
