@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""A/B of the port's unculled renderer kernels (exact, over-relaxed, from a
-t0 plane), its grid kernel, its point kernel (K1, and its FD form where the
-tree has one), the fit's ray march (K4) and the export's refine between two
-trees of this repository, on one card, in one run:
+"""A/B of the port's renderer kernels (exact, over-relaxed, from a t0
+plane, and culled: hoisted and dynamic, from the camera and from the t0
+plane), its grid kernel, its point kernel (K1, and its FD form where the
+tree has one), its cone prepass (K5), the fit's ray march (K4) and the
+export's refine between two trees of this repository, on one card, in one
+run:
 
     python3 ab_render_timing.py PARENT_DIR [--out RESULTS.json]
 
@@ -13,11 +15,24 @@ its own build directory.  Per tree and design it prints each kernel's time by
 CUDA events (mean over back-to-back calls) and by torch.profiler (mean of its
 records) and the ``-Xptxas -v`` registers of the kernel: the renderers at
 640x480, the grid over a 33x257x257 slab, K1 at 2^20 uniform points in the
-design's box, K4 on the fit's 640x480 rays (bench.py's fit configuration);
-and the seconds of ``BatchEvaluator.refine_on_device`` (the kernels' field)
-over 2^20 + 40,000 such points and 50 steps, two chunks as in bench.py's
-512^3 export, with the launches it made.  Compare two trees only within one
-run: the card's clocks and power limit move between runs.
+design's box, K5 on the hierarchical frame's block rays, K4 on the fit's
+640x480 rays (bench.py's fit configuration); and the seconds of
+``BatchEvaluator.refine_on_device`` (the kernels' field) over 2^20 + 40,000
+such points and 50 steps, two chunks as in bench.py's 512^3 export, with
+the launches it made.  One kernel per profiler window.  A unit whose object
+bank lies in constant memory fills it before each launch (csrc/common.cuh
+``prepare_bank``: ``interleave_bank_kernel`` and a device-to-device copy to
+the symbol); its device ms is the kernel's mean record plus the fill's
+(``bank_ms``, also printed), so both trees are timed for the same work.
+
+Levers, timed beside each tree's own units in the same process: K4 with
+``__launch_bounds__(128, 4)`` and ``(128, 8)`` (at most 128 and 64
+registers), in a tree whose K4 source declares ``__launch_bounds__(RAY_THREADS)``;
+in a tree with the generated ``BANK_CONSTANT``, every renderer mode and K4
+with the other bank placement, the dynamic cull with other margins of its
+held box (``CULL_HOLD``) and with the one-thread chain (``cull_tile``)
+in place of its lane chain, and K1, K3 and K5 with the constant bank.  Compare two trees only
+within one run: the card's clocks and power limit move between runs.
 """
 import argparse
 import json
@@ -26,7 +41,7 @@ import subprocess
 import sys
 
 CHILD = r'''
-import json, re, time
+import dataclasses, json, re, time
 import numpy as np
 import torch
 from torch.autograd import DeviceType
@@ -39,16 +54,27 @@ from designcsg_tpu_torch.evaluator import BatchEvaluator
 from designcsg_tpu_torch.ops.cuda.march_kernel import (make_cuda_cone_march, make_cuda_ray_march,
                                                        make_cuda_renderer)
 from designcsg_tpu_torch.ops.cuda.sdf_kernel import make_grid_eval, make_point_eval
-from designcsg_tpu_torch.ops.cuda.tape import (march_kernel_source, ray_march_kernel_source,
-                                               sdf_kernel_source)
+from designcsg_tpu_torch.ops.cuda import march_kernel as mk, sdf_kernel as sk
+from designcsg_tpu_torch.ops.cuda.tape import (cone_kernel_source, march_kernel_source,
+                                               ray_march_kernel_source, sdf_kernel_source)
 from designcsg_tpu_torch.ops.raymarch import camera_rows, coarse_ray_uv, project, ray_directions
 
 dev = torch.device("cuda")
 cam = Camera.initial().as_arrays()
 HIER = RenderConfig(march_overrelax=1.6, march_hierarchical=True)
-MODES = (("exact", RenderConfig()), ("overrelax", RenderConfig(march_overrelax=1.6)), ("t0", HIER))
+MODES = (("exact", RenderConfig()), ("overrelax", RenderConfig(march_overrelax=1.6)), ("t0", HIER),
+         ("hoisted", RenderConfig(march_cull=True)), ("dynamic", RenderConfig(march_cull="dynamic")),
+         ("t0 hoisted", dataclasses.replace(HIER, march_cull=True)),
+         ("t0 dynamic", dataclasses.replace(HIER, march_cull="dynamic")))
 FIT = RenderConfig(differentiable=True, soft_silhouette_bandwidth=0.02, gizmo=False)
 FD = "sdf_fd" in kbuild.EXTRA_FLAGS  # this tree has K1's FD form
+LB = "__launch_bounds__(RAY_THREADS)"
+LEVERS = "#define BANK_CONSTANT" in march_kernel_source(get_design("design2"), RenderConfig())
+HOLD = "CULL_HOLD" in march_kernel_source(get_design("design2"), RenderConfig(march_cull="dynamic"))
+# The dynamic cull's chain call (march.cuh march_dynamic) and the one-thread
+# chain that can take its place.
+LANES = "cull_tile_lanes(held.x, held.y, held.z, lane_bank, ad, ex, tile.preds, tile.substs);"
+ONE_THREAD = "cull_tile(held.x, held.y, held.z, bank, ad, ex, tile.preds, tile.substs);"
 
 
 def registers(log, kernel):
@@ -69,59 +95,156 @@ def events_ms(fn, n=50):
     return a.elapsed_time(b) / n
 
 
+BANK_FILL = ("interleave_bank_kernel", "Memcpy DtoD")
+
+
 def device_ms(fn, name, n=20):
+    """(the mean record of kernel ``name`` plus the mean of each bank-fill
+    record, the bank fill's part, the names of every device record) over
+    ``n`` calls of ``fn``."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    d = [(e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
-         if e.device_type == DeviceType.CUDA and name in e.name]
-    return sum(d) / len(d) if d else None
+    recs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    def mean(key):
+        d = [(e.time_range.end - e.time_range.start) / 1e3 for e in recs if key in e.name]
+        return sum(d) / len(d) if d else 0.0
+
+    kernel = mean(name)
+    fill = sum(mean(f) for f in BANK_FILL)
+    return (kernel + fill if kernel else None), fill, sorted({e.name for e in recs})
+
+
+def timed(call, kernel, regs, n=50):
+    dev_ms, bank_ms, names = device_ms(call, kernel)
+    return dict(ms=events_ms(call, n), device_ms=dev_ms, bank_ms=bank_ms, records=names,
+                registers=regs)
+
+
+def variant(module, fn_name, transform, make, first_call):
+    """A wrapper made by ``make()`` whose unit is ``transform`` of the
+    tree's source (``module.fn_name``), built and loaded by ``first_call``."""
+    orig = getattr(module, fn_name)
+    setattr(module, fn_name, lambda *a, **k: transform(orig(*a, **k)))
+    try:
+        w = make()
+        first_call(w)
+        return w
+    finally:
+        setattr(module, fn_name, orig)
+
+
+def toggle(src, name):
+    """``src`` with the generated ``#define name 0/1`` flipped."""
+    on = f"#define {name} 1" in src
+    return src.replace(f"#define {name} {int(on)}", f"#define {name} {int(not on)}")
+
+
+def other_bank(src):
+    return toggle(src, "BANK_CONSTANT")
 
 
 out = {}
 for n in ("design1", "design2", "logo"):
     s = get_design(n)
-    logs = kbuild.build({key: ("march", march_kernel_source(s, cfg)) for key, cfg in MODES})
+    units = {key: ("march", march_kernel_source(s, cfg)) for key, cfg in MODES}
+    if LEVERS:
+        units.update({f"{key} other bank": ("march", other_bank(march_kernel_source(s, cfg)))
+                      for key, cfg in MODES})
+    logs = kbuild.build(units)
     a = s.arrays.to_torch(dev)
     rows = camera_rows(*cam)
     rays = project(torch.from_numpy(coarse_ray_uv(HIER)).to(dev), *torch.as_tensor(rows[1:], device=dev))
     f = HIER.hierarchical_factor
-    t0 = make_cuda_cone_march(s, HIER)(a, rows[0], rays)
+    cone = make_cuda_cone_march(s, HIER)
+    t0 = cone(a, rows[0], rays)
     t0 = t0.repeat_interleave(f, 0).repeat_interleave(f, 1).contiguous()
     for key, cfg in MODES:
         r = make_cuda_renderer(s, cfg)
-        call = (lambda r=r, t=t0 if key == "t0" else None: r(a, *cam, t0=t))
-        regs = re.findall(r"Used (\d+) registers", logs[key])
-        out[f"{n} {key}"] = dict(ms=events_ms(call), device_ms=device_ms(call, "render_kernel"),
-                                 registers=int(regs[-1]) if regs else None)
+        call = (lambda r=r, t=t0 if key.startswith("t0") else None: r(a, *cam, t0=t))
+        out[f"{n} {key}"] = timed(call, "render_kernel", registers(logs[key], "render_kernel"), 20)
+        if HOLD and key.endswith("dynamic"):
+            for m in (0.25, 4.0, 16.0):
+                tf = lambda src, m=m: re.sub(r"constexpr float CULL_HOLD = [^;]*;",
+                                             f"constexpr float CULL_HOLD = {m}f;", src)
+                r = variant(mk, "march_kernel_source", tf, lambda cfg=cfg: make_cuda_renderer(s, cfg),
+                            lambda w, t=t0 if key.startswith("t0") else None: w(a, *cam, t0=t))
+                call = (lambda r=r, t=t0 if key.startswith("t0") else None: r(a, *cam, t0=t))
+                out[f"{n} {key} hold {m}"] = timed(call, "render_kernel", None, 20)
+        if LANES in march_kernel_source(s, cfg) and key.endswith("dynamic"):
+            tf = lambda src: src.replace(LANES, ONE_THREAD)
+            r = variant(mk, "march_kernel_source", tf, lambda cfg=cfg: make_cuda_renderer(s, cfg),
+                        lambda w, t=t0 if key.startswith("t0") else None: w(a, *cam, t0=t))
+            call = (lambda r=r, t=t0 if key.startswith("t0") else None: r(a, *cam, t0=t))
+            out[f"{n} {key} one-thread chain"] = timed(call, "render_kernel", None, 20)
+        if LEVERS:
+            r = variant(mk, "march_kernel_source", other_bank, lambda cfg=cfg: make_cuda_renderer(s, cfg),
+                        lambda w, t=t0 if key.startswith("t0") else None: w(a, *cam, t0=t))
+            call = (lambda r=r, t=t0 if key.startswith("t0") else None: r(a, *cam, t0=t))
+            out[f"{n} {key} other bank"] = timed(call, "render_kernel",
+                                                 registers(logs[f"{key} other bank"], "render_kernel"), 20)
+    call = lambda: cone(a, rows[0], rays)
+    out[f"{n} cone"] = timed(call, "cone_march_kernel", None, 100)
     g = make_grid_eval(s)
     call = lambda: g(a, np.full(3, -3.5, np.float32), np.float32(7.0 / 256), 112.0, 33, 257)
-    out[f"{n} grid"] = dict(ms=events_ms(call, 100), device_ms=device_ms(call, "grid_eval_kernel"))
-    units = {"sdf": ("sdf", sdf_kernel_source(s)), "ray_march": ("ray_march", ray_march_kernel_source(s, FIT))}
+    out[f"{n} grid"] = timed(call, "grid_eval_kernel", None, 100)
+    rm_src = ray_march_kernel_source(s, FIT)
+    units = {"sdf": ("sdf", sdf_kernel_source(s)), "ray_march": ("ray_march", rm_src)}
     if FD:
         units["sdf_fd"] = ("sdf_fd", sdf_kernel_source(s))
+    if LB in rm_src:
+        units.update({f"ray_march lb{k}": ("ray_march", rm_src.replace(LB, f"__launch_bounds__(RAY_THREADS, {k})"))
+                      for k in (4, 8)})
+    if LEVERS:
+        units["ray_march other bank"] = ("ray_march", other_bank(rm_src))
+        units["sdf constant bank"] = ("sdf", other_bank(sdf_kernel_source(s)))
+        units["cone constant bank"] = ("cone", other_bank(cone_kernel_source(s, HIER)))
     logs = kbuild.build(units)
     half = 3.5 if n == "logo" else s.export_config.bounding_box_half_diameter / 2.0
     rng = np.random.default_rng(0)
     host_pts = rng.uniform(-half, half, ((1 << 20) + 40000, 3)).astype(np.float32)
     pts = torch.from_numpy(host_pts[: 1 << 20]).to(dev)
     pe = make_point_eval(s)
-    call = lambda: pe(pts, a)
-    out[f"{n} point"] = dict(ms=events_ms(call, 100), device_ms=device_ms(call, "point_eval_kernel"),
-                             registers=registers(logs["sdf"], "point_eval_kernel"))
+    out[f"{n} point"] = timed(lambda: pe(pts, a), "point_eval_kernel",
+                              registers(logs["sdf"], "point_eval_kernel"), 100)
     if FD:
-        call = lambda: pe.fd(pts, a)
-        out[f"{n} point_fd"] = dict(ms=events_ms(call, 50), device_ms=device_ms(call, "point_eval_fd_kernel"),
-                                    registers=registers(logs["sdf_fd"], "point_eval_fd_kernel"))
+        out[f"{n} point_fd"] = timed(lambda: pe.fd(pts, a), "point_eval_fd_kernel",
+                                     registers(logs["sdf_fd"], "point_eval_fd_kernel"))
     rm = make_cuda_ray_march(s, FIT)
-    rows = camera_rows(*cam)
     r_fit = project(ray_directions(FIT, dev), *torch.as_tensor(rows[1:], device=dev))
-    call = lambda: rm(a, rows[0], r_fit)
-    out[f"{n} ray_march"] = dict(ms=events_ms(call, 20), device_ms=device_ms(call, "ray_march_kernel"),
-                                 registers=registers(logs["ray_march"], "ray_march_kernel"))
+    # The origin as each tree's K4 takes it without a copy: on the card where
+    # the kernel reads it there (as the fit holds it), else on the host.
+    o = torch.as_tensor(rows[0], device=dev) if LEVERS else rows[0]
+    ref = rm(a, o, r_fit)
+    out[f"{n} ray_march"] = timed(lambda: rm(a, o, r_fit), "ray_march_kernel",
+                                  registers(logs["ray_march"], "ray_march_kernel"), 20)
+    levers = [k for k in units if k.startswith("ray_march ")]
+    for key in levers:
+        tf = lambda src, key=key: units[key][1] if src == rm_src else src
+        w = variant(mk, "ray_march_kernel_source", tf, lambda: make_cuda_ray_march(s, FIT),
+                    lambda w: w(a, o, r_fit))
+        got = w(a, o, r_fit)
+        out[f"{n} {key}"] = dict(timed(lambda w=w: w(a, o, r_fit), "ray_march_kernel",
+                                       registers(logs[key], "ray_march_kernel"), 20),
+                                 bit_equal=all(torch.equal(x, y) for x, y in zip(got, ref)))
+    if LEVERS:
+        pc = variant(sk, "sdf_kernel_source", other_bank,
+                     lambda: make_point_eval(s), lambda w: w(pts, a))
+        out[f"{n} point constant bank"] = timed(lambda: pc(pts, a), "point_eval_kernel",
+                                                registers(logs["sdf constant bank"], "point_eval_kernel"), 100)
+        gc = variant(sk, "sdf_kernel_source", other_bank,
+                     lambda: make_grid_eval(s),
+                     lambda w: w(a, np.full(3, -3.5, np.float32), np.float32(7.0 / 256), 112.0, 33, 257))
+        call = lambda: gc(a, np.full(3, -3.5, np.float32), np.float32(7.0 / 256), 112.0, 33, 257)
+        out[f"{n} grid constant bank"] = timed(call, "grid_eval_kernel", None, 100)
+        cc = variant(mk, "cone_kernel_source", other_bank,
+                     lambda: make_cuda_cone_march(s, HIER), lambda w: w(a, rows[0], rays))
+        out[f"{n} cone constant bank"] = timed(lambda: cc(a, rows[0], rays), "cone_march_kernel",
+                                               registers(logs["cone constant bank"], "cone_march_kernel"), 100)
     ev = BatchEvaluator(s, use_kernels=True)
     ev.refine_on_device(host_pts[:4096], steps=2)
     before = dict(kbuild.LAUNCHES)
@@ -166,8 +289,9 @@ def main() -> int:
             else:
                 regs = f" [{c['registers']}]" if c.get("registers") else ""
                 dev_ms = "none" if c["device_ms"] is None else f"{c['device_ms']:.4f}"
-                cells.append(f"{c['ms']:.4f}/{dev_ms}{regs}")
-        print(f"{key:18s} " + "  ".join(cells))
+                fill = f" (fill {c['bank_ms']:.4f})" if c.get("bank_ms") else ""
+                cells.append(f"{c['ms']:.4f}/{dev_ms}{fill}{regs}")
+        print(f"{key:30s} " + "  ".join(cells))
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as fh:

@@ -60,12 +60,17 @@ prints:
   is the mean time per call by CUDA events over back-to-back calls (launch
   overhead included), ``single_ms`` the median by events of single calls on
   an idle card, ``device_ms`` the mean of torch.profiler's records of the
-  kernel;
+  kernel plus its constant bank's fill where the unit has one (its
+  ``bank_fill`` names the records);
 * a ``k1_sass`` line: the instructions of Design1's, Design2's and Logo's
   point kernel and its FD form by opcode (``cuobjdump -sass``), with the
   shared, global and constant loads and the FP32 instructions summed;
+* a ``k4_unit`` line: per design K4's registers and spills (ptxas), its
+  resident blocks per SM and its SASS split at the march loop (before it,
+  one step, after it); a ``k2_registers`` line: every renderer unit's;
 * per design a ``k4_warp_lane_share`` line: the share of a K4 warp's
-  lane-steps that do work, from the plain march's steps, at 640x480 and
+  lane-steps that do work, from the plain march's steps for warps of 32
+  neighbouring rays (the kernel runs one thread per ray), at 640x480 and
   at ``cli fit``'s 64x48;
 * a ``k1_path_batches`` line: K1 and its FD form timed on the vertex chunks
   each export's refine took, with their bounds, one refine step as seven
@@ -75,7 +80,13 @@ prints:
   ``k6_table_read_model`` line: the time its table reads alone would take at
   an assumed L1 rate, a model and not a measurement; and per design a
   ``k7_chain_ops_model`` line: the FP32 operations of one K7 chain and of one
-  tape evaluation of each culled kernel, counted from the generated code;
+  tape evaluation of each culled kernel, and beside them what a warp issues
+  for one lane chain (``lane_chain``: FP32 operations of its slot passes
+  and tree, and its shuffles), counted from the generated code;
+* a ``k7_dynamic_held_box`` line: per design and dynamic mode, the share of
+  group evaluations the kernel skips with its held box (counted by its
+  CULL_STATS build) beside the plain version's per-step share, and the
+  chains each ran;
 * a ``logo_close_up_k7`` line: in Logo's close-up, where the hoisted cull
   prunes (phase 5d), its skipped share and the culled and unculled
   renderers' device ms, alternated;
@@ -131,6 +142,7 @@ from designcsg_tpu_torch.ops.cuda.sdf_kernel import make_grid_eval, make_point_e
 from designcsg_tpu_torch.ops.cuda.tape import (
     cone_kernel_source,
     cull_chain_ops,
+    lane_chain_ops,
     march_kernel_source,
     ray_march_kernel_source,
     sdf_kernel_source,
@@ -360,11 +372,28 @@ def kernel_records(fn, kernels, iters: int = 10):
     return out
 
 
+# What a launch of a unit with its object bank in constant memory runs
+# before its kernel (csrc/common.cuh prepare_bank): the interleaving kernel
+# and the copy to the constant symbol.  Part of every such call's device
+# time.
+BANK_FILL = ("interleave_bank_kernel", "Memcpy DtoD")
+
+
+def call_device_ms(records: dict, kernel: str):
+    """Device time of one call from ``kernel_records`` of ``kernel`` and
+    BANK_FILL: the mean record of the kernel plus the mean of each bank-fill
+    record the call made; None when the kernel has no record."""
+    if kernel not in records:
+        return None
+    return records[kernel]["mean_ms"] + sum(records[f]["mean_ms"] for f in BANK_FILL if f in records)
+
+
 def device_ms(fn, kernel: str, iters: int = 10):
-    """Mean duration of one record of the CUDA kernel named ``kernel`` under
-    ``fn()`` in torch.profiler's timeline; None when it records none."""
-    rec = kernel_records(fn, (kernel,), iters).get(kernel)
-    return rec["mean_ms"] if rec else None
+    """Device time of one call of ``fn()`` that launches the CUDA kernel
+    named ``kernel``, from torch.profiler's timeline: the mean of its
+    records plus its bank fill's (``call_device_ms``); None when it
+    records none."""
+    return call_device_ms(kernel_records(fn, (kernel,) + BANK_FILL, iters), kernel)
 
 
 def single_ms(fn, repeats: int = 10) -> float:
@@ -379,10 +408,11 @@ def crosscheck(fn, kernel: str) -> dict:
     back-to-back calls for several N (``by_n``; the step from 16 to 64 calls,
     ``steady_ms``, is the card's time per call once the queue is full), by
     events around single calls (``single_ms``) and by torch.profiler's
-    records of the kernel over 20 calls (``profiler``)."""
+    records of the kernel and its bank fill (BANK_FILL) over 20 calls
+    (``profiler``, ``kernel_records``)."""
     by_n = {n: cuda_ms(fn, n) for n in (1, 4, 16, 64)}
     return dict(by_n=by_n, steady_ms=(64 * by_n[64] - 16 * by_n[16]) / 48,
-                single_ms=single_ms(fn), profiler=kernel_records(fn, (kernel,), 20).get(kernel))
+                single_ms=single_ms(fn), profiler=kernel_records(fn, (kernel,) + BANK_FILL, 20))
 
 
 def busy_ms(fn, iters: int = 5):
@@ -575,31 +605,78 @@ def check_refine_launches(label: str, sink: dict, expect: int) -> None:
           f"{got.get('point_eval', 0)} point_eval; launches {got}, {sink['seconds']:.4f} s")
 
 
+def resident_blocks(registers: int, threads: int) -> int:
+    """Blocks of ``threads`` threads that fit on one Hopper SM by registers
+    and threads alone (64K registers, allocated 256 a warp, at most 2,048
+    threads and 32 blocks): the occupancy calculator's rule, for a kernel
+    whose shared memory does not bind."""
+    per_warp = -(-registers * 32 // 256) * 256
+    warps = threads // 32
+    return min(65536 // (per_warp * warps), 2048 // threads, 32)
+
+
+def unit_registers(log: str, kernel: str):
+    """(registers, spill stores in bytes) of ``kernel`` in a unit's
+    ``-Xptxas -v`` report; None when the report lacks it."""
+    m = re.search(r"Function properties for \S*" + kernel + r"\S*\s+\d+ bytes stack frame, (\d+) "
+                  r"bytes spill stores.*?Used (\d+) registers", log, re.S)
+    return (int(m.group(2)), int(m.group(1))) if m else None
+
+
+SASS_FP32 = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FCHK", "MUFU")
+
+
+def _sass_summary(ins) -> dict:
+    """Counts of (address, opcode, operands) instructions; ``c3_operands``
+    counts those that take an operand from the user constant bank
+    (``c[0x3]``, where a ``__constant__`` array lives)."""
+    c = {}
+    for _, op, _ in ins:
+        c[op] = c.get(op, 0) + 1
+    return dict(total=len(ins), lds=c.get("LDS", 0), ldg=c.get("LDG", 0), ldc=c.get("LDC", 0),
+                fp32=sum(v for op, v in c.items() if op in SASS_FP32),
+                c3_operands=sum("c[0x3]" in rest for _, _, rest in ins),
+                by_opcode=dict(sorted(c.items(), key=lambda kv: -kv[1])))
+
+
 def sass_counts(so_path: str, kernels) -> dict:
     """Per kernel function of a built library, its SASS instructions by
     opcode (``cuobjdump -sass``), with the shared loads (LDS), global and
     read-only loads (LDG), constant loads (LDC) and FP32 instructions
-    (FADD, FMUL, FFMA, FMNMX, FSETP, FSEL, FCHK, MUFU) summed."""
+    (FADD, FMUL, FFMA, FMNMX, FSETP, FSEL, FCHK, MUFU) summed.  ``loop``
+    splits them at the backward branch of widest span (a march kernel's step
+    loop): the instructions before it, inside it (one step, unrolled tape
+    and all) and after it (the exit and the called slow paths of IEEE
+    division and square root, CALL in the loop)."""
     cuobjdump = os.path.join(os.path.dirname(kbuild.nvcc()), "cuobjdump")
     out = subprocess.run([cuobjdump, "-sass", so_path], capture_output=True, text=True,
                          check=True).stdout
-    counts, current = {}, None
+    code, current = {}, None
     for line in out.splitlines():
         head = re.match(r"\s*Function : (\S+)", line)
         if head:
             current = next((k for k in kernels if k in head.group(1)), None)
             if current is not None:
-                counts[current] = {}
+                code[current] = []
             continue
-        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)(.*)", line)
         if current is not None and ins:
-            op = ins.group(1)
-            counts[current][op] = counts[current].get(op, 0) + 1
-    fp32 = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FCHK", "MUFU")
-    return {k: dict(total=sum(c.values()), lds=c.get("LDS", 0), ldg=c.get("LDG", 0),
-                    ldc=c.get("LDC", 0), fp32=sum(v for op, v in c.items() if op in fp32),
-                    by_opcode=dict(sorted(c.items(), key=lambda kv: -kv[1])))
-            for k, c in counts.items()}
+            code[current].append((int(ins.group(1), 16), ins.group(2), ins.group(3).split(";")[0]))
+    result = {}
+    for k, ins in code.items():
+        result[k] = _sass_summary(ins)
+        back = []
+        for addr, op, rest in ins:
+            target = re.findall(r"0x([0-9a-f]+)", rest) if op.startswith("BRA") else []
+            if target and int(target[-1], 16) < addr:
+                back.append((addr - int(target[-1], 16), int(target[-1], 16), addr))
+        if back:
+            _, lo, hi = max(back)
+            result[k]["loop"] = dict(
+                before=_sass_summary([i for i in ins if i[0] < lo]),
+                inside=_sass_summary([i for i in ins if lo <= i[0] <= hi]),
+                after=_sass_summary([i for i in ins if i[0] > hi]))
+    return result
 
 
 def fit_rays(config, cam, device):
@@ -651,6 +728,9 @@ def main() -> int:
         units[f"{name} ray_march"] = ("ray_march", ray_march_kernel_source(scene, FIT))
         for kernel, (config, _) in CULLED.items():
             units[f"{name} march {kernel}"] = ("march", march_kernel_source(scene, config))
+            if kernel.endswith("dynamic"):  # with its debug counters (CULL_STATS)
+                units[f"{name} march {kernel} stats"] = (
+                    "march", "#define CULL_STATS 1\n" + march_kernel_source(scene, config))
     units["logo march near"] = ("march", march_kernel_source(scenes["logo"], NEAR))
     units["logo march near cull"] = ("march", march_kernel_source(scenes["logo"], NEAR_CULLED))
     for name, scene in scenes.items():
@@ -684,6 +764,20 @@ def main() -> int:
             so = kbuild._stem(unit, sdf_kernel_source(scenes[name])).with_suffix(".so")
             sass[f"{name} {kernel}"] = sass_counts(str(so), (kernel,)).get(kernel)
     print(json.dumps({"k1_sass": sass}))
+    # K4 and K2 as built: registers and spills (ptxas), K4's resident blocks
+    # per SM (by its registers, resident_blocks) and its SASS split at the
+    # march loop (before it, one step, after it).
+    k4_unit = {}
+    for name in DESIGNS:
+        source = ray_march_kernel_source(scenes[name], FIT)
+        so = kbuild._stem("ray_march", source).with_suffix(".so")
+        regs = unit_registers(logs[f"{name} ray_march"], "ray_march_kernel")
+        k4_unit[name] = dict(registers=regs, blocks_per_sm=resident_blocks(regs[0], 128),
+                             sass=sass_counts(str(so), ("ray_march_kernel",)).get("ray_march_kernel"))
+    print(json.dumps({"k4_unit": k4_unit}))
+    print(json.dumps({"k2_registers": {
+        label: unit_registers(log, "render_kernel") for label, log in logs.items()
+        if " march" in label}}))
 
     results = {}  # (kernel, design) -> numbers
     arrays = {name: scene.arrays.to_torch(dev) for name, scene in scenes.items()}
@@ -830,14 +924,17 @@ def main() -> int:
 
         phase(f"{3 + step}c. {name}: the fit's ray march vs plain at 640x480 (fit config)")
         o_fit, r_fit = fit_rays(FIT, cam, dev)
+        o_fit = torch.as_tensor(o_fit, device=dev)  # on the card, as the fit holds it
         rm = k["ray_march"]
         got = rm(a, o_fit, r_fit)
         # The plain version, timed once, with its step counts for the bound.
         (d_ref, vmin_ref, steps), plain_ms = timed_once(lambda: make_march(scene, FIT)(
-            torch.as_tensor(o_fit, device=dev), r_fit, a, return_closest=True, return_steps=True))
+            o_fit, r_fit, a, return_closest=True, return_steps=True))
         results[("ray_march", name)] = dict(
             max_abs_err=check_ray_march(f"{name} ray_march", got, (d_ref, vmin_ref)),
             plain_ms=plain_ms)
+        check(torch.equal(got[0], d_ref) and torch.equal(got[1], vmin_ref),
+              f"{name} ray_march d and vmin bit-equal to the plain version")
         inputs[name].update(o_fit=o_fit, r_fit=r_fit, fit_evals=int(steps.sum()))
         # How busy a warp's lanes stay in K4: a warp is 32 neighbouring rays
         # of a row, and runs as long as its longest march (the plain march's
@@ -861,6 +958,7 @@ def main() -> int:
     phase("5d. K7a: the culled kernels (the interval cull inside K2 and K3) vs the unculled "
           "kernel and the plain culled version, 640x480 and the 33x257x257 slab")
     cull_counts = {}  # (kernel, design) -> the plain version's counts at the kernel's tiles
+    held_box = {}
     for name, scene in scenes.items():
         k, a = kernels[name], arrays[name]
         t0_plane = inputs[name]["t0"]
@@ -879,6 +977,20 @@ def main() -> int:
                 max_abs_err=check_render(f"{name} {kernel} vs its plain version", got, plain),
                 plain_ms=plain_ms, bit_equal_to_unculled=same)
             cull_counts[(kernel, name)] = counts
+            if kernel.endswith("dynamic"):
+                # The held box (march.cuh hold_box): the kernel built with its
+                # counters skips another share of the group evaluations than
+                # the plain version's per-step cull, with fewer chains; the
+                # same frame and the same evaluations.
+                stats_frame, c = make_cuda_renderer(scene, config, cull_stats=True)(a, *cam, t0=t0)
+                groups = len(counts["group_evals"])
+                check(torch.equal(stats_frame, got) and c["evals"] == counts["evals"],
+                      f"{name} {kernel} built with its counters: the same frame, "
+                      f"{c['evals']} evaluations as the plain version's")
+                held_box[f"{name} {kernel}"] = dict(
+                    kernel_skipped_share=1.0 - c["group_evals"] / (c["evals"] * groups),
+                    kernel_chains=c["chains"], plain_skipped_share=cull.skipped_share(counts),
+                    plain_chains=counts["chains"], evals=c["evals"])
         grid = (a, glo, gcell, gz0, 33, 257)
         got, base = k["grid_eval_cull"](*grid), k["grid_eval"](*grid)
         counts = {}
@@ -896,6 +1008,7 @@ def main() -> int:
             results[(kernel, name)]["skipped_share"] = share
             print(f"  {name} {kernel}: skipped share {share:.4f} of {c['evals']} evaluations x "
                   f"{len(c['group_evals'])} groups, {c['chains']} chains")
+    print(json.dumps({"k7_dynamic_held_box": held_box}))
     # From the default camera the hoisted boxes prune nothing; close up they
     # do, so a box too small would change this frame.
     near_cam = Camera.initial(apply_default_orbit=False).zoom(6.0).as_arrays()
@@ -1477,7 +1590,8 @@ def main() -> int:
             n_ops = culled_ops(cull_counts[(kernel, name)], ops + GIZMO_OPS,
                                group_ops(scene, k[kernel].plain.culler), chain)
             n_bytes = (12 + (4 if t0 is not None else 0)) * n_px + tables
-            chain_model[kernel] = dict(chain_ops=chain, tape_ops=ops + GIZMO_OPS)
+            chain_model[kernel] = dict(chain_ops=chain, tape_ops=ops + GIZMO_OPS,
+                                       lane_chain=lane_chain_ops(scene, config.gizmo))
             r[(kernel, name)].update(ms=cuda_ms(call, 20), enqueue_ms=enqueue_ms(call),
                                      unculled_ms=r[(unculled, name)]["ms"],
                                      chains=cull_counts[(kernel, name)]["chains"],
@@ -1516,12 +1630,17 @@ def main() -> int:
         # call ("ms") and the profiler's ("device_ms") disagree on some rows.
         cross = {kernel: crosscheck(fn, kname) for kernel, (fn, kname) in calls.items()}
         for kernel, c in cross.items():
+            # A unit with its bank in constant memory runs its bank fill
+            # (csrc/common.cuh interleave_bank_kernel and a copy) before
+            # each launch; its device_ms includes it.
             r[(kernel, name)].update(single_ms=c["single_ms"],
-                                     device_ms=c["profiler"]["mean_ms"] if c["profiler"] else None)
+                                     device_ms=call_device_ms(c["profiler"], calls[kernel][1]),
+                                     bank_fill=[f for f in BANK_FILL if f in c["profiler"]] or None)
         print(json.dumps({f"{name}_timing_crosscheck": cross}))
         hier = k["hierarchical"]
         frame_ms = cuda_ms(lambda: hier(a, *cam), 20)
-        frame_kernels = kernel_records(lambda: hier(a, *cam), ("render_kernel", "cone_march_kernel"))
+        frame_kernels = kernel_records(lambda: hier(a, *cam),
+                                       ("render_kernel", "cone_march_kernel") + BANK_FILL)
         frames[name] = dict(
             exact_ms=r[("renderer", name)]["ms"],
             overrelax_ms=r[("renderer_overrelax", name)]["ms"],

@@ -145,4 +145,77 @@ __device__ __forceinline__ void load_bank(float* s_bank, const float* pos, const
     }
     __syncthreads();
 }
+
+// Where a kernel reads the object bank (BANK_CONSTANT, generated per unit).
+//
+// 0: a copy in the block's shared memory (load_bank).  Every lane reads the
+//    same word at the same moment, a broadcast, but through an LDS into a
+//    register; inside a march loop the compiler hoists those loads out of
+//    the loop, so the bank of every live object stays in registers for the
+//    whole march (Design1's fit march: 149 registers, PERF.md).
+// 1: ``c_bank`` in constant memory, where an FP32 instruction takes a bank
+//    word as an operand (c[0x3][...]) and no register holds it.  The
+//    launcher fills it on the launch's stream before the kernel, device to
+//    device (``prepare_bank``: one tiny interleaving kernel into ``g_bank``
+//    and one copy to the symbol), so the banks may change on the card
+//    between launches, as the fit's do, with no host copy and no
+//    synchronisation.  One unit holds one bank: launches of a unit are
+//    ordered on one stream, and the port launches everything on the
+//    current stream.  ``g_bank``, the same interleaved bank in global
+//    memory, serves reads whose row differs between the lanes of a warp (the
+//    lane chain of the cull, march.cuh), which constant memory would
+//    serialise.  64 KB of constant memory hold 1,365 objects
+//    (ops/cuda/tape.py BANK_CONSTANT_MAX_OBJECTS raises above it).
+#if BANK_CONSTANT
+static_assert(N_OBJ * BANK_STRIDE * sizeof(float) <= 65536,
+              "a __constant__ bank holds at most 1365 objects");
+__constant__ float c_bank[N_OBJ * BANK_STRIDE];
+__device__ float g_bank[N_OBJ * BANK_STRIDE];
+
+__global__ void interleave_bank_kernel(const float* __restrict__ pos,
+                                       const float* __restrict__ right,
+                                       const float* __restrict__ up,
+                                       const float* __restrict__ fwd) {
+    for (int i = threadIdx.x; i < N_OBJ * 3; i += blockDim.x) {
+        const int row = (i / 3) * BANK_STRIDE + i % 3;
+        g_bank[row] = pos[i];
+        g_bank[row + 3] = right[i];
+        g_bank[row + 6] = up[i];
+        g_bank[row + 9] = fwd[i];
+    }
+}
+
+// Fill g_bank and c_bank from the four bank arrays on ``stream``; returns a
+// cudaError_t.
+static int prepare_bank(const void* pos, const void* right, const void* up, const void* fwd,
+                        cudaStream_t stream) {
+    interleave_bank_kernel<<<1, 256, 0, stream>>>((const float*)pos, (const float*)right,
+                                                  (const float*)up, (const float*)fwd);
+    int rc = (int)cudaGetLastError();
+    void* src = nullptr;
+    if (rc == 0) rc = (int)cudaGetSymbolAddress(&src, g_bank);
+    if (rc == 0) {
+        rc = (int)cudaMemcpyToSymbolAsync(c_bank, src, sizeof(c_bank), 0,
+                                          cudaMemcpyDeviceToDevice, stream);
+    }
+    return rc;
+}
+
+// ``name``: the bank the kernel's uniform reads take; ``lane_name``: the
+// bank for reads at lane-dependent rows.
+#define SCENE_BANK(name, lane_name, pos, right, up, fwd) \
+    const float* name = c_bank;                           \
+    const float* lane_name = g_bank;                      \
+    (void)lane_name
+#else
+static int prepare_bank(const void*, const void*, const void*, const void*, cudaStream_t) {
+    return 0;
+}
+
+#define SCENE_BANK(name, lane_name, pos, right, up, fwd) \
+    __shared__ float name[N_OBJ * BANK_STRIDE];           \
+    load_bank(name, pos, right, up, fwd);                 \
+    const float* lane_name = name;                        \
+    (void)lane_name
+#endif
 #endif

@@ -33,8 +33,7 @@ cone_march_kernel(float* __restrict__ t_safe, long long n, const float* __restri
                   const float* __restrict__ right, const float* __restrict__ up,
                   const float* __restrict__ fwd, const float* __restrict__ ad,
                   const float* __restrict__ ex) {
-    __shared__ float s_bank[N_OBJ * BANK_STRIDE];
-    load_bank(s_bank, pos, right, up, fwd);
+    SCENE_BANK(s_bank, lane_bank, pos, right, up, fwd);
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     t_safe[i] = cone_ray(ox, oy, oz, rays[3 * i], rays[3 * i + 1], rays[3 * i + 2], s_bank, ad,
@@ -46,6 +45,7 @@ extern "C" int launch_cone_march(void* t_safe, long long n, const void* rays, fl
                                  const void* fwd, const void* ad, const void* ex, void* stream) {
     if (n <= 0) return 0;
     const unsigned blocks = (unsigned)((n + CONE_THREADS - 1) / CONE_THREADS);
+    if (const int rc = prepare_bank(pos, right, up, fwd, (cudaStream_t)stream)) return rc;
     cone_march_kernel<<<blocks, CONE_THREADS, 0, (cudaStream_t)stream>>>(
         (float*)t_safe, n, (const float*)rays, ox, oy, oz, (const float*)pos,
         (const float*)right, (const float*)up, (const float*)fwd, (const float*)ad,

@@ -1,9 +1,10 @@
 // Host build of a generated scene source, for tests without a card: the same
 // generated HD functions the kernels inline, driven by plain loops.  Built with
 // a host C++ compiler after the scene code (and march.cuh, for the renderer).
-// With a cull (CULL_MODE), the chain alone, the culled grid tile by tile, and
-// the culled renderer warp by warp, the warp's lock step and reductions
-// emulated over its 32 lanes in order.
+// With a cull (CULL_MODE), the chain alone (in one thread, and spread over a
+// warp's 32 lanes), the culled grid tile by tile, and the culled renderer
+// warp by warp, the warp's lock step, reductions and shuffles emulated over
+// its 32 lanes in order.
 
 // The bank arrays are interleaved as a kernel's shared copy is:
 // BANK_STRIDE floats per object.  ``ex`` is the scene's extra tables, as the
@@ -40,6 +41,29 @@ extern "C" void host_cull_tile(const float* box, const float* bank, const float*
                                const float* ex, unsigned* preds, float* substs) {
     Preds p;
     cull_tile(Iv{box[0], box[1]}, Iv{box[2], box[3]}, Iv{box[4], box[5]}, bank, ad, ex, p, substs);
+    for (int i = 0; i < N_CULL_WORDS; ++i) preds[i] = p.w[i];
+}
+
+// The lane chain of a warp (march.cuh cull_tile_lanes): per chunk, each of
+// the 32 lanes runs cull_lane on its slot, and the shuffles that gather the
+// slots' intervals into every lane are reads of the lanes' array.
+static void lane_chain(Iv bx, Iv by, Iv bz, const float* bank, const float* ad, const float* ex,
+                       Preds& preds, float* substs) {
+    Iv b[N_CULL_SLOTS];
+    for (int chunk = 0; chunk < N_CULL_CHUNKS; ++chunk) {
+        Iv lanes[32];
+        for (int lane = 0; lane < 32; ++lane)
+            lanes[lane] = cull_lane(chunk, lane, bx, by, bz, bank, ad, ex);
+        for (int j = 0; j < 32 && 32 * chunk + j < N_CULL_SLOTS; ++j) b[32 * chunk + j] = lanes[j];
+    }
+    cull_tree(b, preds, substs);
+}
+
+// The lane chain on one box, as host_cull_tile.
+extern "C" void host_cull_tile_lanes(const float* box, const float* bank, const float* ad,
+                                     const float* ex, unsigned* preds, float* substs) {
+    Preds p;
+    lane_chain(Iv{box[0], box[1]}, Iv{box[2], box[3]}, Iv{box[4], box[5]}, bank, ad, ex, p, substs);
     for (int i = 0; i < N_CULL_WORDS; ++i) preds[i] = p.w[i];
 }
 
@@ -123,8 +147,18 @@ extern "C" void host_hoisted_box(float* box, int x0, int y0, int height, int wid
     }
 }
 
+// The dynamic warps' steps and the chains they ran, since the last read.
+static long long host_steps = 0, host_chains = 0;
+
+extern "C" void host_dynamic_counts(long long* out) {
+    out[0] = host_steps;
+    out[1] = host_chains;
+    host_steps = host_chains = 0;
+}
+
 // One warp of the culled renderer kernel (march.cuh render_pixel_culled and
-// march_dynamic), its 32 lanes in turn: the 16x2 patch at (x0, y0).
+// march_dynamic, with its lane chain), its 32 lanes in
+// turn: the 16x2 patch at (x0, y0).
 static void host_render_warp(float* out, int x0, int y0, int height, int width, const Cam& cam,
                              const float* bank, const float* ad, const float* ex,
                              const float* t0) {
@@ -147,6 +181,8 @@ static void host_render_warp(float* out, int x0, int y0, int height, int width, 
         active[l] = on[l] && !(ray[l].d > MAX_D);
         d[l] = -1.0f;
     }
+    CullTile tile;
+    Box held = empty_box();
     for (int step = 0; step < MAX_STEPS; ++step) {
         bool any = false;
         for (int l = 0; l < 32; ++l) {
@@ -156,9 +192,11 @@ static void host_render_warp(float* out, int x0, int y0, int height, int width, 
             vz[l] = ray[l].vz;
         }
         if (!any) break;
-        CullTile tile;
-        cull_tile(host_span(active, vx), host_span(active, vy), host_span(active, vz), bank, ad, ex,
-                  tile.preds, tile.substs);
+        if (hold_box(held, host_span(active, vx), host_span(active, vy), host_span(active, vz))) {
+            lane_chain(held.x, held.y, held.z, bank, ad, ex, tile.preds, tile.substs);
+            ++host_chains;
+        }
+        ++host_steps;
         for (int l = 0; l < 32; ++l) {
             if (!active[l]) continue;
             const float s = field_sdf_culled(ray[l].vx, ray[l].vy, ray[l].vz, bank, ad, ex,

@@ -1,12 +1,21 @@
 // One k1 viewport pixel: ray setup, sphere-trace march, FD normal and shading
 // (k1.cl:420-470 march, 381-418 normal, 280-379 shade, 480-580 pixel setup),
 // with the exact per-tile cull when CULL_MODE is 1 (hoisted) or 2 (dynamic);
-// one ray of the cone prepass, and one ray of the fit's march with its closest
-// approach.  Needs the generated field_sdf /
-// scene_shade (each takes the scene's extra tables ``ex``, null for a scene
-// without), with a cull also cull_tile / field_sdf_culled and interval.cuh,
-// and the constants MAX_STEPS, EPS, TOL, MAX_D, N_EPS, IFOV, MISS_R/G/B,
-// OMEGA, CONE_SLOPE, CONE_STRICT, CULL_DRIFT and CULL_MODE.
+// one ray of the cone prepass, and one ray of the fit's march with its
+// closest approach.  Needs the generated field_sdf / scene_shade (each takes
+// the scene's extra tables ``ex``, null for a scene without), with a cull
+// also cull_lane / cull_tree / field_sdf_culled and interval.cuh, and the
+// constants MAX_STEPS, EPS, TOL, MAX_D, N_EPS, IFOV, MISS_R/G/B, OMEGA,
+// CONE_SLOPE, CONE_STRICT, CULL_DRIFT, CULL_MODE and N_CULL_CHUNKS.
+//
+// The dynamic cull runs a chain only when the warp's points leave the box it
+// holds (``hold_box``), and runs it over the warp's lanes: a chain costs per
+// chunk of 32 slots one frame interval and one interval body per brush kind
+// in the chunk, two shuffles per slot, then the relevance tree
+// (ops/cuda/tape.py lane_chain_ops; Design1 with the gizmo: 319 FP32
+// operations and 24 shuffles a warp issues, where each lane ran the 1,163
+// of the one-thread chain before).  The plain version and the JAX package
+// cull every step on the box of the marching points.
 //
 // Reference quirks kept: the ray is NOT normalized; the step is s*TOL with hit
 // test s < EPS and miss test d > MAX_D after the advance; a hit at d == 0
@@ -244,6 +253,40 @@ HD Box hoisted_box(const Cam& cam, Iv rx, Iv ry, Iv rz, float d_min) {
     return Box{ray_span(cam.o[0], d, rx), ray_span(cam.o[1], d, ry), ray_span(cam.o[2], d, rz)};
 }
 
+// The dynamic cull's held box, empty before the first step.
+HD Box empty_box() {
+    const Iv e{INFINITY, -INFINITY};
+    return Box{e, e, e};
+}
+
+HD bool iv_within(Iv a, Iv b) { return a.lo >= b.lo && a.hi <= b.hi; }
+
+// Predicates reused across steps: while the marching points' box (bx, by,
+// bz) stays inside ``held``, the predicates of ``held`` serve the step, and
+// this returns false; else ``held`` becomes the points' box widened by
+// CULL_HOLD on every side (rounded outward: a - m <= a, a + m >= a), and
+// it returns true, for the chain to run on it.  Exact as the per-step cull
+// is: predicates that hold on a box hold on every point inside it, so the
+// frames stay bit-equal to the unculled kernel's.  The plain version and
+// the JAX package keep the per-step cull (march_kernel.py:497-520); the
+// share of group evaluations skipped differs from theirs (PERF.md).
+HD bool hold_box(Box& held, Iv bx, Iv by, Iv bz) {
+    if (iv_within(bx, held.x) && iv_within(by, held.y) && iv_within(bz, held.z)) return false;
+    held = Box{Iv{sub_rn(bx.lo, CULL_HOLD), add_rn(bx.hi, CULL_HOLD)},
+               Iv{sub_rn(by.lo, CULL_HOLD), add_rn(by.hi, CULL_HOLD)},
+               Iv{sub_rn(bz.lo, CULL_HOLD), add_rn(bz.hi, CULL_HOLD)}};
+    return true;
+}
+
+// Group evaluations a tile's predicates allow, for the debug counters.
+HD int pred_groups(const Preds& p) {
+    int n = 0;
+    for (int i = 0; i < N_CULL_WORDS; ++i) {
+        for (unsigned w = p.w[i]; w; w &= w - 1u) ++n;
+    }
+    return n;
+}
+
 #ifdef __CUDACC__
 __device__ __forceinline__ float warp_min(float v) {
     for (int m = 16; m > 0; m >>= 1) v = fminf(v, __shfl_xor_sync(0xffffffffu, v, m));
@@ -260,20 +303,84 @@ __device__ __forceinline__ Iv warp_span(bool on, float v) {
     return Iv{warp_min(on ? v : INFINITY), warp_max(on ? v : -INFINITY)};
 }
 
+// Debug counters, counting in CULL_STATS builds only: the evaluations a
+// warp makes through a cull, the group evaluations its predicates allow and
+// the chains it runs, read by read_cull_stats.  Lane 0 of the warp adds; the
+// arguments are warp-uniform.
+#ifdef CULL_STATS
+constexpr bool CULL_COUNTING = true;
+#else
+constexpr bool CULL_COUNTING = false;
+#endif
+__device__ unsigned long long cull_stats[3];
+
+__device__ __forceinline__ void count_cull(int evals, int group_evals, int chains) {
+    if ((threadIdx.y * blockDim.x + threadIdx.x) % 32 == 0) {
+        atomicAdd(&cull_stats[0], (unsigned long long)evals);
+        atomicAdd(&cull_stats[1], (unsigned long long)group_evals);
+        atomicAdd(&cull_stats[2], (unsigned long long)chains);
+    }
+}
+
+// The counters since the last read (evals, group evals, chains), then zero.
+extern "C" int read_cull_stats(unsigned long long* out) {
+    int rc = (int)cudaMemcpyFromSymbol(out, cull_stats, sizeof(cull_stats));
+    const unsigned long long zero[3] = {0, 0, 0};
+    if (rc == 0) rc = (int)cudaMemcpyToSymbol(cull_stats, zero, sizeof(zero));
+    return rc;
+}
+
+// K7's chain on a warp's box, spread over the warp's lanes: lane k runs slot
+// 32c + k of chunk c (ops/cuda/tape.py cull_lane_function: its object's
+// frame interval, then one pass per brush kind, so lanes of one kind run
+// together), the slots' intervals are gathered into every lane by
+// shuffles, and the relevance tree (``cull_tree``) runs warp-uniform.  Every
+// lane ends with the same predicates and substitutes, bit for bit those of
+// ``cull_tile`` on the same box: the same rounded operations, on another
+// lane.  ``lane_bank`` is read at lane-dependent rows (common.cuh
+// SCENE_BANK).  Every lane of the warp must call it.
+__device__ __forceinline__ void cull_tile_lanes(Iv bx, Iv by, Iv bz, const float* lane_bank,
+                                                const float* ad, const float* ex, Preds& preds,
+                                                float* substs) {
+    const int lane = (threadIdx.y * blockDim.x + threadIdx.x) & 31;
+    Iv b[N_CULL_SLOTS];
+#pragma unroll
+    for (int chunk = 0; chunk < N_CULL_CHUNKS; ++chunk) {
+        const Iv mine = cull_lane(chunk, lane, bx, by, bz, lane_bank, ad, ex);
+#pragma unroll
+        for (int j = 0; j < 32 && 32 * chunk + j < N_CULL_SLOTS; ++j) {
+            b[32 * chunk + j] = Iv{__shfl_sync(0xffffffffu, mine.lo, j),
+                                   __shfl_sync(0xffffffffu, mine.hi, j)};
+        }
+    }
+    cull_tree(b, preds, substs);
+}
+
 // The dynamic cull's march: the warp steps in lock step while any lane
-// marches, and before each step every lane runs the chain on the box of
-// the marching lanes' current points (march_kernel.py:497-520) -- exactly
-// the points about to be evaluated.  Every lane of the warp must call it.
+// marches, and before each step it takes the box of the marching lanes'
+// current points (march_kernel.py:497-520), exactly the points about to be
+// evaluated; when that box leaves the held one (``hold_box``) the warp runs
+// the lane chain on the new held box (``cull_tile_lanes``).  Every lane of
+// the warp must call it.
 __device__ float march_dynamic(bool on, const Cam& cam, float rx, float ry, float rz, float t0,
-                               const float* bank, const float* ad, const float* ex) {
+                               const float* bank, const float* lane_bank, const float* ad,
+                               const float* ex) {
     Ray ray = ray_start(cam.o[0], cam.o[1], cam.o[2], rx, ry, rz, t0);
     bool active = on && !(ray.d > MAX_D);
     float hit_d = -1.0f;
     CullTile tile;
+    Box held = empty_box();
     for (int step = 0; step < MAX_STEPS; ++step) {
         if (!__any_sync(0xffffffffu, active)) break;
-        cull_tile(warp_span(active, ray.vx), warp_span(active, ray.vy), warp_span(active, ray.vz),
-                  bank, ad, ex, tile.preds, tile.substs);
+        if (hold_box(held, warp_span(active, ray.vx), warp_span(active, ray.vy),
+                     warp_span(active, ray.vz))) {
+            cull_tile_lanes(held.x, held.y, held.z, lane_bank, ad, ex, tile.preds, tile.substs);
+            if constexpr (CULL_COUNTING) count_cull(0, 0, 1);
+        }
+        if constexpr (CULL_COUNTING) {
+            const int n = __popc(__ballot_sync(0xffffffffu, active));
+            count_cull(n, n * pred_groups(tile.preds), 0);
+        }
         if (active) {
             const float s = field_sdf_culled(ray.vx, ray.vy, ray.vz, bank, ad, ex, tile.preds,
                                              tile.substs) * TOL;
@@ -288,12 +395,15 @@ __device__ float march_dynamic(bool on, const Cam& cam, float rx, float ry, floa
 }
 
 // A pixel of the culled renderer; ``on`` is false for a lane outside the
-// image, which still takes part in the warp's reductions.  Every lane of
-// the warp must call it.  The hoisted cull, one chain per tile over its
-// ``hoisted_box``, serves the whole march in the hoisted mode and the FD
-// normals in both modes.
+// image, which still takes part in the warp's reductions and its lane
+// chains.  Every lane of the warp must call it.  The hoisted cull, one
+// chain per tile over its ``hoisted_box``, serves the whole march in the
+// hoisted mode and the FD normals in both modes; it runs once per warp, in
+// every lane (``cull_tile``): spread over the lanes it saved nothing and
+// read 2% slower on Design1 (PERF.md).
 __device__ Rgb render_pixel_culled(bool on, int ix, int iy, int width, int height, const Cam& cam,
-                                   const float* bank, const float* ad, const float* ex, float t0) {
+                                   const float* bank, const float* lane_bank, const float* ad,
+                                   const float* ex, float t0) {
     float rx, ry, rz;
     pixel_ray(ix, iy, width, height, cam, rx, ry, rz);
     CullTile hoisted;
@@ -304,7 +414,11 @@ __device__ Rgb render_pixel_culled(bool on, int ix, int iy, int width, int heigh
         return field_sdf_culled(x, y, z, bank, ad, ex, hoisted.preds, hoisted.substs);
     };
 #if CULL_MODE == 2
-    const float d = march_dynamic(on, cam, rx, ry, rz, t0, bank, ad, ex);
+    const float d = march_dynamic(on, cam, rx, ry, rz, t0, bank, lane_bank, ad, ex);
+    if constexpr (CULL_COUNTING) {
+        const int normals = 6 * __popc(__ballot_sync(0xffffffffu, on && d > 0.0f));
+        count_cull(normals, normals * pred_groups(hoisted.preds), 1);
+    }
 #else
     const float d = on ? march_ray(cam.o[0], cam.o[1], cam.o[2], rx, ry, rz, t0, field) : -1.0f;
 #endif

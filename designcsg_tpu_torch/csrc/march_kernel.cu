@@ -15,24 +15,44 @@
 // The simple design: one thread per pixel with its own march loop (per-ray
 // early exit, which is what the TPU kernel's masked per-tile loop computes:
 // masked steps change nothing), blocks of 16x8 pixels so a warp holds a 16x2
-// patch of neighbouring rays that tend to finish together, the object banks in
-// shared memory, the camera as a kernel parameter, and RGB written
-// interleaved as the (H, W, 3) image.  The TPU kernel's 32x32 tile-major
-// layout and K-step unroll are Mosaic mechanisms and are not reproduced.
-// The optional t0 plane (f32[H, W], the cone prepass's handoff) is one more
-// read per pixel; a null pointer starts every ray at the camera.  ``ex`` holds
-// the scene's baked tables (csrc/table.cuh), null for a scene without.
-// This unit is built with -fmad=false (ops/cuda/build.py): every product and
-// sum rounds as in the plain version, so a ray stops at the same step; with
-// FMA contraction, single pixels at creases shaded up to 1.2e-3 apart.
+// patch of neighbouring rays that tend to finish together, the camera as a
+// kernel parameter, and RGB written interleaved as the (H, W, 3) image.  The
+// TPU kernel's 32x32 tile-major layout and K-step unroll are Mosaic
+// mechanisms and are not reproduced.  The optional t0 plane (f32[H, W], the
+// cone prepass's handoff) is one more read per pixel; a null pointer starts
+// every ray at the camera.  ``ex`` holds the scene's baked tables
+// (csrc/table.cuh), null for a scene without.  This unit is built with
+// -fmad=false (ops/cuda/build.py): every product and sum rounds as in the
+// plain version, so a ray stops at the same step; with FMA contraction,
+// single pixels at creases shaded up to 1.2e-3 apart.
+//
+// The object bank of a scene of more than 4 objects lives in constant
+// memory (common.cuh BANK_CONSTANT; the rule: ops/cuda/tape.py
+// RENDER_CONSTANT_BANK_MIN_OBJECTS): in shared memory the compiler held
+// every object's frame in registers across the march (Design1: 208
+// registers, 2 blocks an SM); as operands of the FP32 instructions it takes
+// none.  Design2's 3 objects cost few registers so, and its frames ran
+// faster with them there; so did Design1's under the hoisted cull
+// (registers and the A/B: PERF.md).
 //
 // The cull (march.cuh render_pixel_culled): the TPU kernel's tile, an (8, 128)
 // lock-stepped vector with one scalar interval chain, becomes the warp, a
-// 16x2 patch of this block.  Every lane runs the chain on the warp's box
-// (shuffle reductions), so its predicates are warp-uniform and a skipped
-// group costs no divergence; lanes outside the image take part in the
-// reductions and write nothing.  The chain's cost is one more tape-sized
-// evaluation per lane per chain (PERF.md counts both from the generated code).
+// 16x2 patch of this block.  Every lane runs the TPU's scalar chain on the
+// warp's box (shuffle reductions), so the predicates are warp-uniform and a
+// skipped group costs no divergence; lanes outside the image take part in
+// the chain and the reductions and write nothing.  The dynamic mode runs a
+// chain whenever the warp's points leave the box it holds, and there the
+// chain is spread over the lanes (march.cuh cull_tile_lanes): lane k
+// computes slot k's interval (its object's frame interval, then one pass
+// per brush kind), shuffles gather the slots into every lane, and the
+// relevance tree runs warp-uniform.  What a warp issues per chain, counted
+// from the generated code (ops/cuda/tape.py lane_chain_ops, with the
+// gizmo): Design1 319 FP32 operations and 24 shuffles where every lane ran
+// the one-thread chain's 1,163; Design2 302 and 8 (410) and Logo 1,261 and
+// 12 (1,484: its letters have three interval bodies, so only the frame
+// intervals run in parallel).  On the H100 the lane chain ran Design1's
+// dynamic frame 26% faster than the one-thread chain and no design's
+// slower (PERF.md).
 //
 // Needs the generated scene code, common.cuh and march.cuh above it.
 #include <cuda_runtime.h>
@@ -46,19 +66,18 @@ render_kernel(float* __restrict__ out, int height, int width, Cam cam,
               const float* __restrict__ up, const float* __restrict__ fwd,
               const float* __restrict__ ad, const float* __restrict__ ex,
               const float* __restrict__ t0) {
-    __shared__ float s_bank[N_OBJ * BANK_STRIDE];
-    load_bank(s_bank, pos, right, up, fwd);
+    SCENE_BANK(bank, lane_bank, pos, right, up, fwd);
     const int ix = blockIdx.x * RENDER_BX + threadIdx.x;
     const int iy = blockIdx.y * RENDER_BY + threadIdx.y;
     const bool on = ix < width && iy < height;
     const long long pixel = (long long)iy * width + ix;
 #if CULL_MODE
-    const Rgb c = render_pixel_culled(on, ix, iy, width, height, cam, s_bank, ad, ex,
+    const Rgb c = render_pixel_culled(on, ix, iy, width, height, cam, bank, lane_bank, ad, ex,
                                       on && t0 ? t0[pixel] : 0.0f);
     if (!on) return;
 #else
     if (!on) return;
-    const Rgb c = render_pixel(ix, iy, width, height, cam, s_bank, ad, ex, t0 ? t0[pixel] : 0.0f);
+    const Rgb c = render_pixel(ix, iy, width, height, cam, bank, ad, ex, t0 ? t0[pixel] : 0.0f);
 #endif
     float* px = out + 3 * pixel;
     px[0] = c.r;
@@ -80,6 +99,7 @@ extern "C" int launch_render(void* out, int height, int width, const float* cam_
     }
     const dim3 block(RENDER_BX, RENDER_BY);
     const dim3 grid((width + RENDER_BX - 1) / RENDER_BX, (height + RENDER_BY - 1) / RENDER_BY);
+    if (const int rc = prepare_bank(pos, right, up, fwd, (cudaStream_t)stream)) return rc;
     render_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
         (float*)out, height, width, cam, (const float*)pos, (const float*)right,
         (const float*)up, (const float*)fwd, (const float*)ad, (const float*)ex, (const float*)t0);

@@ -10,27 +10,47 @@
 // points with the plain tape under autograd (ops/raymarch.py), so this kernel
 // is forward only, as the TPU one is.
 //
-// What bounds it on Hopper: FP32 issue, as the renderer: tens to hundreds of
-// tape evaluations per ray against 28 B moved (12 B of ray read, 4 B of d and
-// 12 B of vmin written).  On Logo the letters' table reads used to set it
-// (128 four-byte reads a letter); with K6's dense planes (table.cuh) a
-// letter costs one 16-byte read, and the tape's FP32 issue is what is left.
-// Rays diverge: a warp runs as long as its slowest ray.  Counted from the
-// plain march's steps per ray, a warp of 32 neighbouring pixels keeps 83%
-// (Design1) and 81% (Logo) of its lanes busy at 640x480, 43% and 47% at
-// `cli fit`'s 64x48; at full size the 149 registers Design1's unit takes
-// (ptxas), which cap the warps in flight, are the next question.
+// What bounds it on Hopper: FP32 issue and the latency of a serial march.
+// A ray moves 28 B (12 B of ray read, 4 B of d and 12 B of vmin written)
+// against tens to hundreds of tape evaluations, each step waiting on the
+// last.  The unit builds with -fmad=false (P1, ops/cuda/build.py: one
+// rounding decides where a march stops and which point is closest), so the
+// FP32 pipe retires one operation per lane and clock, not two: the reachable
+// ceiling is half the card's 67 TFLOP/s bound.  Measured on the H100
+// (PERF.md), the questions and what the design does about each:
 //
-// The simple design, as the cone kernel's: one thread per ray with its own
-// loop (per-ray early exit, which the TPU kernel's masked per-tile loop
-// computes), rays as an AoS input f32[N, 3] formed by the caller exactly as
-// its plain version forms them, the object banks in shared memory, the origin
-// as three float parameters, vmin written interleaved as f32[N, 3], the scene's
-// baked tables (if any) as ``ex``.  The TPU
-// kernel's three (rows, 128) planes and its (8, 128) tiles are Mosaic layout
-// and are not reproduced.  OMEGA (generated) > 1 compiles the over-relaxed
-// march.  Built with -fmad=false, as the renderer (ops/cuda/build.py): one
-// rounding decides where a march stops and which point is closest.
+// * Registers and occupancy.  With the bank in shared memory the compiler
+//   hoists its loads out of the march loop (Design1: all 30 LDS before the
+//   loop, 396 instructions a step inside it, 305 of them FP32) and holds
+//   every live object's frame in registers: 149, 3 blocks of 128 an SM.
+//   More blocks did not help: at most 128 registers (4 blocks) ran 2%
+//   slower, at most 64 (8 blocks, with spills) 12% slower, and the constant
+//   bank (31 registers) 4% slower.  So a scene without tables keeps that
+//   build.  Where the shared build reloads the bank every step (Logo), the
+//   bank lives in constant memory (common.cuh BANK_CONSTANT), where an
+//   FP32 instruction takes a bank word as its operand.  The rule:
+//   ops/cuda/tape.py ray_march_bank_constant.
+// * Divergence and the tail.  A warp of 32 neighbouring rays runs as long as
+//   its longest ray (83.5% of Design1's lane-steps busy at 640x480, 80.5% of
+//   Logo's; chip_smoke.py k4_warp_lane_share).  Persistent warps that refill
+//   their finished lanes from a global counter (Aila and Laine,
+//   Understanding the Efficiency of Ray Traversal on GPUs, HPG 2009) were
+//   built and measured: they raised Design2's lane share and ran its march
+//   faster, but ran Design1's and Logo's, the fit's main paths, slower (the
+//   atomic, the ray load and the restart against a light step; Logo's
+//   refilled lanes read the letter planes at scattered positions).  So
+//   every scene runs one thread per ray, a grid over the batch; refill
+//   comes back when a main path marches a heavy tape.  At `cli fit`'s 64x48
+//   (3,072 rays) the grid is 24 blocks on 132 SMs: the batch cannot fill
+//   the card.
+//
+// The rays are an AoS input f32[N, 3] formed by the caller exactly as its
+// plain version forms them; the origin is a device pointer f32[3] (the
+// fit's lies on the card: no host copy before a launch); vmin is written
+// interleaved as f32[N, 3]; the scene's baked tables (if any) come as
+// ``ex`` (Logo's letter planes).  The TPU kernel's three (rows, 128) planes
+// and its (8, 128) tiles are Mosaic layout and are not reproduced.  OMEGA
+// (generated) > 1 compiles the over-relaxed march.
 //
 // Needs the generated scene code, common.cuh and march.cuh above it.
 #include <cuda_runtime.h>
@@ -39,30 +59,29 @@ constexpr int RAY_THREADS = 128;
 
 __global__ void __launch_bounds__(RAY_THREADS)
 ray_march_kernel(float* __restrict__ d, float* __restrict__ vmin, long long n,
-                 const float* __restrict__ rays, float ox, float oy, float oz,
+                 const float* __restrict__ rays, const float* __restrict__ o,
                  const float* __restrict__ pos, const float* __restrict__ right,
                  const float* __restrict__ up, const float* __restrict__ fwd,
                  const float* __restrict__ ad, const float* __restrict__ ex) {
-    __shared__ float s_bank[N_OBJ * BANK_STRIDE];
-    load_bank(s_bank, pos, right, up, fwd);
+    SCENE_BANK(bank, lane_bank, pos, right, up, fwd);
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     float mx, my, mz;
-    d[i] = march_ray_closest(ox, oy, oz, rays[3 * i], rays[3 * i + 1], rays[3 * i + 2], s_bank,
-                             ad, ex, mx, my, mz);
+    d[i] = march_ray_closest(o[0], o[1], o[2], rays[3 * i], rays[3 * i + 1], rays[3 * i + 2],
+                             bank, ad, ex, mx, my, mz);
     vmin[3 * i] = mx;
     vmin[3 * i + 1] = my;
     vmin[3 * i + 2] = mz;
 }
 
-extern "C" int launch_ray_march(void* d, void* vmin, long long n, const void* rays, float ox,
-                                float oy, float oz, const void* pos, const void* right,
-                                const void* up, const void* fwd, const void* ad, const void* ex,
-                                void* stream) {
+extern "C" int launch_ray_march(void* d, void* vmin, long long n, const void* rays, const void* o,
+                                const void* pos, const void* right, const void* up,
+                                const void* fwd, const void* ad, const void* ex, void* stream) {
     if (n <= 0) return 0;
     const unsigned blocks = (unsigned)((n + RAY_THREADS - 1) / RAY_THREADS);
+    if (const int rc = prepare_bank(pos, right, up, fwd, (cudaStream_t)stream)) return rc;
     ray_march_kernel<<<blocks, RAY_THREADS, 0, (cudaStream_t)stream>>>(
-        (float*)d, (float*)vmin, n, (const float*)rays, ox, oy, oz, (const float*)pos,
+        (float*)d, (float*)vmin, n, (const float*)rays, (const float*)o, (const float*)pos,
         (const float*)right, (const float*)up, (const float*)fwd, (const float*)ad,
         (const float*)ex);
     return (int)cudaGetLastError();

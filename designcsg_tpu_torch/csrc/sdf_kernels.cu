@@ -47,8 +47,7 @@ point_eval_kernel(const float* __restrict__ pts, float* __restrict__ out, long l
                   const float* __restrict__ pos, const float* __restrict__ right,
                   const float* __restrict__ up, const float* __restrict__ fwd,
                   const float* __restrict__ ad, const float* __restrict__ ex) {
-    __shared__ float s_bank[N_OBJ * BANK_STRIDE];
-    load_bank(s_bank, pos, right, up, fwd);
+    SCENE_BANK(s_bank, lane_bank, pos, right, up, fwd);
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     out[i] = field_sdf(pts[3 * i], pts[3 * i + 1], pts[3 * i + 2], s_bank, ad, ex);
@@ -66,8 +65,7 @@ point_eval_fd_kernel(const float* __restrict__ pts, float* __restrict__ out,
                      const float* __restrict__ right, const float* __restrict__ up,
                      const float* __restrict__ fwd, const float* __restrict__ ad,
                      const float* __restrict__ ex) {
-    __shared__ float s_bank[N_OBJ * BANK_STRIDE];
-    load_bank(s_bank, pos, right, up, fwd);
+    SCENE_BANK(s_bank, lane_bank, pos, right, up, fwd);
     const auto field = [&](float x, float y, float z) { return field_sdf(x, y, z, s_bank, ad, ex); };
     const long long stride = (long long)gridDim.x * blockDim.x;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
@@ -88,8 +86,7 @@ grid_eval_kernel(float* __restrict__ out, int nz, int ny, int nx, float lox, flo
                  const float* __restrict__ right, const float* __restrict__ up,
                  const float* __restrict__ fwd, const float* __restrict__ ad,
                  const float* __restrict__ ex) {
-    __shared__ float s_bank[N_OBJ * BANK_STRIDE];
-    load_bank(s_bank, pos, right, up, fwd);
+    SCENE_BANK(s_bank, lane_bank, pos, right, up, fwd);
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     const long long plane = (long long)ny * nx;
     if (i >= plane * nz) return;
@@ -115,10 +112,9 @@ grid_eval_cull_kernel(float* __restrict__ out, int nz, int ny, int nx, float lox
                       const float* __restrict__ right, const float* __restrict__ up,
                       const float* __restrict__ fwd, const float* __restrict__ ad,
                       const float* __restrict__ ex) {
-    __shared__ float s_bank[N_OBJ * BANK_STRIDE];
+    SCENE_BANK(s_bank, lane_bank, pos, right, up, fwd);
     __shared__ Preds s_preds;
     __shared__ float s_substs[N_CULL_SLOTS];
-    load_bank(s_bank, pos, right, up, fwd);
     const int x0 = blockIdx.x * CULL_TX, y0 = blockIdx.y * CULL_TY, zb = blockIdx.z * CULL_TZ;
     if (threadIdx.x == 0 && threadIdx.y == 0) {
         grid_tile_cull(x0, y0, zb, nz, ny, nx, lox, loy, loz, cell, z0, s_bank, ad, ex, s_preds,
@@ -146,6 +142,7 @@ extern "C" int launch_point_eval(const void* pts, void* out, long long n, const 
                                  const void* right, const void* up, const void* fwd,
                                  const void* ad, const void* ex, void* stream) {
     if (n <= 0) return 0;
+    if (const int rc = prepare_bank(pos, right, up, fwd, (cudaStream_t)stream)) return rc;
     point_eval_kernel<<<blocks_for(n), SDF_THREADS, 0, (cudaStream_t)stream>>>(
         (const float*)pts, (float*)out, n, (const float*)pos, (const float*)right,
         (const float*)up, (const float*)fwd, (const float*)ad, (const float*)ex);
@@ -182,6 +179,7 @@ extern "C" int launch_point_eval_fd(const void* pts, void* out, void* normal, lo
     if (rc != 0) return rc;
     const long long need = (long long)blocks_for(n);
     const unsigned int blocks = (unsigned int)(need < resident ? need : resident);
+    if (const int rc = prepare_bank(pos, right, up, fwd, (cudaStream_t)stream)) return rc;
     point_eval_fd_kernel<<<blocks, SDF_THREADS, 0, (cudaStream_t)stream>>>(
         (const float*)pts, (float*)out, (float*)normal, n, (const float*)pos,
         (const float*)right, (const float*)up, (const float*)fwd, (const float*)ad,
@@ -195,6 +193,7 @@ extern "C" int launch_grid_eval(void* out, int nz, int ny, int nx, float lox, fl
                                 const void* ad, const void* ex, void* stream) {
     const long long n = (long long)nz * ny * nx;
     if (n <= 0) return 0;
+    if (const int rc = prepare_bank(pos, right, up, fwd, (cudaStream_t)stream)) return rc;
     grid_eval_kernel<<<blocks_for(n), SDF_THREADS, 0, (cudaStream_t)stream>>>(
         (float*)out, nz, ny, nx, lox, loy, loz, cell, z0, (const float*)pos,
         (const float*)right, (const float*)up, (const float*)fwd, (const float*)ad,
@@ -213,6 +212,7 @@ extern "C" int launch_grid_eval_cull(void* out, int nz, int ny, int nx, float lo
     const dim3 block(CULL_TX, CULL_TY);
     const dim3 grid((nx + CULL_TX - 1) / CULL_TX, (ny + CULL_TY - 1) / CULL_TY,
                     (nz + CULL_TZ - 1) / CULL_TZ);
+    if (const int rc = prepare_bank(pos, right, up, fwd, (cudaStream_t)stream)) return rc;
     grid_eval_cull_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
         (float*)out, nz, ny, nx, lox, loy, loz, cell, z0, (const float*)pos, (const float*)right,
         (const float*)up, (const float*)fwd, (const float*)ad, (const float*)ex);

@@ -106,11 +106,16 @@ def build(units: Dict[str, Tuple[str, str]]) -> Dict[str, str]:
 
 
 def load(name: str, source: str) -> ctypes.CDLL:
-    """The built library of ``source`` (building it first if needed)."""
+    """The built library of ``source`` (building it first if needed).
+    ``global_bank`` on it says whether its object bank is module-global
+    state (``BANK_CONSTANT``, csrc/common.cuh): see :func:`stream_handle`."""
     so = str(_stem(name, source).with_suffix(".so"))
     if so not in _LOADED:
         build({name: (name, source)})
-        _LOADED[so] = ctypes.CDLL(so)
+        lib = ctypes.CDLL(so)
+        lib.global_bank = "#define BANK_CONSTANT 1" in source
+        lib.bank_stream = None
+        _LOADED[so] = lib
     return _LOADED[so]
 
 
@@ -118,8 +123,30 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream_handle(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream_handle(device: torch.device, lib: ctypes.CDLL) -> ctypes.c_void_p:
+    """The handle of the current stream of ``device``, for a launch of
+    ``lib``'s kernel.  A library whose object bank is module-global state
+    (``lib.global_bank``) fills it before each launch, so its launches must
+    be ordered: all on the stream of its first launch, none captured into a
+    CUDA graph.  Raises otherwise."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if lib.global_bank:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("a kernel with a constant-memory object bank cannot be captured "
+                               "into a CUDA graph: each launch refills the bank")
+        if lib.bank_stream is None:
+            lib.bank_stream = stream
+        elif lib.bank_stream != stream:
+            raise RuntimeError("a kernel with a constant-memory object bank launches on one "
+                               "stream only (the stream of its first launch): two streams would "
+                               "race on its bank")
+    return ctypes.c_void_p(stream)
+
+
+def check_call(what: str, rc: int) -> None:
+    """Raise for a nonzero cudaError_t from a library's host function."""
+    if rc != 0:
+        raise RuntimeError(f"{what} failed with CUDA error {rc}")
 
 
 def check_launch(kernel: str, rc: int) -> None:

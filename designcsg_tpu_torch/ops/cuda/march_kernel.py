@@ -38,15 +38,30 @@ from ..raymarch import (
     make_march,
     make_renderer,
 )
-from .build import bank_pointers, check_launch, load, on_cuda, ptr, require_cuda_f32, stream_handle
-from .tape import cone_kernel_source, cull_mode, march_kernel_source, ray_march_kernel_source
+from .build import (
+    bank_pointers,
+    check_call,
+    check_launch,
+    load,
+    on_cuda,
+    ptr,
+    require_cuda_f32,
+    stream_handle,
+)
+from .tape import (
+    cone_kernel_source,
+    cull_mode,
+    march_kernel_source,
+    ray_march_kernel_source,
+)
 
 _P = ctypes.c_void_p
 _F = ctypes.c_float
 
 
 def make_cuda_renderer(
-    scene: CompiledScene, config: Optional[RenderConfig] = None, fmad: bool = False
+    scene: CompiledScene, config: Optional[RenderConfig] = None, fmad: bool = False,
+    cull_stats: bool = False,
 ):
     """``render(arrays, campos, rgt, upp, fwd, t0=None) -> f32[H, W, 3]`` on
     the device of ``arrays``: the fused kernel on a CUDA device, the plain
@@ -57,9 +72,15 @@ def make_cuda_renderer(
     tape has nothing to cull.  ``render.plain`` is the plain version.
     ``fmad=True`` takes a build of the kernel with nvcc's default FMA
     contraction (library ``march_fma``) instead of the ``-fmad=false`` one;
-    chip_smoke.py times both."""
+    chip_smoke.py times both.  ``cull_stats=True`` builds the dynamic culled
+    kernel with its counters (CULL_STATS, csrc/march.cuh; launches counted
+    with ``_stats`` appended) and makes ``render`` also return the frame's
+    ``evals``, ``group_evals`` (over all groups) and ``chains``."""
     config = config or RenderConfig()
     plain = make_renderer(scene, config)
+    if cull_stats and (plain.culler is None or cull_mode(config) != 2):
+        raise ValueError("cull_stats counts the dynamic cull: it needs march_cull='dynamic' "
+                         "and a tape that can be culled")
     mode = "renderer_overrelax" if config.march_overrelax > 1.0 else "renderer"
     suffix = ""
     if plain.culler is not None:
@@ -68,6 +89,8 @@ def make_cuda_renderer(
 
     def render(arrays: SceneArrays, campos, rgt, upp, fwd, t0=None) -> torch.Tensor:
         if not on_cuda(arrays.ad):
+            if cull_stats:
+                raise ValueError("cull_stats counts the kernel's cull: it needs a CUDA device")
             return plain(arrays, campos, rgt, upp, fwd, t0=t0)
         device = arrays.ad.device
         if t0 is not None:
@@ -75,7 +98,9 @@ def make_cuda_renderer(
             if tuple(t0.shape) != (config.height, config.width):
                 raise ValueError(f"t0 must be [{config.height}, {config.width}], got {tuple(t0.shape)}")
         if "lib" not in libs:
-            lib = load("march_fma" if fmad else "march", march_kernel_source(scene, config))
+            source = march_kernel_source(scene, config)
+            lib = load("march_fma" if fmad else "march",
+                       ("#define CULL_STATS 1\n" if cull_stats else "") + source)
             lib.launch_render.argtypes = [_P, ctypes.c_int, ctypes.c_int] + [_P] * 9
             lib.launch_render.restype = ctypes.c_int
             libs["lib"] = lib
@@ -84,10 +109,15 @@ def make_cuda_renderer(
         rc = libs["lib"].launch_render(
             ptr(out), config.height, config.width, _P(cam.ctypes.data),
             *bank_pointers(scene, arrays, device), None if t0 is None else ptr(t0),
-            stream_handle(device),
+            stream_handle(device, libs["lib"]),
         )
-        check_launch((mode if t0 is None else "renderer_t0") + suffix, rc)
-        return out
+        check_launch((mode if t0 is None else "renderer_t0") + suffix + ("_stats" if cull_stats else ""),
+                     rc)
+        if not cull_stats:
+            return out
+        counts = (ctypes.c_ulonglong * 3)()
+        check_call("read_cull_stats", libs["lib"].read_cull_stats(counts))
+        return out, dict(zip(("evals", "group_evals", "chains"), counts))
 
     render.plain = plain
     return render
@@ -120,7 +150,7 @@ def make_cuda_cone_march(scene: CompiledScene, config: Optional[RenderConfig] = 
         out = torch.empty(rays.shape[:-1], dtype=torch.float32, device=device)
         rc = libs["lib"].launch_cone_march(
             ptr(out), out.numel(), ptr(rays), ox, oy, oz,
-            *bank_pointers(scene, arrays, device), stream_handle(device),
+            *bank_pointers(scene, arrays, device), stream_handle(device, libs["lib"]),
         )
         check_launch("cone_march", rc)
         return out
@@ -152,6 +182,8 @@ def make_cuda_ray_march(scene: CompiledScene, config: Optional[RenderConfig] = N
     mode (``config.march_overrelax``) and gizmo of ``config``.  The banks and
     rays are taken detached (the JAX package's ``stop_gradient`` around its
     kernel, raymarch.py:205-208), so nothing it returns carries a gradient.
+    On the card ``o_proj`` is read by the kernel where it lies (a CUDA
+    tensor stays on the card; a host array is copied up).
     ``ray_march.plain`` is the plain version (:func:`make_march` with
     ``return_closest``)."""
     config = config or RenderConfig(gizmo=False)
@@ -173,17 +205,15 @@ def make_cuda_ray_march(scene: CompiledScene, config: Optional[RenderConfig] = N
             raise ValueError(f"rays must be [..., 3], got {tuple(rays.shape)}")
         if "lib" not in libs:
             lib = load("ray_march", ray_march_kernel_source(scene, config))
-            lib.launch_ray_march.argtypes = [_P, _P, ctypes.c_longlong, _P, _F, _F, _F] + [_P] * 7
+            lib.launch_ray_march.argtypes = [_P, _P, ctypes.c_longlong, _P, _P] + [_P] * 7
             lib.launch_ray_march.restype = ctypes.c_int
             libs["lib"] = lib
-        if isinstance(o_proj, torch.Tensor):
-            o_proj = o_proj.detach().cpu()
-        ox, oy, oz = (float(v) for v in np.asarray(o_proj, np.float32).reshape(3))
+        o = torch.as_tensor(o_proj, dtype=torch.float32).detach().to(device).reshape(3).contiguous()
         d = torch.empty(rays.shape[:-1], dtype=torch.float32, device=device)
         vmin = torch.empty(rays.shape, dtype=torch.float32, device=device)
         rc = libs["lib"].launch_ray_march(
-            ptr(d), ptr(vmin), d.numel(), ptr(rays), ox, oy, oz,
-            *bank_pointers(scene, arrays, device), stream_handle(device),
+            ptr(d), ptr(vmin), d.numel(), ptr(rays), ptr(o), *bank_pointers(scene, arrays, device),
+            stream_handle(device, libs["lib"]),
         )
         check_launch("ray_march", rc)
         return d, vmin

@@ -90,7 +90,8 @@ def make_point_eval(scene: CompiledScene, gizmo: bool = False):
         if n == 0:
             return out
         rc = lib.launch_point_eval(
-            ptr(points), ptr(out), n, *bank_pointers(scene, arrays, device), stream_handle(device)
+            ptr(points), ptr(out), n, *bank_pointers(scene, arrays, device),
+            stream_handle(device, lib)
         )
         check_launch(name, rc)
         return out
@@ -109,7 +110,7 @@ def make_point_eval(scene: CompiledScene, gizmo: bool = False):
             return out, normal
         rc = lib.launch_point_eval_fd(
             ptr(points), ptr(out), ptr(normal), n, *bank_pointers(scene, arrays, device),
-            stream_handle(device),
+            stream_handle(device, lib),
         )
         check_launch(fd_name, rc)
         return out, normal
@@ -216,7 +217,7 @@ def make_grid_eval(scene: CompiledScene, gizmo: bool = False, cull: Optional[boo
         rc = launch(
             ptr(out), slab, ny, nx, lox, loy, loz,
             float(np.float32(cell)), float(np.float32(z0)),
-            *bank_pointers(scene, arrays, device), stream_handle(device),
+            *bank_pointers(scene, arrays, device), stream_handle(device, libs["lib"]),
         )
         check_launch(name, rc)
         return out

@@ -122,42 +122,58 @@ def interval_functions(scene: CompiledScene, plan: CullPlan) -> str:
     )
 
 
+# The dynamic cull's held box (csrc/march.cuh hold_box): the chain runs on
+# the marching points' box widened by this margin (world units, about one
+# part of the shipped designs) on every side, and its predicates serve every
+# later step whose box stays inside.  A trade measured on the H100 (PERF.md;
+# ab_render_timing.py's levers, chip_smoke.py's k7_dynamic_held_box): at 1
+# Design1's dynamic frame took 0.62 ms against 1.65 with a chain every step,
+# and the cull still skipped 24% of its group evaluations (Logo 28%; 52%
+# each per step); at 0.25 the frames ran slower on Design2 and Logo, and
+# wider margins ran them faster still while the held box lets the cull
+# skip ever less: the margin bounds what the cull can do for a scene whose
+# groups it can skip.
+CULL_HOLD_MARGIN = 1.0
+
+
 def cull_words(plan: CullPlan) -> int:
     """32-bit words of the predicate mask: one bit per group, no cap."""
     return max(1, -(-len(plan.groups) // 32))
 
 
-def cull_tile_function(plan: CullPlan) -> str:
-    """``HD void cull_tile(bx, by, bz, bank, ad, ex, preds, substs)``: the
-    culler of ops/cull.py unrolled over the plan's tree -- every slot's padded
-    brush interval and substitute, then relevance top-down into the bit mask
-    ``preds`` (bit g % 32 of word g / 32: group g must be evaluated), each
-    interior interval computed where relevance reads it."""
-    lines = [
-        "HD void cull_tile(Iv bx, Iv by, Iv bz, const float* bank, const float* ad, const float* ex,",
-        "                  Preds& preds, float* substs) {",
-    ]
-    big = f32_literal(BIG)
-    done, names = set(), {}
+def _cull_leaves(plan: CullPlan):
+    """The plan's leaves (slot nodes: brushes and the gizmo), each slot once,
+    in the order the chain computes them."""
+    done, out = set(), []
 
-    def leaves(node):
+    def walk(node):
         if node.op not in ("leaf", "gizmo"):
             for c in node.children:
-                leaves(c)
-            return
-        b = f"b{node.slot}"
-        if node.slot in done:
-            return
-        done.add(node.slot)
-        if node.op == "gizmo":
-            lines.append(f"    const Iv {b} = iv_pad(iv_gizmo(bx, by, bz));")
-        elif plan.twinned[node.brush]:
-            lines.append(f"    Iv {b}a, {b}b, {b}c;")
-            lines.append(f"    iv_local(bx, by, bz, bank + {node.obj} * BANK_STRIDE, {b}a, {b}b, {b}c);")
-            lines.append(f"    const Iv {b} = iv_pad(ivbrush_{node.brush}({b}a, {b}b, {b}c, ad, ex));")
-        else:
-            lines.append(f"    const Iv {b} = Iv{{-{big}, {big}}};")
-        lines.append(f"    substs[{node.slot}] = {b}.lo;")
+                walk(c)
+        elif node.slot not in done:
+            done.add(node.slot)
+            out.append(node)
+
+    walk(plan.root)
+    return out
+
+
+def _slot_interval(plan: CullPlan, node) -> str:
+    """C++ of a leaf's padded interval over the box (bx, by, bz)."""
+    if node.op == "gizmo":
+        return "iv_pad(iv_gizmo(bx, by, bz))"
+    if plan.twinned[node.brush]:
+        return f"iv_pad(ivbrush_{node.brush}(b{node.slot}a, b{node.slot}b, b{node.slot}c, ad, ex))"
+    big = f32_literal(BIG)
+    return f"Iv{{-{big}, {big}}}"
+
+
+def _cull_relevance(plan: CullPlan, lines) -> None:
+    """Append the relevance tree of the plan: relevance top-down into the bit
+    mask ``preds`` (bit g % 32 of word g / 32: group g must be evaluated),
+    each interior interval computed where relevance reads it, over the
+    slots' intervals ``b<slot>``."""
+    names = {}
 
     def fold(op, exprs):
         expr = exprs[0]
@@ -175,7 +191,6 @@ def cull_tile_function(plan: CullPlan) -> str:
             lines.append(f"    const Iv {names[id(node)]} = {expr};")
         return names[id(node)]
 
-    leaves(plan.root)
     lines += [f"    preds.w[{i}] = 0u;" for i in range(cull_words(plan))]
     count = [0]
 
@@ -215,6 +230,108 @@ def cull_tile_function(plan: CullPlan) -> str:
                 down(u[1], rel_u)
 
     down(plan.root, "true")
+
+
+def cull_tile_function(plan: CullPlan) -> str:
+    """``HD void cull_tile(bx, by, bz, bank, ad, ex, preds, substs)``: the
+    culler of ops/cull.py unrolled over the plan's tree, in one thread --
+    every slot's padded brush interval and substitute, then the relevance
+    tree (K3's culled grid runs it in one thread of a block)."""
+    lines = [
+        "HD void cull_tile(Iv bx, Iv by, Iv bz, const float* bank, const float* ad, const float* ex,",
+        "                  Preds& preds, float* substs) {",
+    ]
+    for node in _cull_leaves(plan):
+        b = f"b{node.slot}"
+        if node.op == "leaf" and plan.twinned[node.brush]:
+            lines.append(f"    Iv {b}a, {b}b, {b}c;")
+            lines.append(f"    iv_local(bx, by, bz, bank + {node.obj} * BANK_STRIDE, {b}a, {b}b, {b}c);")
+        lines.append(f"    const Iv {b} = {_slot_interval(plan, node)};")
+        lines.append(f"    substs[{node.slot}] = {b}.lo;")
+    _cull_relevance(plan, lines)
+    lines += ["}", ""]
+    return "\n".join(lines)
+
+
+def cull_chunks(plan: CullPlan) -> int:
+    """Chunks of 32 slots the lane chain runs, one slot per lane."""
+    return -(-plan.n_slots // 32)
+
+
+def _lane_kinds(plan: CullPlan):
+    """{kind: slots} of the lane chain's passes: each twinned brush its own
+    kind, the gizmo one, untwinned slots none (a constant interval)."""
+    kinds = {}
+    for node in _cull_leaves(plan):
+        if node.op == "gizmo":
+            kinds.setdefault("gizmo", []).append(node.slot)
+        elif plan.twinned[node.brush]:
+            kinds.setdefault(node.brush, []).append(node.slot)
+    return kinds
+
+
+def _lane_mask(slots, chunk: int) -> str:
+    bits = sum(1 << (k - 32 * chunk) for k in slots if 32 * chunk <= k < 32 * chunk + 32)
+    return f"0x{bits:08x}u"
+
+
+def _per_chunk(values) -> str:
+    """C++ selecting ``values[chunk]`` (a literal per chunk)."""
+    expr = values[-1]
+    for c in range(len(values) - 2, -1, -1):
+        expr = f"chunk == {c} ? {values[c]} : {expr}"
+    return expr
+
+
+def cull_lane_function(plan: CullPlan) -> str:
+    """``HD Iv cull_lane(chunk, lane, bx, by, bz, bank, ad, ex)``: the padded
+    interval of slot 32 * chunk + lane over the box, the per-slot work of
+    the lane chain (march.cuh cull_tile_lanes), the same operations as
+    ``cull_tile``'s for that slot.  Lanes run their slots' frame intervals
+    together (the object's bank row read at a lane-dependent index), then
+    one pass per brush kind under a lane mask, so a warp issues each
+    interval body once per chunk, not once per slot; slots past the plan's
+    return an unused constant.  ``chunk`` is a constant where it is
+    inlined, so the masks fold."""
+    leaves = _cull_leaves(plan)
+    chunks = cull_chunks(plan)
+    local = [n for n in leaves if n.op == "leaf" and plan.twinned[n.brush]]
+    big = f32_literal(BIG)
+    lines = [
+        "HD Iv cull_lane(int chunk, int lane, Iv bx, Iv by, Iv bz, const float* bank,",
+        "                const float* ad, const float* ex) {",
+        "    const unsigned bit = 1u << lane;",
+        f"    Iv iv{{-{big}, {big}}};",
+    ]
+    if local:
+        if all(n.obj == n.slot for n in local):
+            obj = "32 * chunk + lane"
+        else:
+            obj = "0"
+            for n in sorted(local, key=lambda n: -n.slot):
+                obj = f"32 * chunk + lane == {n.slot} ? {n.obj} : {obj}"
+        lines += [
+            "    Iv a{0.0f, 0.0f}, b{0.0f, 0.0f}, c{0.0f, 0.0f};",
+            f"    if (({_per_chunk([_lane_mask([n.slot for n in local], c) for c in range(chunks)])}) & bit)",
+            f"        iv_local(bx, by, bz, bank + ({obj}) * BANK_STRIDE, a, b, c);",
+        ]
+    for kind, slots in _lane_kinds(plan).items():
+        mask = _per_chunk([_lane_mask(slots, c) for c in range(chunks)])
+        body = "iv_gizmo(bx, by, bz)" if kind == "gizmo" else f"ivbrush_{kind}(a, b, c, ad, ex)"
+        lines.append(f"    if (({mask}) & bit) iv = iv_pad({body});")
+    lines += ["    return iv;", "}", ""]
+    return "\n".join(lines)
+
+
+def cull_tree_function(plan: CullPlan) -> str:
+    """``HD void cull_tree(bv, preds, substs)``: ``cull_tile``'s relevance
+    tree and substitutes over the slots' padded intervals ``bv[slot]``, as
+    the lane chain gathers them into every lane."""
+    lines = ["HD void cull_tree(const Iv* bv, Preds& preds, float* substs) {"]
+    for node in _cull_leaves(plan):
+        lines.append(f"    const Iv b{node.slot} = bv[{node.slot}];")
+        lines.append(f"    substs[{node.slot}] = b{node.slot}.lo;")
+    _cull_relevance(plan, lines)
     lines += ["}", ""]
     return "\n".join(lines)
 
@@ -269,7 +386,9 @@ def cull_source(scene: CompiledScene, plan: Optional[CullPlan], mode: int,
                 config: Optional[RenderConfig] = None) -> str:
     """``#define CULL_MODE <mode>`` (0 off, 1 hoisted, 2 dynamic; the point
     and grid unit uses 1) and, with a plan, the cull's constants, the
-    interval twins, ``cull_tile`` and ``field_sdf_culled``.  A renderer's
+    interval twins, the chain in one thread (``cull_tile``) and spread over
+    a warp's lanes (``cull_lane`` and ``cull_tree``, the dynamic cull's), and
+    ``field_sdf_culled``.  A renderer's
     ``config`` adds the hoisted cull's drift pad: accumulated positions
     stray from o + d*r by up to MAX_STEPS ulps (march_kernel.py:477-491 of
     the JAX package)."""
@@ -277,15 +396,19 @@ def cull_source(scene: CompiledScene, plan: Optional[CullPlan], mode: int,
         return "#define CULL_MODE 0\n"
     drift = ""
     if config is not None:
-        drift = f"constexpr float CULL_DRIFT = {f32_literal(float(config.max_steps) * 1.5e-7)};\n"
+        drift = (f"constexpr float CULL_DRIFT = {f32_literal(float(config.max_steps) * 1.5e-7)};\n"
+                 f"constexpr float CULL_HOLD = {f32_literal(CULL_HOLD_MARGIN)};\n")
     return "\n".join(
         [
             f"#define CULL_MODE {mode}\n"
             f"constexpr int N_CULL_SLOTS = {plan.n_slots};\n"
-            f"constexpr int N_CULL_WORDS = {cull_words(plan)};\n" + drift,
+            f"constexpr int N_CULL_WORDS = {cull_words(plan)};\n"
+            f"constexpr int N_CULL_CHUNKS = {cull_chunks(plan)};\n" + drift,
             csrc("interval.cuh"),
             interval_functions(scene, plan),
             cull_tile_function(plan),
+            cull_lane_function(plan),
+            cull_tree_function(plan),
             culled_tape_function(scene, plan),
         ]
     )
@@ -321,6 +444,36 @@ def cull_chain_ops(scene: CompiledScene, gizmo: bool) -> Optional[int]:
     }
     calls = re.findall(r"\bivbrush_(\d+)\(", chain)
     return _text_ops(chain) + sum(body_ops[int(k)] for k in calls)
+
+
+def lane_chain_ops(scene: CompiledScene, gizmo: bool) -> Optional[dict]:
+    """What a warp issues for one lane chain (march.cuh cull_tile_lanes),
+    counted from the generated code as :func:`cull_chain_ops` counts the
+    chain of one thread: per chunk of 32 slots, the frame interval
+    (``iv_local``) once if a slot of the chunk needs it and each kind's
+    interval body with its pad once if a slot of the chunk has that kind (the
+    lanes of a pass run together), and two shuffles per slot; then the
+    relevance tree, once.  FP32 operations and shuffles are counted apart;
+    the lane masks and the object index are not counted (constants and
+    loop-invariant selects).  None when the scene has no cull."""
+    plan = make_cull_plan(scene, gizmo)
+    if plan is None:
+        return None
+    kinds = _lane_kinds(plan)
+    local = [n.slot for n in _cull_leaves(plan) if n.op == "leaf" and plan.twinned[n.brush]]
+    slot_ops = 0
+    for c in range(cull_chunks(plan)):
+        def present(slots):
+            return any(32 * c <= k < 32 * c + 32 for k in slots)
+
+        slot_ops += IV_OPS["iv_local"] if present(local) else 0
+        for kind, slots in kinds.items():
+            if present(slots):
+                body = IV_OPS["iv_gizmo"] if kind == "gizmo" else _text_ops(scene.brush_interval_cuda[kind])
+                slot_ops += body + IV_OPS["iv_pad"]
+    tree = _text_ops(cull_tree_function(plan))
+    return dict(slot_ops=slot_ops, tree_ops=tree, fp32_ops=slot_ops + tree,
+                shuffles=2 * plan.n_slots, chunks=cull_chunks(plan), kinds=len(kinds))
 
 
 def shade_function(scene: CompiledScene) -> str:
@@ -399,8 +552,13 @@ def cull_mode(config: RenderConfig) -> int:
     return 2 if config.march_cull == "dynamic" else 1
 
 
+# Objects a __constant__ bank holds: 64 KB of constant memory over
+# BANK_STRIDE floats an object (csrc/common.cuh).
+BANK_CONSTANT_MAX_OBJECTS = 65536 // (12 * 4)
+
+
 def scene_source(scene: CompiledScene, render_config: Optional[RenderConfig] = None,
-                 cull: int = 0, gizmo: bool = False) -> str:
+                 cull: int = 0, gizmo: bool = False, bank_constant: bool = False) -> str:
     """The generated scene code: constants (the extras' offsets among them),
     common.cuh, table.cuh (K6), brush functions and the unrolled tape (the k2
     field, with the k1 gizmo when ``gizmo``).  With ``render_config``: the k1
@@ -408,10 +566,18 @@ def scene_source(scene: CompiledScene, render_config: Optional[RenderConfig] = N
     functions and march.cuh's ``render_pixel``, ``cone_ray`` and
     ``march_ray_closest``.  With ``cull`` (a ``CULL_MODE``) and a scene
     whose tape can be culled: the interval twins, ``cull_tile`` and
-    ``field_sdf_culled`` of the same field (:func:`cull_source`)."""
+    ``field_sdf_culled`` of the same field (:func:`cull_source`).
+    ``bank_constant`` puts the kernels' object bank in constant memory
+    (``BANK_CONSTANT``, csrc/common.cuh), for at most
+    BANK_CONSTANT_MAX_OBJECTS objects."""
+    if bank_constant and scene.num_objects > BANK_CONSTANT_MAX_OBJECTS:
+        raise ValueError(
+            f"the scene has {scene.num_objects} objects; a kernel's __constant__ object bank "
+            f"holds at most {BANK_CONSTANT_MAX_OBJECTS} (64 KB)")
     parts = [
         "// Generated from the scene tape by designcsg_tpu_torch/ops/cuda/tape.py.\n"
-        f"constexpr int N_OBJ = {scene.num_objects};\n" + extras_constants(scene)
+        f"constexpr int N_OBJ = {scene.num_objects};\n"
+        f"#define BANK_CONSTANT {int(bank_constant)}\n" + extras_constants(scene)
     ]
     if render_config is not None:
         gizmo = render_config.gizmo
@@ -431,23 +597,54 @@ def sdf_kernel_source(scene: CompiledScene, gizmo: bool = False) -> str:
     """Translation unit of the point and grid eval kernels (the k2 field, or
     with ``gizmo`` the k1 field: the tape min-ed with the axis gizmo), the
     culled grid kernel among them when the tape can be culled (the gizmo
-    then has its own cull slot)."""
+    then has its own cull slot).  Its bank stays in shared memory: the A/B
+    timed it in constant memory too (PERF.md)."""
     return scene_source(scene, cull=1, gizmo=gizmo) + "\n" + csrc("sdf_kernels.cu")
+
+
+# Where each sphere-trace unit keeps the object bank: rules from the A/B on
+# the H100 that chose them (PERF.md; ab_render_timing.py times both
+# placements beside each other, the constant bank's fill included).
+#
+# The renderer (K2): constant memory for a bank of more than 4 objects,
+# except under the hoisted cull.  Design1's 11 objects, held in registers by
+# the shared build, took 208 registers (2 blocks an SM), and its unculled
+# and dynamic frames ran faster with constant operands; Logo's shared build
+# reloaded its bank each step; Design2's 3 objects sit in registers at 80
+# and its frames ran slower with constant operands.  Design1's hoisted
+# frames, whose every lane runs the one-thread chain once, ran slower with
+# the constant bank than with the shared one.
+RENDER_CONSTANT_BANK_MIN_OBJECTS = 5
+
+
+def ray_march_bank_constant(scene: CompiledScene) -> bool:
+    """Whether the fit's ray march (K4) takes its bank from constant memory:
+    with baked tables (Logo), whose shared build reloaded the bank every
+    step; a scene without keeps the shared build, whose bank the compiler
+    holds in registers (Design1: 149, 3 blocks an SM, enough for its step)."""
+    return bool(scene.extras or scene.derived_extras)
 
 
 def march_kernel_source(scene: CompiledScene, config: RenderConfig) -> str:
     """Translation unit of the fused renderer kernel (march mode, cone
-    constants and cull mode from ``config``)."""
-    return scene_source(scene, render_config=config, cull=cull_mode(config)) + "\n" + csrc(
-        "march_kernel.cu")
+    constants and cull mode from ``config``); its bank in constant memory
+    by the rule above RENDER_CONSTANT_BANK_MIN_OBJECTS."""
+    cull = cull_mode(config)
+    constant = scene.num_objects >= RENDER_CONSTANT_BANK_MIN_OBJECTS and cull != 1
+    return scene_source(scene, render_config=config, cull=cull, bank_constant=constant) + (
+        "\n" + csrc("march_kernel.cu"))
 
 
 def cone_kernel_source(scene: CompiledScene, config: RenderConfig) -> str:
-    """Translation unit of the cone prepass kernel."""
+    """Translation unit of the cone prepass kernel (its bank in shared
+    memory, as the point/grid unit's)."""
     return scene_source(scene, render_config=config) + "\n" + csrc("cone_kernel.cu")
 
 
 def ray_march_kernel_source(scene: CompiledScene, config: RenderConfig) -> str:
     """Translation unit of the fit's ray-march kernel (march mode, step
-    budget and gizmo from ``config``)."""
-    return scene_source(scene, render_config=config) + "\n" + csrc("ray_march_kernel.cu")
+    budget and gizmo from ``config``; the bank's placement by
+    :func:`ray_march_bank_constant`)."""
+    return scene_source(scene, render_config=config,
+                        bank_constant=ray_march_bank_constant(scene)) + "\n" + csrc(
+        "ray_march_kernel.cu")

@@ -494,3 +494,122 @@ def test_logo_planes_and_cone_on_card(logo, cuda_device):
     assert float(((got > far) == (ref > far)).float().mean()) >= 0.99
     both = (got <= far) & (ref <= far)
     assert float((got - ref).abs()[both].max()) <= 1e-4
+
+
+# K4 redesigned: the bank in constant memory where tables make the shared
+# build reload it, the origin read on the card.  Every ray runs the per-ray
+# march's step from its own state, so the kernel gives its plain version's
+# bits.
+K4_SHAPES = {"640x480": (640, 480), "64x48": (64, 48), "1000 rays": None}
+
+
+def _k4_rays(config, shape, device):
+    rows = camera_rows(*Camera.initial().orbit(0.2, -0.1).as_arrays())
+    if shape is None:  # a batch that is not a multiple of a warp, spread over the view
+        dirs = ray_directions(dataclasses.replace(config, width=40, height=25), device).reshape(-1, 3)
+        return rows, project(dirs, *torch.as_tensor(rows[1:], device=device)).contiguous()
+    cfg = dataclasses.replace(config, width=shape[0], height=shape[1])
+    return rows, project(ray_directions(cfg, device), *torch.as_tensor(rows[1:], device=device))
+
+
+@pytest.mark.parametrize("shape", list(K4_SHAPES))
+@pytest.mark.parametrize("omega", [1.0, 1.6])
+@pytest.mark.parametrize("name", ["design1", "design2", "logo"])
+def test_ray_march_kernel_bit_equal(name, omega, shape, cuda_device):
+    """K4 against its plain version on every design, both march modes, at
+    the fit's 640x480, `cli fit`'s 64x48 and 1000 rays: identical hit sets,
+    d and vmin bit for bit; the origin passed as a CUDA tensor."""
+    scene = get_design(name)
+    arrays = scene.arrays.to_torch(cuda_device)
+    config = dataclasses.replace(FIT, march_overrelax=omega)
+    ray_march = make_cuda_ray_march(scene, config)
+    rows, rays = _k4_rays(config, K4_SHAPES[shape], cuda_device)
+    d, vmin = ray_march(arrays, torch.as_tensor(rows[0], device=cuda_device), rays)
+    d_ref, vmin_ref = ray_march.plain(arrays, rows[0], rays)
+    assert torch.equal(d > 0, d_ref > 0) and bool((d > 0).any())
+    assert torch.equal(d, d_ref) and torch.equal(vmin, vmin_ref)
+
+
+@pytest.mark.parametrize("name", ["design1", "design2", "logo"])
+def test_ray_march_kernel_repeats(name, cuda_device):
+    """Two K4 launches in a row give the same bits, each counted once (the
+    constant bank is refilled for each)."""
+    scene = get_design(name)
+    arrays = scene.arrays.to_torch(cuda_device)
+    ray_march = make_cuda_ray_march(scene, FIT)
+    rows, rays = _k4_rays(FIT, (640, 480), cuda_device)
+    before = kbuild.LAUNCHES["ray_march"]
+    first = ray_march(arrays, rows[0], rays)
+    second = ray_march(arrays, rows[0], rays)
+    torch.cuda.synchronize()
+    assert kbuild.LAUNCHES["ray_march"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_constant_bank_unit_keeps_one_stream(cuda_device):
+    """Logo's K4 unit keeps its bank in constant memory: a launch on another
+    stream than its first raises (the two would race on the bank), and the
+    first stream goes on working."""
+    scene = get_design("logo")
+    arrays = scene.arrays.to_torch(cuda_device)
+    ray_march = make_cuda_ray_march(scene, FIT)
+    rows, rays = _k4_rays(FIT, (64, 48), cuda_device)
+    first = ray_march(arrays, rows[0], rays)
+    with torch.cuda.stream(torch.cuda.Stream(cuda_device)):
+        with pytest.raises(RuntimeError, match="one stream"):
+            ray_march(arrays, rows[0], rays)
+    assert all(torch.equal(a, b) for a, b in zip(first, ray_march(arrays, rows[0], rays)))
+
+
+@pytest.mark.parametrize("name,launches", [("design1", 3), ("logo", 3)])
+def test_fit_steps_launch_ray_march_once_each(name, launches, cuda_device):
+    """K4's launches on the fit's path are unchanged: one for the target,
+    one per Adam step (path D's 11 and path F's 8 in chip_smoke.py)."""
+    scene = get_design(name)
+    harness = make_fit_harness(scene, FIT)
+    cam = Camera.initial().as_arrays()
+    start = np.asarray(scene.arrays.position).copy()
+    start[1:, 0] += 0.05
+    before = kbuild.LAUNCHES["ray_march"]
+    target = harness.render_target(scene.arrays, *cam)
+    state = harness.init({"position": start})
+    for _ in range(launches - 1):
+        state, loss = harness.step_fn(state, target, *cam)
+    torch.cuda.synchronize()
+    assert kbuild.LAUNCHES["ray_march"] - before == launches
+    assert bool(torch.isfinite(loss))
+
+
+@pytest.mark.parametrize("cull", [True, "dynamic"])
+@pytest.mark.parametrize("name", ["design1", "design2", "logo"])
+def test_culled_renderer_lane_chain_full_frame(name, cull, cuda_device):
+    """K2's culled renderer on the lane chain at the viewport's 640x480,
+    from the camera and from the cone's t0 plane: every frame bit-equal to
+    the unculled kernel's."""
+    scene = get_design(name)
+    arrays = scene.arrays.to_torch(cuda_device)
+    cam = Camera.initial().as_arrays()
+    for base, factory in ((RenderConfig(), make_cuda_renderer),
+                          (RenderConfig(march_overrelax=1.6, march_hierarchical=True),
+                           make_cuda_hierarchical_renderer)):
+        got = factory(scene, dataclasses.replace(base, march_cull=cull))(arrays, *cam)
+        assert torch.equal(got, factory(scene, base)(arrays, *cam))
+
+
+@pytest.mark.parametrize("name", ["design1", "design2", "logo"])
+def test_dynamic_cull_held_box_counts(name, cuda_device):
+    """The dynamic culled kernel built with its counters (CULL_STATS) gives
+    the same frame, as many evaluations as its plain version counts, and
+    fewer chains: the held box serves steps the per-step cull would chain."""
+    scene = get_design(name)
+    arrays = scene.arrays.to_torch(cuda_device)
+    config = RenderConfig(width=160, height=120, march_cull="dynamic")
+    cam = Camera.initial().orbit(0.2, -0.1).as_arrays()
+    render = make_cuda_renderer(scene, config)
+    frame, counts = make_cuda_renderer(scene, config, cull_stats=True)(arrays, *cam)
+    assert torch.equal(frame, render(arrays, *cam))
+    plain_counts = {}
+    render.plain(arrays, *cam, cull_counts=plain_counts)
+    assert counts["evals"] == plain_counts["evals"]
+    assert 0 < counts["chains"] < plain_counts["chains"]
+    assert counts["group_evals"] <= counts["evals"] * len(plain_counts["group_evals"])
