@@ -11,16 +11,19 @@ renderer, hoisted and dynamic, and inside the grid kernel) and the culled
 kernels of a synthetic scene of 89 cull groups from the sources in this
 checkout, all nvcc runs at once, and holds each against its plain PyTorch
 version at the main paths' shapes (the culled kernels also against the
-unculled ones, phase 5d; a scene without CUDA bodies runs on the plain tape,
+unculled ones, phase 5d, the culled grids bit for bit; the cone kernel's
+t_safe bit for bit; a scene without CUDA bodies runs on the plain tape,
 phase 5e; the export strategies agree at 256^3, phase 6).  Then it drives
 nine main paths through the user entry points, with launch counts set to 0
 before each and read after:
 
 * A: Design1's viewport, a k2 query, k1-field queries (the gizmo kernels)
   and bench.py's 512^3 ``active`` export (50 refine steps) to STL/PLY,
-  whose refine must make one launch of K1's FD form per chunk and step (100)
-  and none of the single point kernel (the counts read around it; also on
-  Design2's adaptive export and Logo's baked one, 50);
+  whose grid must take 20 launches of K3 and whose refine must make one
+  launch of K1's FD form per chunk and step (100) and none of the single
+  point kernel (the counts read around it; also on Design2's adaptive
+  export and Logo's baked one, 50); this export and those of A', C and E
+  must give the triangle counts they gave before K3's redesign;
 * A': ``cli export design1`` at its defaults (auto: the adaptive octree
   5 -> 7 at grid level 8);
 * Design1's fast viewport: ``cli render design1 --fast`` (cone prepass +
@@ -65,6 +68,14 @@ prints:
 * a ``k1_sass`` line: the instructions of Design1's, Design2's and Logo's
   point kernel and its FD form by opcode (``cuobjdump -sass``), with the
   shared, global and constant loads and the FP32 instructions summed;
+* a ``k3_k5_units`` line: per design the registers and spills (ptxas) of
+  K3's grid kernels (unculled and culled, without and with the gizmo) and of
+  K5's cone kernel, their SASS split at their widest loop (one lattice
+  point of the column loop; one cone step), the cone's warps a block
+  (``CONE_WARPS``) and the column form's FP32 operations a point and a
+  column, counted from the generated code beside the point form's; a
+  ``k3_vs_k1_bit_equal_share`` line: the share of the grid kernel's values
+  bit-equal to the point kernel's at the same lattice points;
 * a ``k4_unit`` line: per design K4's registers and spills (ptxas), its
   resident blocks per SM and its SASS split at the march loop (before it,
   one step, after it); a ``k2_registers`` line: every renderer unit's;
@@ -107,6 +118,7 @@ It needs a CUDA device and the CUDA toolkit (nvcc); it imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import io
 import json
@@ -138,10 +150,16 @@ from designcsg_tpu_torch.ops.cuda.march_kernel import (
     make_cuda_ray_march,
     make_cuda_renderer,
 )
-from designcsg_tpu_torch.ops.cuda.sdf_kernel import make_grid_eval, make_point_eval
+from designcsg_tpu_torch.ops.cuda.sdf_kernel import lattice_points, make_grid_eval, make_point_eval
 from designcsg_tpu_torch.ops.cuda.tape import (
+    FRAME_TERMS_OPS,
+    GIZMO_FLOPS,
+    column_frame_ops,
+    column_hoisted,
     cone_kernel_source,
+    cone_warps,
     cull_chain_ops,
+    grid_cull_column,
     lane_chain_ops,
     march_kernel_source,
     ray_march_kernel_source,
@@ -180,7 +198,7 @@ L1_BYTES_PER_CLOCK = 128
 # count of its CUDA body (Brush.cuda_flops); a tape slot costs that plus its
 # frame transform, unless the brush ignores its coordinates (the compiler
 # drops its transform): cull.leaf_cost, which the cull's grouping uses too.
-GIZMO_OPS = 3 + 3 * 9 + 2  # 3 divisions, 3 cylinders, 2 mins
+GIZMO_OPS = GIZMO_FLOPS  # 3 divisions, 3 cylinders, 2 mins
 # K1's FD form around its seven evaluations (csrc/common.cuh sdf_fd_normal):
 # per axis 6 offset coordinates, a difference, 2e and a division (9); the
 # norm (3 products, 2 sums, a square root) and 3 divisions.
@@ -217,6 +235,12 @@ D1_EXPORT = ExportConfig(bounding_box_half_diameter=10.0, grid_level=9, gradient
 JAX_TRIANGLES = {"design1_active_512": 2180120, "design2_adaptive": 231888,
                  "logo_adaptive_baked": 44170, "logo_adaptive_exact": 54878}
 JAX_DESIGN2_LEVELS = {6: 6878, 7: 33273, 8: 159137}
+# The triangle counts the same exports gave with the port's kernels before
+# K3's redesign (68fd463's tree, ab_render_timing.py on an H100 80GB HBM3 at
+# 700 W; PERF.md): the redesigned grid kernel must not move them.
+EARLIER_TRIANGLES = {"design1_active_512": 2180120, "cli_export_design1": 21992,
+                     "design2_adaptive": 230648, "logo_adaptive_exact": 48134,
+                     "logo_adaptive_baked": 40936}
 
 MARCH_PY = "designcsg_tpu/ops/pallas/march_kernel.py"
 SOURCES = {
@@ -292,14 +316,41 @@ def kernel_tables(scene) -> int:
     return 4 * sum(t.size for _, t in scene.derived_extras)
 
 
-def group_ops(scene, culler) -> list:
-    """FP32 operations of each cull group's slots in one tape evaluation."""
+def group_ops(scene, culler, column: bool = False) -> list:
+    """FP32 operations of each cull group's slots in one tape evaluation; in
+    the grid kernel's column form (``column``) a hoisted slot's frame
+    transform takes 7, not 18 (tape.FRAME_ROW_OPS)."""
     slots = [int(left) for opcode, left, _, _ in scene.arrays.tape if opcode == 0]
+    hoisted = column_hoisted(scene) if column else {}
 
     def slot_ops(k):
-        return GIZMO_OPS if k == len(slots) else leaf_ops(scene, slots[k])
+        if k == len(slots):
+            return GIZMO_OPS
+        return leaf_ops(scene, slots[k]) - (11 if k in hoisted else 0)
 
     return [sum(slot_ops(k) for k in members) for members in culler.groups]
+
+
+def column_ops(scene) -> dict:
+    """The grid kernel's FP32 operations, counted from its generated column
+    form (tape.column_frame_ops): a point's (the tape with the hoisted
+    slots' frame rows in place of their whole transforms), a column's (the
+    hoisted terms), and the point form's a point beside them."""
+    frame = column_frame_ops(scene)
+    point = tape_ops(scene)
+    return dict(point_form_ops=point, column_form_ops=point - frame["point_form"] + frame["column_form"],
+                per_column_ops=frame["per_column"], hoisted=frame["hoisted"])
+
+
+def grid_ranges(scene, nz: int, ny: int, nx: int) -> int:
+    """The z ranges the unculled grid kernel cuts an (nz, ny, nx) slab into
+    on this card (csrc/sdf_kernels.cu grid_eval_z_ranges, from the unit's
+    occupancy): each makes its columns' terms."""
+    lib = kbuild.load("sdf", sdf_kernel_source(scene))
+    ranges, zper = ctypes.c_int(), ctypes.c_int()
+    kbuild.check_call("grid_eval_z_ranges", lib.grid_eval_z_ranges(
+        nz, ny, nx, ctypes.byref(ranges), ctypes.byref(zper)))
+    return ranges.value
 
 
 def culled_ops(counts, full_ops: int, gops: list, chain_ops: int) -> int:
@@ -592,6 +643,11 @@ def counting_refine(evaluator, sink: dict):
     return evaluator
 
 
+def check_triangles(label: str, n: int) -> None:
+    check(n == EARLIER_TRIANGLES[label],
+          f"{label}: {n} triangles, as before the grid kernel's redesign ({EARLIER_TRIANGLES[label]})")
+
+
 def check_refine_launches(label: str, sink: dict, expect: int) -> None:
     """One launch of K1's FD form per chunk and step, none of the single
     point kernel, and ``expect`` of them in all (this export's chunks times
@@ -687,11 +743,13 @@ def fit_rays(config, cam, device):
 
 
 def coarse_rays(config, cam, device):
-    """(o_proj f32[3] on the host, the block-centre rays f32[H/F, W/F, 3] on
-    ``device``), formed as the hierarchical renderer forms them."""
+    """(o_proj f32[3], the block-centre rays f32[H/F, W/F, 3]), both on
+    ``device`` (the cone kernel reads the origin there), formed as the
+    hierarchical renderer forms them."""
     rows = camera_rows(*cam)
     frame = torch.as_tensor(rows[1:], device=device)
-    return rows[0], project(torch.from_numpy(coarse_ray_uv(config)).to(device), *frame)
+    return (torch.as_tensor(rows[0], device=device),
+            project(torch.from_numpy(coarse_ray_uv(config)).to(device), *frame))
 
 
 def main() -> int:
@@ -764,6 +822,29 @@ def main() -> int:
             so = kbuild._stem(unit, sdf_kernel_source(scenes[name])).with_suffix(".so")
             sass[f"{name} {kernel}"] = sass_counts(str(so), (kernel,)).get(kernel)
     print(json.dumps({"k1_sass": sass}))
+    # K3 and K5 as built (redesigned: the grid on lattice columns with the
+    # frame terms hoisted, its cull on the lane chain; the cone split across
+    # warps): registers and spills, SASS split at the widest loop (K3: one
+    # lattice point of a column; K5: one step), the cone's warps a block,
+    # and the FP32 operations the column form does, counted from its code.
+    k3_k5 = {}
+    for name in DESIGNS:
+        scene = scenes[name]
+        row = dict(cone_warps=cone_warps(scene, HIERARCHICAL.gizmo), column_ops=column_ops(scene))
+        for label, unit, source, kernel in (
+            ("grid", "sdf", sdf_kernel_source(scene), "grid_eval_kernel"),
+            ("grid_cull", "sdf", sdf_kernel_source(scene), "grid_eval_cull_kernel"),
+            ("grid_gizmo", "sdf gizmo", sdf_kernel_source(scene, gizmo=True), "grid_eval_kernel"),
+            ("grid_cull_gizmo", "sdf gizmo", sdf_kernel_source(scene, gizmo=True),
+             "grid_eval_cull_kernel"),
+            ("cone", "cone", cone_kernel_source(scene, HIERARCHICAL), "cone_march_kernel"),
+        ):
+            so = kbuild._stem(unit.split()[0], source).with_suffix(".so")
+            code = sass_counts(str(so), (kernel,)).get(kernel) or {}
+            row[label] = dict(registers=unit_registers(logs[f"{name} {unit}"], kernel),
+                              sass_total=code.get("total"), sass_loop=code.get("loop"))
+        k3_k5[name] = row
+    print(json.dumps({"k3_k5_units": k3_k5}))
     # K4 and K2 as built: registers and spills (ptxas), K4's resident blocks
     # per SM (by its registers, resident_blocks) and its SASS split at the
     # march loop (before it, one step, after it).
@@ -860,6 +941,18 @@ def main() -> int:
                 err = float((plane_sample(tabs[pname], gx, gy) - packed_rank_sample(tabs[tname], gx, gy))
                             .abs().max())
                 check(err <= 1e-6, f"{name} K6 {pname} vs the rank sum of {tname}: max|d| = {err:.3g} <= 1e-6")
+        # The column form against K1 at the same lattice points: both run
+        # the same frame terms and brush code (csrc/common.cuh frame_terms),
+        # so their values agree wherever nvcc rounds the brush bodies alike.
+        lattice = lattice_points(glo, gcell, gz0, 33, 257, 257, dev).reshape(-1, 3).contiguous()
+        share = {}
+        for grid_kernel, point_kernel in (("grid_eval", "point_eval"),
+                                          ("grid_eval_gizmo", "point_eval_gizmo")):
+            got, at_points = k[grid_kernel](*grid).reshape(-1), k[point_kernel](lattice, a)
+            share[grid_kernel] = float((got == at_points).float().mean())
+            results[(grid_kernel, name)]["bit_equal_to_k1_share"] = share[grid_kernel]
+        print(json.dumps({f"{name}_k3_vs_k1_bit_equal_share": share}))
+        del lattice
         # The gizmo reaches into this slab: the k1 field is below the k2 one.
         gz_grid = k["grid_eval_gizmo"](*grid)
         check(bool((gz_grid < k["grid_eval"](*grid)).any()), f"{name} the gizmo shows in the slab")
@@ -868,11 +961,12 @@ def main() -> int:
         counts = {}
         got = k["grid_eval_cull_gizmo"](*grid)
         plain, plain_ms = timed_once(lambda: k["grid_eval_cull_gizmo"].plain(*grid, counts=counts))
-        for what, ref in (("the unculled gizmo grid kernel", gz_grid), ("its plain version", plain)):
-            err = (got - ref).abs()
-            check(bool((err <= 1e-5 + 1e-6 * ref.abs()).all()),
-                  f"{name} grid_eval_cull_gizmo vs {what}: max|d| = {float(err.max()):.3g} "
-                  f"within 1e-5 + 1e-6|ref|")
+        check(bool(torch.equal(got, gz_grid)),
+              f"{name} grid_eval_cull_gizmo bit-equal to the unculled gizmo grid kernel")
+        err = (got - plain).abs()
+        check(bool((err <= 1e-5 + 1e-6 * plain.abs()).all()),
+              f"{name} grid_eval_cull_gizmo vs its plain version: max|d| = {float(err.max()):.3g} "
+              f"within 1e-5 + 1e-6|ref|")
         results[("grid_eval_cull_gizmo", name)] = dict(
             max_abs_err=float((got - plain).abs().max()), plain_ms=plain_ms,
             skipped_share=cull.skipped_share(counts))
@@ -892,7 +986,11 @@ def main() -> int:
         t_plain = k["cone_march"].plain(a, o_proj, rays)
         torch.cuda.synchronize()
         results[("cone_march", name)] = dict(max_abs_err=check_handoffs(
-            f"{name} cone {tuple(t_safe.shape)}", t_safe, t_plain, HIERARCHICAL.max_distance))
+            f"{name} cone {tuple(t_safe.shape)}", t_safe, t_plain, HIERARCHICAL.max_distance),
+            warps=cone_warps(scene, HIERARCHICAL.gizmo))
+        check(bool(torch.equal(t_safe, t_plain)),
+              f"{name} cone (CONE_WARPS {results[('cone_march', name)]['warps']}) t_safe bit-equal "
+              f"to the plain version's handoffs")
         f = HIERARCHICAL.hierarchical_factor
         t0_plane = t_plain.repeat_interleave(f, 0).repeat_interleave(f, 1).contiguous()
         inputs[name].update(o_proj=o_proj, rays=rays, t0=t0_plane)
@@ -903,7 +1001,7 @@ def main() -> int:
         # the point kernel (the k2 field) and the gizmo, i.e. the k1 field.
         t0_cuda = t_safe.repeat_interleave(f, 0).repeat_interleave(f, 1)
         frame = torch.as_tensor(camera_rows(*cam)[1:], device=dev)
-        starts = torch.as_tensor(o_proj, device=dev) + t0_cuda[..., None] * project(
+        starts = o_proj + t0_cuda[..., None] * project(
             ray_directions(HIERARCHICAL, dev), *frame)
         starts = starts.reshape(-1, 3).contiguous()
         field = torch.minimum(k["point_eval"](starts, a), gizmo_sdf(starts))
@@ -995,10 +1093,10 @@ def main() -> int:
         got, base = k["grid_eval_cull"](*grid), k["grid_eval"](*grid)
         counts = {}
         plain, plain_ms = timed_once(lambda: k["grid_eval_cull"].plain(*grid, counts=counts))
-        for what, ref in (("the unculled grid_eval kernel", base), ("its plain version", plain)):
-            err = (got - ref).abs()
-            check(bool((err <= 1e-5 + 1e-6 * ref.abs()).all()),
-                  f"{name} grid_eval_cull vs {what}: max|d| = {float(err.max()):.3g} within 1e-5 + 1e-6|ref|")
+        check(bool(torch.equal(got, base)), f"{name} grid_eval_cull bit-equal to the unculled grid_eval kernel")
+        err = (got - plain).abs()
+        check(bool((err <= 1e-5 + 1e-6 * plain.abs()).all()),
+              f"{name} grid_eval_cull vs its plain version: max|d| = {float(err.max()):.3g} within 1e-5 + 1e-6|ref|")
         results[("grid_eval_cull", name)] = dict(max_abs_err=float((got - plain).abs().max()),
                                                  plain_ms=plain_ms)
         cull_counts[("grid_eval_cull", name)] = counts
@@ -1147,6 +1245,11 @@ def main() -> int:
     check(report.stats["native"] and report.stats["strategy"] == "active",
           "512^3 export: active strategy, native mesh ops")
     export_line("design1_active_512", report, export_s)
+    check(report.num_triangles == JAX_TRIANGLES["design1_active_512"],
+          f"512^3 export: {report.num_triangles} triangles, the JAX package's "
+          f"{JAX_TRIANGLES['design1_active_512']}")
+    check_triangles("design1_active_512", report.num_triangles)
+    check(counted.get("grid_eval") == 20, f"path A: {counted.get('grid_eval')} grid_eval launches == 20")
     # Without the FD form the refine made 7 K1 launches per chunk and step.
     check_refine_launches("design1 512^3 active", refines["design1_active_512"], 100)
     for kernel in ("point_eval", "grid_eval", "renderer", "point_eval_gizmo", "grid_eval_gizmo",
@@ -1171,6 +1274,7 @@ def main() -> int:
           "cli export design1: auto resolved to the adaptive octree on the kernels' field")
     check(back.num_faces > 2000 and np.isfinite(back.vertices).all(),
           f"cli export design1: STL read back, {back.num_faces} triangles")
+    check_triangles("cli_export_design1", back.num_faces)
     for kernel in ("point_eval", "grid_eval", "point_eval_fd"):
         check(counted.get(kernel, 0) > 0, f"cli export {kernel} launched {counted.get(kernel, 0)} times")
 
@@ -1223,6 +1327,7 @@ def main() -> int:
             check(k1_field == "cuda-exact" and np.isfinite(k1_vals).all() and (k1_top > 4.9).all(),
                   f"design2 k1-field queries on {k1_field}: finite, the box reaches {k1_top.tolist()}")
             export_line("design2_adaptive", d2_report, d2_s)
+            check_triangles("design2_adaptive", d2_report.num_triangles)
             open_edges = int(boundary_edges(d2_mesh).shape[0])
             check(d2_report.stats["strategy"] == "adaptive" and d2_report.stats["native"]
                   and d2_report.stats.get("open_loops", 0) == 0 and open_edges == 0,
@@ -1367,6 +1472,8 @@ def main() -> int:
     (m_e, r_e, ev_e, s_e), (m_b, r_b, ev_b, s_b) = exports["exact"], exports["baked"]
     export_line("logo_adaptive_exact", r_e, s_e)
     export_line("logo_adaptive_baked", r_b, s_b)
+    check_triangles("logo_adaptive_exact", r_e.num_triangles)
+    check_triangles("logo_adaptive_baked", r_b.num_triangles)
     check_refine_launches("logo adaptive baked", refines["logo_adaptive_baked"], 50)
     check(r_e.stats["sdf_field"] == "tape-exact" and r_b.stats["sdf_field"] == "cuda-baked"
           and r_b.stats["twin_tolerance"] == scene.twin_tolerance and "twin_tolerance" not in r_e.stats,
@@ -1492,22 +1599,29 @@ def main() -> int:
             enqueue_ms=enqueue_ms(lambda: k["grid_eval"](*grid)),
             plain_ms=cuda_ms(lambda: k["grid_eval"].plain(*grid), 3),
         )
+        # K3's work is its column form's (column_ops): per point the tape
+        # with the hoisted slots' frame rows, per column the hoisted terms,
+        # once (the kernel makes them once per z range of a column).
+        col = column_ops(scene)
+        col_ops = col["column_form_ops"]
+        terms_ops = col["per_column_ops"] * 257 * 257
         r[("grid_eval", name)].update(
-            zip(("bound_ms", "bound_by"), bound_ms(4 * n_grid + tables, ops * n_grid)), tape_evals=n_grid)
+            zip(("bound_ms", "bound_by"), bound_ms(4 * n_grid + tables, col_ops * n_grid + terms_ops)),
+            tape_evals=n_grid, fp32_ops_per_point=col_ops, z_ranges=grid_ranges(scene, 33, 257, 257))
         # K1 and K3 with the gizmo: the tape, the gizmo (GIZMO_OPS, counted
         # from common.cuh's gizmo_sdf) and the min of the two per point.
         gops = ops + GIZMO_OPS + 1
-        for kernel, kname, fn, args, n, n_bytes in (
+        for kernel, kname, fn, args, n, n_bytes, n_ops in (
             ("point_eval_gizmo", "point_eval_kernel", k["point_eval_gizmo"], (pts, a), n_pts,
-             16 * n_pts + tables),
+             16 * n_pts + tables, gops * n_pts),
             ("grid_eval_gizmo", "grid_eval_kernel", k["grid_eval_gizmo"], grid, n_grid,
-             4 * n_grid + tables),
+             4 * n_grid + tables, (col_ops + GIZMO_OPS + 1) * n_grid + terms_ops),
         ):
             calls[kernel] = (lambda fn=fn, args=args: fn(*args), kname)
             r[(kernel, name)].update(ms=cuda_ms(calls[kernel][0], 100), enqueue_ms=enqueue_ms(calls[kernel][0]),
                                      plain_ms=cuda_ms(lambda fn=fn, args=args: fn.plain(*args), 3),
                                      tape_evals=n)
-            r[(kernel, name)].update(zip(("bound_ms", "bound_by"), bound_ms(n_bytes, gops * n)))
+            r[(kernel, name)].update(zip(("bound_ms", "bound_by"), bound_ms(n_bytes, n_ops)))
         # K1's FD form at the same points: seven tape evaluations and the FD
         # glue per point, 12 B read and 16 B written.
         for kernel, per_point in (("point_eval_fd", 7 * ops + FD_GLUE_OPS),
@@ -1597,27 +1711,40 @@ def main() -> int:
                                      chains=cull_counts[(kernel, name)]["chains"],
                                      tape_evals=cull_counts[(kernel, name)]["evals"])
             r[(kernel, name)].update(zip(("bound_ms", "bound_by"), bound_ms(n_bytes, n_ops)))
-        gc = k["grid_eval_cull"]
-        calls["grid_eval_cull"] = (lambda: gc(*grid), "grid_eval_cull_kernel")
-        chain = cull_chain_ops(scene, False)
-        n_ops = culled_ops(cull_counts[("grid_eval_cull", name)], ops, group_ops(scene, gc.culler), chain)
-        chain_model["grid_eval_cull"] = dict(chain_ops=chain, tape_ops=ops)
-        r[("grid_eval_cull", name)].update(
-            ms=cuda_ms(lambda: gc(*grid), 100), enqueue_ms=enqueue_ms(lambda: gc(*grid)),
-            unculled_ms=r[("grid_eval", name)]["ms"],
-            chains=cull_counts[("grid_eval_cull", name)]["chains"], tape_evals=n_grid)
-        r[("grid_eval_cull", name)].update(zip(("bound_ms", "bound_by"), bound_ms(4 * n_grid + tables, n_ops)))
-        gcz = k["grid_eval_cull_gizmo"]
-        calls["grid_eval_cull_gizmo"] = (lambda: gcz(*grid), "grid_eval_cull_kernel")
-        chain = cull_chain_ops(scene, True)
-        n_ops = culled_ops(x["gizmo_cull_counts"], gops, group_ops(scene, gcz.culler), chain)
-        chain_model["grid_eval_cull_gizmo"] = dict(chain_ops=chain, tape_ops=gops)
-        r[("grid_eval_cull_gizmo", name)].update(
-            ms=cuda_ms(lambda: gcz(*grid), 100), enqueue_ms=enqueue_ms(lambda: gcz(*grid)),
-            unculled_ms=r[("grid_eval_gizmo", name)]["ms"],
-            chains=x["gizmo_cull_counts"]["chains"], tape_evals=n_grid)
-        r[("grid_eval_cull_gizmo", name)].update(
-            zip(("bound_ms", "bound_by"), bound_ms(4 * n_grid + tables, n_ops)))
+        # The culled grid's work: per evaluated group its z loop's form's
+        # (grid_cull_column: the column form's, or the point form's), the
+        # chains, and in the column form the hoisted terms of each group
+        # once per lattice column whose tiles keep it (the kernel makes
+        # them once per tile of a column), those of ungrouped slots once per
+        # column; all counted by the plain version at the kernel's tiles.
+        def culled_grid_ops(counts, culler, gizmo):
+            column = grid_cull_column(scene, gizmo)
+            point_ops = (col_ops if column else ops) + (GIZMO_OPS + 1 if gizmo else 0)
+            n_ops = culled_ops(counts, point_ops, group_ops(scene, culler, column=column),
+                               cull_chain_ops(scene, gizmo))
+            if column:
+                hoisted = column_hoisted(scene)
+                grouped = {k for members in culler.groups for k in members}
+                n_ops += FRAME_TERMS_OPS * (
+                    sum(c * sum(k in hoisted for k in members)
+                        for c, members in zip(counts["column_group_evals"], culler.groups))
+                    + 257 * 257 * sum(k not in grouped for k in hoisted))
+            return n_ops, point_ops
+
+        for kernel, gizmo, counts, unculled in (
+            ("grid_eval_cull", False, cull_counts[("grid_eval_cull", name)], "grid_eval"),
+            ("grid_eval_cull_gizmo", True, x["gizmo_cull_counts"], "grid_eval_gizmo"),
+        ):
+            gc = k[kernel]
+            calls[kernel] = (lambda gc=gc: gc(*grid), "grid_eval_cull_kernel")
+            n_ops, point_ops = culled_grid_ops(counts, gc.culler, gizmo)
+            chain_model[kernel] = dict(chain_ops=cull_chain_ops(scene, gizmo), tape_ops=point_ops,
+                                       lane_chain=lane_chain_ops(scene, gizmo),
+                                       column_form=grid_cull_column(scene, gizmo))
+            r[(kernel, name)].update(
+                ms=cuda_ms(calls[kernel][0], 100), enqueue_ms=enqueue_ms(calls[kernel][0]),
+                unculled_ms=r[(unculled, name)]["ms"], chains=counts["chains"], tape_evals=n_grid)
+            r[(kernel, name)].update(zip(("bound_ms", "bound_by"), bound_ms(4 * n_grid + tables, n_ops)))
         for kernel in list(CULLED) + ["grid_eval_cull", "grid_eval_cull_gizmo"]:
             print(f"  {name} {kernel}: {r[(kernel, name)]['ms']:.4f} ms, unculled "
                   f"{r[(kernel, name)]['unculled_ms']:.4f} ms, skipped share "

@@ -58,6 +58,43 @@ HD float add_rn(float a, float b) {
 
 HD float sub_rn(float a, float b) { return add_rn(a, -b); }
 
+// A lattice coordinate lo + cell * i, one rounded product and one rounded
+// sum, as the plain version makes it (sdf_kernel.py:228-233 of the JAX
+// package).
+HD float lattice(float lo, float cell, float i) { return add_rn(lo, mul_rn(cell, i)); }
+
+// a * b + c as the unit's build rounds it: one fused multiply-add where the
+// build contracts (nvcc's default: the point and grid unit), a rounded
+// product and a rounded sum where it does not (the -fmad=false units, which
+// ops/cuda/build.py builds with NO_FMA_CONTRACTION, and the host build).
+// Written out, so that two forms of one sum round alike whatever nvcc would
+// contract: the frame transform's point and column forms (frame_terms).
+HD float madd(float a, float b, float c) {
+#if defined(__CUDA_ARCH__) && !defined(NO_FMA_CONTRACTION)
+    return __fmaf_rn(a, b, c);
+#else
+    return add_rn(mul_rn(a, b), c);
+#endif
+}
+
+// An object's frame transform (k2.cl:105-113), split at z: ``frame_terms``
+// gives the z-invariant part of each local coordinate at world (x, y, .),
+// (x - o[0]) * o[3r + 3] + (y - o[1]) * o[3r + 4] for frame row r, and
+// brush_<k>_column (ops/cuda/tape.py) finishes row r at z with
+// madd(z - o[2], o[3r + 5], h[r]).  The point form (brush_<k>_at) and the
+// grid kernel's column form (terms once per lattice column, the rows
+// finished per point) run the same code, so they give the same bits.  The
+// fused form is fma(dz, o5, fma(dx, o3, dy * o4)), the contraction nvcc
+// makes of the sum (dx*o3 + dy*o4) + dz*o5 as the point form wrote it
+// before; built without contraction every product and sum rounds on its
+// own, in that sum's order.
+HD void frame_terms(float x, float y, const float* o, float* h) {
+    const float dx = sub_rn(x, o[0]), dy = sub_rn(y, o[1]);
+    h[0] = madd(dx, o[3], mul_rn(dy, o[4]));
+    h[1] = madd(dx, o[6], mul_rn(dy, o[7]));
+    h[2] = madd(dx, o[9], mul_rn(dy, o[10]));
+}
+
 // IEEE-rounded quotient and square root, whatever the build's flags.
 HD float div_rn(float a, float b) {
 #ifdef __CUDA_ARCH__
@@ -120,12 +157,15 @@ HD float axes_cylinder(float r2, float h, float radius) {
     return fmaxf(fabsf(h) - 0.5f, sqrtf(r2) - radius);
 }
 
-// The three k1 gizmo cylinders at 1/INITIAL_SCALE (k1.cl:237-270).
+// The three k1 gizmo cylinders at 1/INITIAL_SCALE (k1.cl:237-270); its sums
+// of squares written out (madd, in the order nvcc contracted a * a + b * b),
+// so the grid kernel's column form, where x and y are loop-invariant,
+// rounds them as the point form does.
 HD float gizmo_sdf(float x, float y, float z) {
     const float xs = x / INITIAL_SCALE, ys = y / INITIAL_SCALE, zs = z / INITIAL_SCALE;
-    const float dx = axes_cylinder(ys * ys + zs * zs, xs - 0.5f, AXES_RADIUS);
-    const float dy = axes_cylinder(xs * xs + zs * zs, ys - 0.5f, AXES_RADIUS);
-    const float dz = axes_cylinder(xs * xs + ys * ys, zs - 0.5f, AXES_RADIUS);
+    const float dx = axes_cylinder(madd(ys, ys, mul_rn(zs, zs)), xs - 0.5f, AXES_RADIUS);
+    const float dy = axes_cylinder(madd(xs, xs, mul_rn(zs, zs)), ys - 0.5f, AXES_RADIUS);
+    const float dz = axes_cylinder(madd(xs, xs, mul_rn(ys, ys)), zs - 0.5f, AXES_RADIUS);
     return fminf(dx, fminf(dy, dz));
 }
 

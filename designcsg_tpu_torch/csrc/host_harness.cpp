@@ -1,10 +1,11 @@
 // Host build of a generated scene source, for tests without a card: the same
 // generated HD functions the kernels inline, driven by plain loops.  Built with
 // a host C++ compiler after the scene code (and march.cuh, for the renderer).
-// With a cull (CULL_MODE), the chain alone (in one thread, and spread over a
-// warp's 32 lanes), the culled grid tile by tile, and the culled renderer
-// warp by warp, the warp's lock step, reductions and shuffles emulated over
-// its 32 lanes in order.
+// The grid kernel column by column; with a cull (CULL_MODE), the chain alone
+// (in one thread, and spread over a warp's 32 lanes), the culled grid tile
+// by tile, and the culled renderer warp by warp, the warp's lock step,
+// reductions and shuffles emulated over its 32 lanes in order; the cone
+// prepass one thread a ray and split across a block's warps.
 
 // The bank arrays are interleaved as a kernel's shared copy is:
 // BANK_STRIDE floats per object.  ``ex`` is the scene's extra tables, as the
@@ -68,27 +69,87 @@ extern "C" void host_cull_tile_lanes(const float* box, const float* bank, const 
 }
 
 #ifndef HOST_RENDER
-// The culled grid kernel's tiles, in order (interval.cuh grid_tile_cull).
-extern "C" void host_grid_eval_cull(float* out, int nz, int ny, int nx, float lox, float loy,
-                                    float loz, float cell, float z0, const float* bank,
-                                    const float* ad, const float* ex) {
+// The culled grid kernel's chain for the tile at lattice index (x0, y0, zb):
+// the lane chain (``lanes``) or cull_tile in one thread, on the tile's box
+// (interval.cuh grid_tile_box); preds as host_cull_tile's.
+extern "C" void host_grid_tile_cull(int x0, int y0, int zb, int nz, int ny, int nx, float lox,
+                                    float loy, float loz, float cell, float z0, int lanes,
+                                    const float* bank, const float* ad, const float* ex,
+                                    unsigned* preds, float* substs) {
+    Iv bx, by, bz;
+    grid_tile_box(x0, y0, zb, nz, ny, nx, lox, loy, loz, cell, z0, bx, by, bz);
+    Preds p;
+    if (lanes) {
+        lane_chain(bx, by, bz, bank, ad, ex, p, substs);
+    } else {
+        cull_tile(bx, by, bz, bank, ad, ex, p, substs);
+    }
+    for (int i = 0; i < N_CULL_WORDS; ++i) preds[i] = p.w[i];
+}
+
+// The culled grid kernel's tiles, in order (sdf_kernels.cu
+// grid_eval_cull_kernel): the lane chain on the tile's box, then per (x, y)
+// column of the tile its points in z, in the column form (its frame terms
+// once: ``Column``) or in the point form (GRID_CULL_COLUMN 0).
+template <bool Column>
+static void grid_eval_cull(float* out, int nz, int ny, int nx, float lox, float loy, float loz,
+                           float cell, float z0, const float* bank, const float* ad,
+                           const float* ex) {
     float substs[N_CULL_SLOTS];
     for (int zb = 0; zb < nz; zb += CULL_TZ)
         for (int y0 = 0; y0 < ny; y0 += CULL_TY)
             for (int x0 = 0; x0 < nx; x0 += CULL_TX) {
+                Iv bx, by, bz;
+                grid_tile_box(x0, y0, zb, nz, ny, nx, lox, loy, loz, cell, z0, bx, by, bz);
                 Preds preds;
-                grid_tile_cull(x0, y0, zb, nz, ny, nx, lox, loy, loz, cell, z0, bank, ad, ex, preds,
-                               substs);
-                for (int zi = zb; zi < nz && zi < zb + CULL_TZ; ++zi)
-                    for (int yi = y0; yi < ny && yi < y0 + CULL_TY; ++yi)
-                        for (int xi = x0; xi < nx && xi < x0 + CULL_TX; ++xi)
-                            out[((long long)zi * ny + yi) * nx + xi] = field_sdf_culled(
-                                lattice(lox, cell, (float)xi), lattice(loy, cell, (float)yi),
-                                lattice(loz, cell, add_rn(z0, (float)zi)), bank, ad, ex, preds,
-                                substs);
+                lane_chain(bx, by, bz, bank, ad, ex, preds, substs);
+                for (int yi = y0; yi < ny && yi < y0 + CULL_TY; ++yi)
+                    for (int xi = x0; xi < nx && xi < x0 + CULL_TX; ++xi) {
+                        const float x = lattice(lox, cell, (float)xi);
+                        const float y = lattice(loy, cell, (float)yi);
+                        float h[N_COLUMN_TERMS];
+                        if (Column) column_terms_culled(x, y, bank, preds, h);
+                        for (int zi = zb; zi < nz && zi < zb + CULL_TZ; ++zi) {
+                            const float z = lattice(loz, cell, add_rn(z0, (float)zi));
+                            out[((long long)zi * ny + yi) * nx + xi] =
+                                Column ? field_sdf_culled_column(x, y, z, h, bank, ad, ex, preds,
+                                                                 substs)
+                                       : field_sdf_culled(x, y, z, bank, ad, ex, preds, substs);
+                        }
+                    }
             }
 }
+
+extern "C" void host_grid_eval_cull(float* out, int nz, int ny, int nx, float lox, float loy,
+                                    float loz, float cell, float z0, const float* bank,
+                                    const float* ad, const float* ex) {
+    grid_eval_cull<true>(out, nz, ny, nx, lox, loy, loz, cell, z0, bank, ad, ex);
+}
+
+extern "C" void host_grid_eval_cull_point(float* out, int nz, int ny, int nx, float lox,
+                                          float loy, float loz, float cell, float z0,
+                                          const float* bank, const float* ad, const float* ex) {
+    grid_eval_cull<false>(out, nz, ny, nx, lox, loy, loz, cell, z0, bank, ad, ex);
+}
 #endif
+#endif
+
+#ifndef HOST_RENDER
+// The grid kernel (sdf_kernels.cu grid_eval_kernel): per (x, y) column its
+// frame terms, then its points in z through the column form.
+extern "C" void host_grid_eval(float* out, int nz, int ny, int nx, float lox, float loy,
+                               float loz, float cell, float z0, const float* bank,
+                               const float* ad, const float* ex) {
+    for (int yi = 0; yi < ny; ++yi)
+        for (int xi = 0; xi < nx; ++xi) {
+            const float x = lattice(lox, cell, (float)xi), y = lattice(loy, cell, (float)yi);
+            float h[N_COLUMN_TERMS];
+            column_terms(x, y, bank, h);
+            for (int zi = 0; zi < nz; ++zi)
+                out[((long long)zi * ny + yi) * nx + xi] = field_sdf_column(
+                    x, y, lattice(loz, cell, add_rn(z0, (float)zi)), h, bank, ad, ex);
+        }
+}
 #endif
 
 #ifdef HOST_RENDER
@@ -250,7 +311,8 @@ extern "C" void host_render(float* out, int height, int width, const float* cam_
 #endif
 }
 
-// The cone kernel's loop over a ray batch f32[n, 3] from the origin o f32[3].
+// The cone kernel's loop over a ray batch f32[n, 3] from the origin o f32[3],
+// one thread a ray (CONE_WARPS 0).
 extern "C" void host_cone_march(float* t_safe, long long n, const float* rays, const float* o,
                                 const float* bank, const float* ad, const float* ex) {
     for (long long i = 0; i < n; ++i) {
@@ -258,6 +320,70 @@ extern "C" void host_cone_march(float* t_safe, long long n, const float* rays, c
                              bank, ad, ex);
     }
 }
+
+#ifdef CONE_SPLIT
+// The cone kernel split across S warps (cone_kernel.cu, CONE_WARPS = S), one
+// block of 32 rays at a time: each warp keeps its own copy of the 32 rays'
+// state, as on the card; per step every warp writes its slots (cone_slots<S>)
+// for its 32 lanes into the step's buffer, the end of that loop standing for
+// the barrier, then every warp runs cone_tape on the buffer and steps its
+// copy.  Returns 0, or 1 if two warps' copies ever disagree (on the card
+// they would then leave the loop apart).
+template <int S>
+static int cone_split(float* t_safe, long long n, const float* rays, const float* o,
+                      const float* bank, const float* ad, const float* ex) {
+    for (long long b = 0; b < n; b += 32) {
+        ConeRay ray[S][32];
+        bool marching[S][32];
+        float rx[32], ry[32], rz[32];
+        for (int l = 0; l < 32; ++l) {
+            const long long i = b + l;
+            const bool on = i < n;
+            rx[l] = on ? rays[3 * i] : 0.0f;
+            ry[l] = on ? rays[3 * i + 1] : 0.0f;
+            rz[l] = on ? rays[3 * i + 2] : 0.0f;
+            for (int w = 0; w < S; ++w) {
+                ray[w][l] = ConeRay{o[0], o[1], o[2], 0.0f, 0.0f};
+                marching[w][l] = on;
+            }
+        }
+        float slots[2][N_CONE_SLOTS * 32];
+        for (int step = 0; step < MAX_STEPS; ++step) {
+            bool any = false;
+            for (int l = 0; l < 32; ++l) any = any || marching[0][l];
+            if (!any) break;
+            float* buf = slots[step & 1];
+            for (int w = 0; w < S; ++w)
+                for (int l = 0; l < 32; ++l)
+                    cone_slots<S>(w, ray[w][l].vx, ray[w][l].vy, ray[w][l].vz, bank, ad, ex,
+                                  buf + l);
+            for (int w = 0; w < S; ++w)
+                for (int l = 0; l < 32; ++l) {
+                    const float s = cone_tape(buf + l) * TOL;
+                    if (marching[w][l]) marching[w][l] = cone_advance(ray[w][l], rx[l], ry[l], rz[l], s);
+                }
+            for (int w = 1; w < S; ++w)
+                for (int l = 0; l < 32; ++l)
+                    if (marching[w][l] != marching[0][l] || ray[w][l].tprev != ray[0][l].tprev)
+                        return 1;
+        }
+        for (int l = 0; l < 32 && b + l < n; ++l) t_safe[b + l] = ray[0][l].tprev;
+    }
+    return 0;
+}
+
+extern "C" int host_cone_march_split(int warps, float* t_safe, long long n, const float* rays,
+                                     const float* o, const float* bank, const float* ad,
+                                     const float* ex) {
+    switch (warps) {
+        case 1: return cone_split<1>(t_safe, n, rays, o, bank, ad, ex);
+        case 2: return cone_split<2>(t_safe, n, rays, o, bank, ad, ex);
+        case 4: return cone_split<4>(t_safe, n, rays, o, bank, ad, ex);
+        case 8: return cone_split<8>(t_safe, n, rays, o, bank, ad, ex);
+        default: return 2;
+    }
+}
+#endif
 
 // The fit's ray-march kernel's loop: d f32[n] and the closest approach
 // vmin f32[n, 3] of a ray batch f32[n, 3] from the origin o f32[3].

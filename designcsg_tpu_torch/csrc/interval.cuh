@@ -87,30 +87,59 @@ HD Iv iv_gizmo(Iv bx, Iv by, Iv bz) {
 }
 
 // The culled grid's tile (sdf_kernel.py:205-248 of the JAX package): CULL_TX x
-// CULL_TY x CULL_TZ lattice points lo + cell * (x, y, z0 + z), and the cull of
-// the tile that starts at lattice index (x0, y0, zb) on its box, built from
-// the lattice indices as the points are rounded.
+// CULL_TY x CULL_TZ lattice points lo + cell * (x, y, z0 + z), and its box,
+// built from the lattice indices as the points are rounded.
 constexpr int CULL_TX = 32;
 constexpr int CULL_TY = 8;
 constexpr int CULL_TZ = 8;
 
-HD float lattice(float lo, float cell, float i) { return add_rn(lo, mul_rn(cell, i)); }
-
 HD Iv lattice_span(float a, float b) { return Iv{fminf(a, b), fmaxf(a, b)}; }
 
-// Generated after this file, from the scene's cull plan (ops/cuda/tape.py).
+// Generated after this file, from the scene's cull plan (ops/cuda/tape.py):
+// the chain in one thread, and one slot of the lane chain and its tree.
 HD void cull_tile(Iv bx, Iv by, Iv bz, const float* bank, const float* ad, const float* ex,
                   Preds& preds, float* substs);
+HD Iv cull_lane(int chunk, int lane, Iv bx, Iv by, Iv bz, const float* bank, const float* ad,
+                const float* ex);
+HD void cull_tree(const Iv* bv, Preds& preds, float* substs);
 
-HD void grid_tile_cull(int x0, int y0, int zb, int nz, int ny, int nx, float lox, float loy,
-                       float loz, float cell, float z0, const float* bank, const float* ad,
-                       const float* ex, Preds& preds, float* substs) {
+// The box of the tile that starts at lattice index (x0, y0, zb).
+HD void grid_tile_box(int x0, int y0, int zb, int nz, int ny, int nx, float lox, float loy,
+                      float loz, float cell, float z0, Iv& bx, Iv& by, Iv& bz) {
     const int x1 = (x0 + CULL_TX < nx ? x0 + CULL_TX : nx) - 1;
     const int y1 = (y0 + CULL_TY < ny ? y0 + CULL_TY : ny) - 1;
     const int z1 = (zb + CULL_TZ < nz ? zb + CULL_TZ : nz) - 1;
-    cull_tile(lattice_span(lattice(lox, cell, (float)x0), lattice(lox, cell, (float)x1)),
-              lattice_span(lattice(loy, cell, (float)y0), lattice(loy, cell, (float)y1)),
-              lattice_span(lattice(loz, cell, add_rn(z0, (float)zb)),
-                           lattice(loz, cell, add_rn(z0, (float)z1))),
-              bank, ad, ex, preds, substs);
+    bx = lattice_span(lattice(lox, cell, (float)x0), lattice(lox, cell, (float)x1));
+    by = lattice_span(lattice(loy, cell, (float)y0), lattice(loy, cell, (float)y1));
+    bz = lattice_span(lattice(loz, cell, add_rn(z0, (float)zb)),
+                      lattice(loz, cell, add_rn(z0, (float)z1)));
 }
+
+#ifdef __CUDACC__
+// K7's chain on a box, spread over a warp's lanes: lane k runs slot 32c + k
+// of chunk c (ops/cuda/tape.py cull_lane_function: its object's frame
+// interval, then one pass per brush kind, so lanes of one kind run
+// together), the slots' intervals are gathered into every lane by
+// shuffles, and the relevance tree (``cull_tree``) runs warp-uniform.  Every
+// lane ends with the same predicates and substitutes, bit for bit those of
+// ``cull_tile`` on the same box: the same rounded operations, on another
+// lane.  ``lane_bank`` is read at lane-dependent rows (common.cuh
+// SCENE_BANK).  Every lane of the warp must call it.  The dynamic cull
+// (march.cuh march_dynamic) and the culled grid (sdf_kernels.cu) run it.
+__device__ __forceinline__ void cull_tile_lanes(Iv bx, Iv by, Iv bz, const float* lane_bank,
+                                                const float* ad, const float* ex, Preds& preds,
+                                                float* substs) {
+    const int lane = (threadIdx.y * blockDim.x + threadIdx.x) & 31;
+    Iv b[N_CULL_SLOTS];
+#pragma unroll
+    for (int chunk = 0; chunk < N_CULL_CHUNKS; ++chunk) {
+        const Iv mine = cull_lane(chunk, lane, bx, by, bz, lane_bank, ad, ex);
+#pragma unroll
+        for (int j = 0; j < 32 && 32 * chunk + j < N_CULL_SLOTS; ++j) {
+            b[32 * chunk + j] = Iv{__shfl_sync(0xffffffffu, mine.lo, j),
+                                   __shfl_sync(0xffffffffu, mine.hi, j)};
+        }
+    }
+    cull_tree(b, preds, substs);
+}
+#endif

@@ -330,32 +330,6 @@ extern "C" int read_cull_stats(unsigned long long* out) {
     return rc;
 }
 
-// K7's chain on a warp's box, spread over the warp's lanes: lane k runs slot
-// 32c + k of chunk c (ops/cuda/tape.py cull_lane_function: its object's
-// frame interval, then one pass per brush kind, so lanes of one kind run
-// together), the slots' intervals are gathered into every lane by
-// shuffles, and the relevance tree (``cull_tree``) runs warp-uniform.  Every
-// lane ends with the same predicates and substitutes, bit for bit those of
-// ``cull_tile`` on the same box: the same rounded operations, on another
-// lane.  ``lane_bank`` is read at lane-dependent rows (common.cuh
-// SCENE_BANK).  Every lane of the warp must call it.
-__device__ __forceinline__ void cull_tile_lanes(Iv bx, Iv by, Iv bz, const float* lane_bank,
-                                                const float* ad, const float* ex, Preds& preds,
-                                                float* substs) {
-    const int lane = (threadIdx.y * blockDim.x + threadIdx.x) & 31;
-    Iv b[N_CULL_SLOTS];
-#pragma unroll
-    for (int chunk = 0; chunk < N_CULL_CHUNKS; ++chunk) {
-        const Iv mine = cull_lane(chunk, lane, bx, by, bz, lane_bank, ad, ex);
-#pragma unroll
-        for (int j = 0; j < 32 && 32 * chunk + j < N_CULL_SLOTS; ++j) {
-            b[32 * chunk + j] = Iv{__shfl_sync(0xffffffffu, mine.lo, j),
-                                   __shfl_sync(0xffffffffu, mine.hi, j)};
-        }
-    }
-    cull_tree(b, preds, substs);
-}
-
 // The dynamic cull's march: the warp steps in lock step while any lane
 // marches, and before each step it takes the box of the marching lanes'
 // current points (march_kernel.py:497-520), exactly the points about to be
@@ -432,21 +406,30 @@ __device__ Rgb render_pixel_culled(bool on, int ix, int iy, int width, int heigh
 // t_safe, the parameter of the last point stepped past (committed just
 // before stepping past it).  A ray that leaves the scene returns its d
 // unless CONE_STRICT; one out of steps returns its last committed point.
+struct ConeRay {
+    float vx, vy, vz, d, tprev;
+};
+
+// One step of a cone ray on s = sdf * TOL at its point; false once it stops.
+HD bool cone_advance(ConeRay& r, float rx, float ry, float rz, float s) {
+    if (s < EPS + r.d * CONE_SLOPE) return false;
+    r.tprev = r.d;
+    r.vx += s * rx;
+    r.vy += s * ry;
+    r.vz += s * rz;
+    r.d += s;
+    if (r.d > MAX_D) {
+        if (!CONE_STRICT) r.tprev = r.d;
+        return false;
+    }
+    return true;
+}
+
 HD float cone_ray(float ox, float oy, float oz, float rx, float ry, float rz,
                   const float* bank, const float* ad, const float* ex) {
-    float vx = ox, vy = oy, vz = oz, d = 0.0f, tprev = 0.0f;
+    ConeRay r{ox, oy, oz, 0.0f, 0.0f};
     for (int step = 0; step < MAX_STEPS; ++step) {
-        const float s = field_sdf(vx, vy, vz, bank, ad, ex) * TOL;
-        if (s < EPS + d * CONE_SLOPE) break;
-        tprev = d;
-        vx += s * rx;
-        vy += s * ry;
-        vz += s * rz;
-        d += s;
-        if (d > MAX_D) {
-            if (!CONE_STRICT) tprev = d;
-            break;
-        }
+        if (!cone_advance(r, rx, ry, rz, field_sdf(r.vx, r.vy, r.vz, bank, ad, ex) * TOL)) break;
     }
-    return tprev;
+    return r.tprev;
 }

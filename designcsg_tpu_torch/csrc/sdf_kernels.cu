@@ -25,13 +25,37 @@
 // contraction (ops/cuda/build.py ``sdf_fd``): the normal divides field
 // differences by 0.01, so it must round as its plain version does.
 //
-// The simple design: one thread per point, the tape inlined into straight-line
-// code with its registers in registers, and the object banks (a few hundred
-// bytes) copied once per block into shared memory, where every thread reads
-// the same word (a broadcast).  Points stay AoS (x, y, z interleaved), the
-// layout the callers hold; a warp's 32 points are 384 contiguous bytes.
-// The grid kernel writes z-major (slab, ny, nx), x fastest across a warp, so
-// its stores coalesce.
+// The point kernel: one thread per point, the tape inlined into
+// straight-line code with its registers in registers, and the object banks
+// (a few hundred bytes) copied once per block into shared memory, where
+// every thread reads the same word (a broadcast).  Points stay AoS (x, y, z
+// interleaved), the layout the callers hold; a warp's 32 points are 384
+// contiguous bytes.
+//
+// The grid kernel issues fewer instructions a point than the point kernel
+// for the same field (redesigned for Hopper).  At one thread a point it was
+// at its issue limit: Design1's point code is ~560 instructions, and its
+// 2.18M-point slab took about what 132 SMs need to issue them.  Two cuts:
+//   - Columns.  A thread owns one (x, y) lattice column and walks a range
+//     of z; a block of SDF_THREADS consecutive columns (x fastest, wrapping
+//     to the next row) and a z range, so at each z the warp's 32 stores are
+//     consecutive floats, as before, and a 257-wide lattice wastes no lanes
+//     at its row ends as 32-wide tiles would.  One 32-bit division a column
+//     splits its index; no 64-bit division is left.  The slab is cut into
+//     as many z ranges as make one wave of the blocks resident on the card
+//     (grid_eval_z_ranges, from the unit's occupancy), each range making
+//     its columns' terms once: on the H100 Design1's unit (128 registers,
+//     2 blocks an SM) takes path A's 33-plane slab in one range, Logo's
+//     (40 registers) in three.
+//   - The frame transform hoisted.  An object's local coordinate
+//     (x - o0) * r0 + (y - o1) * r1 + (z - o2) * r2 has a z-invariant part;
+//     the column form (ops/cuda/tape.py column_terms / field_sdf_column,
+//     common.cuh frame_terms) makes it once per column and finishes it per
+//     point with one subtraction and a multiply-add a row: 7 FP32
+//     operations an object where the point form takes 18 (Design1: 11 of
+//     its 18 on 10 objects).  Both forms call the same two functions with
+//     every sum written out (common.cuh madd), so they give the same bits.
+// The grid's output is z-major (slab, ny, nx).
 //
 // A scene whose brushes read baked tables (Logo) passes them as ``ex``, one
 // concatenation read through the read-only cache by csrc/table.cuh (K6);
@@ -79,33 +103,43 @@ point_eval_fd_kernel(const float* __restrict__ pts, float* __restrict__ out,
 
 // SDF at lo + cell * (x, y, z0 + z) for the (nz, ny, nx) lattice, each
 // coordinate rounded exactly as the plain version computes it
-// (sdf_kernel.py:228-233 of the JAX package).
-__global__ void __launch_bounds__(SDF_THREADS)
-grid_eval_kernel(float* __restrict__ out, int nz, int ny, int nx, float lox, float loy,
-                 float loz, float cell, float z0, const float* __restrict__ pos,
+// (sdf_kernel.py:228-233 of the JAX package): thread per column
+// (blockIdx.x), ``zper`` lattice planes per block (blockIdx.y).
+__global__ void __launch_bounds__(SDF_THREADS, 2)
+grid_eval_kernel(float* __restrict__ out, int nz, int ny, int nx, int zper, float lox,
+                 float loy, float loz, float cell, float z0, const float* __restrict__ pos,
                  const float* __restrict__ right, const float* __restrict__ up,
                  const float* __restrict__ fwd, const float* __restrict__ ad,
                  const float* __restrict__ ex) {
     SCENE_BANK(s_bank, lane_bank, pos, right, up, fwd);
-    const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    const long long plane = (long long)ny * nx;
-    if (i >= plane * nz) return;
-    const int zi = (int)(i / plane);
-    const int rem = (int)(i - (long long)zi * plane);
-    const int yi = rem / nx;
-    const int xi = rem - yi * nx;
-    const float x = add_rn(lox, mul_rn(cell, (float)xi));
-    const float y = add_rn(loy, mul_rn(cell, (float)yi));
-    const float z = add_rn(loz, mul_rn(cell, add_rn(z0, (float)zi)));
-    out[i] = field_sdf(x, y, z, s_bank, ad, ex);
+    const int plane = ny * nx;
+    const int col = blockIdx.x * SDF_THREADS + threadIdx.x;
+    if (col >= plane) return;
+    const int yi = col / nx;
+    const float x = lattice(lox, cell, (float)(col - yi * nx)), y = lattice(loy, cell, (float)yi);
+    float h[N_COLUMN_TERMS];
+    column_terms(x, y, s_bank, h);
+    const int z_begin = blockIdx.y * zper;
+    const int z_end = min(z_begin + zper, nz);
+    float* dst = out + (long long)z_begin * plane + col;
+    for (int zi = z_begin; zi < z_end; ++zi, dst += plane) {
+        *dst = field_sdf_column(x, y, lattice(loz, cell, add_rn(z0, (float)zi)), h, s_bank, ad, ex);
+    }
 }
 
 #if CULL_MODE
 // The culled grid (sdf_kernel.py:205-248 of the JAX package).  A block owns a
 // spatially compact tile of CULL_TX x CULL_TY x CULL_TZ lattice points (a
 // thread per (x, y), a loop over z; interval.cuh), so one interval chain
-// serves 2,048 points: the block's first thread runs it on the tile's box
-// into shared memory.
+// serves 2,048 points.  The block's first warp runs K7's lane chain on the
+// tile's box (interval.cuh cull_tile_lanes, one slot a lane, as the dynamic
+// cull of the renderer does) into shared memory, where that shortens the
+// chain (GRID_CULL_LANES, ops/cuda/tape.py grid_cull_lanes); else its first
+// thread runs the whole chain (``cull_tile``) while the block waits.  The z
+// loop runs the column form of the culled field (the frame terms of the
+// groups the tile evaluates, once per column of the tile), or where that
+// lost to the point form, the point form (GRID_CULL_COLUMN,
+// ops/cuda/tape.py grid_cull_column); both give the same bits.
 __global__ void __launch_bounds__(CULL_TX * CULL_TY)
 grid_eval_cull_kernel(float* __restrict__ out, int nz, int ny, int nx, float lox, float loy,
                       float loz, float cell, float z0, const float* __restrict__ pos,
@@ -116,20 +150,40 @@ grid_eval_cull_kernel(float* __restrict__ out, int nz, int ny, int nx, float lox
     __shared__ Preds s_preds;
     __shared__ float s_substs[N_CULL_SLOTS];
     const int x0 = blockIdx.x * CULL_TX, y0 = blockIdx.y * CULL_TY, zb = blockIdx.z * CULL_TZ;
-    if (threadIdx.x == 0 && threadIdx.y == 0) {
-        grid_tile_cull(x0, y0, zb, nz, ny, nx, lox, loy, loz, cell, z0, s_bank, ad, ex, s_preds,
-                       s_substs);
+    if (threadIdx.y == 0) {
+        Iv bx, by, bz;
+        grid_tile_box(x0, y0, zb, nz, ny, nx, lox, loy, loz, cell, z0, bx, by, bz);
+#if GRID_CULL_LANES
+        Preds preds;
+        float substs[N_CULL_SLOTS];
+        cull_tile_lanes(bx, by, bz, lane_bank, ad, ex, preds, substs);
+        if (threadIdx.x == 0) {
+            s_preds = preds;
+#pragma unroll
+            for (int k = 0; k < N_CULL_SLOTS; ++k) s_substs[k] = substs[k];
+        }
+#else
+        if (threadIdx.x == 0) cull_tile(bx, by, bz, s_bank, ad, ex, s_preds, s_substs);
+#endif
     }
     __syncthreads();
     const int xi = x0 + threadIdx.x, yi = y0 + threadIdx.y;
     if (xi >= nx || yi >= ny) return;
     const Preds preds = s_preds;
     const float x = lattice(lox, cell, (float)xi), y = lattice(loy, cell, (float)yi);
+#if GRID_CULL_COLUMN
+    float h[N_COLUMN_TERMS];
+    column_terms_culled(x, y, s_bank, preds, h);
+#endif
     const int z_end = min(zb + CULL_TZ, nz);
     for (int zi = zb; zi < z_end; ++zi) {
         const float z = lattice(loz, cell, add_rn(z0, (float)zi));
         out[((long long)zi * ny + yi) * nx + xi] =
+#if GRID_CULL_COLUMN
+            field_sdf_culled_column(x, y, z, h, s_bank, ad, ex, preds, s_substs);
+#else
             field_sdf_culled(x, y, z, s_bank, ad, ex, preds, s_substs);
+#endif
     }
 }
 #endif
@@ -149,24 +203,28 @@ extern "C" int launch_point_eval(const void* pts, void* out, long long n, const 
     return (int)cudaGetLastError();
 }
 
-// The FD kernel's grid: as many blocks as can be resident on the card at
-// once (cudaOccupancyMaxActiveBlocksPerMultiprocessor on every SM), fewer
-// for a small batch.  Computed once per process.
-static int fd_resident_blocks(int* blocks) {
-    static int resident = 0;
-    if (resident == 0) {
+// Blocks of SDF_THREADS threads of ``kernel`` resident on the card at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor on every SM), computed
+// once per process into ``cache``.
+template <class Kernel>
+static int resident_blocks(Kernel kernel, int& cache, int* blocks) {
+    if (cache == 0) {
         int dev = 0, sms = 0, per_sm = 0;
         int rc = (int)cudaGetDevice(&dev);
         if (rc == 0) rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        if (rc == 0) {
-            rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, point_eval_fd_kernel,
-                                                                    SDF_THREADS, 0);
-        }
+        if (rc == 0) rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, SDF_THREADS, 0);
         if (rc != 0) return rc;
-        resident = sms * (per_sm > 0 ? per_sm : 1);
+        cache = sms * (per_sm > 0 ? per_sm : 1);
     }
-    *blocks = resident;
+    *blocks = cache;
     return 0;
+}
+
+// The FD kernel's grid: as many blocks as can be resident on the card at
+// once, fewer for a small batch.
+static int fd_resident_blocks(int* blocks) {
+    static int resident = 0;
+    return resident_blocks(point_eval_fd_kernel, resident, blocks);
 }
 
 extern "C" int launch_point_eval_fd(const void* pts, void* out, void* normal, long long n,
@@ -187,15 +245,34 @@ extern "C" int launch_point_eval_fd(const void* pts, void* out, void* normal, lo
     return (int)cudaGetLastError();
 }
 
+// The unculled grid's z ranges for an (nz, ny, nx) slab: as many as fill one
+// wave of the blocks resident on the card (at least one, at most nz), each
+// of ``*zper`` planes but the last.  Column indices are ints: a plane of at
+// most 2^31 - 1 points.
+extern "C" int grid_eval_z_ranges(int nz, int ny, int nx, int* ranges, int* zper) {
+    static int resident = 0;
+    if ((long long)ny * nx > 0x7fffffffLL || nz <= 0) return (int)cudaErrorInvalidValue;
+    int blocks = 0;
+    if (const int rc = resident_blocks(grid_eval_kernel, resident, &blocks)) return rc;
+    const int columns = (int)blocks_for((long long)ny * nx);
+    const int fill = blocks / columns;
+    const int want = fill < 1 ? 1 : (fill < nz ? fill : nz);
+    *zper = (nz + want - 1) / want;
+    *ranges = (nz + *zper - 1) / *zper;
+    return 0;
+}
+
 extern "C" int launch_grid_eval(void* out, int nz, int ny, int nx, float lox, float loy,
                                 float loz, float cell, float z0, const void* pos,
                                 const void* right, const void* up, const void* fwd,
                                 const void* ad, const void* ex, void* stream) {
-    const long long n = (long long)nz * ny * nx;
-    if (n <= 0) return 0;
+    if ((long long)nz * ny * nx <= 0) return 0;
+    int ranges = 0, zper = 0;
+    if (const int rc = grid_eval_z_ranges(nz, ny, nx, &ranges, &zper)) return rc;
+    const dim3 grid(blocks_for((long long)ny * nx), ranges);
     if (const int rc = prepare_bank(pos, right, up, fwd, (cudaStream_t)stream)) return rc;
-    grid_eval_kernel<<<blocks_for(n), SDF_THREADS, 0, (cudaStream_t)stream>>>(
-        (float*)out, nz, ny, nx, lox, loy, loz, cell, z0, (const float*)pos,
+    grid_eval_kernel<<<grid, SDF_THREADS, 0, (cudaStream_t)stream>>>(
+        (float*)out, nz, ny, nx, zper, lox, loy, loz, cell, z0, (const float*)pos,
         (const float*)right, (const float*)up, (const float*)fwd, (const float*)ad,
         (const float*)ex);
     return (int)cudaGetLastError();

@@ -41,10 +41,12 @@ NVCC_FLAGS = (
 # its normal divides differences of the field by 2 * 0.005, and where the
 # gradient is small a contracted field, within 1e-6 of the plain one, moved
 # Design2's normals by up to 0.019 on an H100 (PERF.md); built so, it gives
-# its plain version's bits.
+# its plain version's bits.  ``NO_FMA_CONTRACTION`` tells the source
+# (csrc/common.cuh ``madd``), whose sums written out would otherwise fuse.
+NO_CONTRACTION = ("-fmad=false", "-DNO_FMA_CONTRACTION")
 EXTRA_FLAGS = {
-    "march": ("-fmad=false",), "cone": ("-fmad=false",), "ray_march": ("-fmad=false",),
-    "sdf_fd": ("-fmad=false",),
+    "march": NO_CONTRACTION, "cone": NO_CONTRACTION, "ray_march": NO_CONTRACTION,
+    "sdf_fd": NO_CONTRACTION,
 }
 
 LAUNCHES: collections.Counter = collections.Counter()

@@ -127,7 +127,9 @@ def make_cuda_cone_march(scene: CompiledScene, config: Optional[RenderConfig] = 
     """``cone_march(arrays, o_proj f32[3], rays f32[..., 3]) -> t_safe
     f32[...]`` on the device of ``arrays``, with the slope of
     :func:`~designcsg_tpu_torch.ops.raymarch.cone_slope` and
-    ``config.cone_strict``.  ``cone_march.plain`` is the plain version."""
+    ``config.cone_strict``.  On the card ``o_proj`` is read by the kernel
+    where it lies (a CUDA tensor stays on the card; a host array is copied
+    up).  ``cone_march.plain`` is the plain version."""
     config = config or RenderConfig()
     plain = make_cone_march(scene, config)
     libs = {}
@@ -141,15 +143,13 @@ def make_cuda_cone_march(scene: CompiledScene, config: Optional[RenderConfig] = 
             raise ValueError(f"rays must be [..., 3], got {tuple(rays.shape)}")
         if "lib" not in libs:
             lib = load("cone", cone_kernel_source(scene, config))
-            lib.launch_cone_march.argtypes = [_P, ctypes.c_longlong, _P, _F, _F, _F] + [_P] * 7
+            lib.launch_cone_march.argtypes = [_P, ctypes.c_longlong, _P, _P] + [_P] * 7
             lib.launch_cone_march.restype = ctypes.c_int
             libs["lib"] = lib
-        if isinstance(o_proj, torch.Tensor):
-            o_proj = o_proj.cpu()
-        ox, oy, oz = (float(v) for v in np.asarray(o_proj, np.float32).reshape(3))
+        o = torch.as_tensor(o_proj, dtype=torch.float32).to(device).reshape(3).contiguous()
         out = torch.empty(rays.shape[:-1], dtype=torch.float32, device=device)
         rc = libs["lib"].launch_cone_march(
-            ptr(out), out.numel(), ptr(rays), ox, oy, oz,
+            ptr(out), out.numel(), ptr(rays), ptr(o),
             *bank_pointers(scene, arrays, device), stream_handle(device, libs["lib"]),
         )
         check_launch("cone_march", rc)

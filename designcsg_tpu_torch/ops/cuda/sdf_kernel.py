@@ -169,7 +169,9 @@ def make_grid_eval(scene: CompiledScene, gizmo: bool = False, cull: Optional[boo
     computed once on its box, and the tape skips the groups that cannot
     change any value in it (kernel ``grid_eval_cull``; the plain version does
     the same at the same tiles, and ``counts=`` a dict accumulates its
-    ``evals``, ``group_evals`` and ``chains``; with ``gizmo`` the gizmo has
+    ``evals``, ``group_evals``, ``chains`` and ``column_group_evals`` (per
+    group, the lattice columns whose tiles keep it at some z); with
+    ``gizmo`` the gizmo has
     a cull slot of its own, cull.py:347 of the JAX package).  The values
     equal the unculled grid's."""
     sdf = make_primary_sdf(scene, gizmo=gizmo, field="twin")
@@ -198,6 +200,14 @@ def make_grid_eval(scene: CompiledScene, gizmo: bool = False, cull: Optional[boo
         tile = tile.reshape(-1)
         if counts is not None:
             counts["chains"] = counts.get("chains", 0) + preds[..., 0].numel()
+            # Per group, the lattice columns in whose tiles it is kept at
+            # some z: where the column form needs its frame terms.
+            width = [(torch.arange(m, device=preds.device) * t).clamp(max=n) for m, t, n in
+                     ((shape[1] + 1, CULL_TILE[1], ny), (shape[2] + 1, CULL_TILE[2], nx))]
+            columns = (width[0].diff()[:, None] * width[1].diff()[None, :])[..., None]
+            cols = (preds.any(0) * columns).sum((0, 1)).tolist()
+            prior = counts.get("column_group_evals", [0] * len(cols))
+            counts["column_group_evals"] = [p + c for p, c in zip(prior, cols)]
         preds, substs = preds.reshape(-1, preds.shape[-1]), substs.reshape(-1, substs.shape[-1])
         out = culled_sdf(pts.reshape(-1, 3), arrays, preds[tile], substs[tile], counts)
         return out.reshape(slab, ny, nx)

@@ -19,7 +19,7 @@ import numpy as np
 from ...compiler import CompiledScene
 from ...config import RenderConfig
 from ...constants import OP_EXPORT, OP_IDENTITY, OP_IMPORT, OP_MAX, OP_MIN, OP_NEGATE
-from ..cull import BIG, CullPlan, make_cull_plan
+from ..cull import BIG, CullPlan, leaf_cost, make_cull_plan
 from ..raymarch import cone_slope
 from .brushes_kernel import (
     brush_functions,
@@ -37,16 +37,23 @@ def f32_literal(x: float) -> str:
 
 
 def _brush_at(brushes) -> str:
-    """``brush_<k>_at(x, y, z, o, ad, ex)``: brush k at a world point, through
-    the object's frame row ``o`` (3 subtractions and a 3x3 matrix-vector
-    product: 18 FP32 operations, k2.cl:105-113)."""
+    """``brush_<k>_column(z, h, o, ad, ex)``: brush k at height z of a lattice
+    column whose frame terms ``h`` (csrc/common.cuh frame_terms) were made
+    once for the column, through the object's frame row ``o`` (one
+    subtraction and three multiply-adds: 7 FP32 operations); and
+    ``brush_<k>_at(x, y, z, o, ad, ex)``, the same at a world point: the
+    column's terms made there (11 more: 18, k2.cl:105-113)."""
     return "\n".join(
+        f"HD float brush_{k}_column(float z, const float* h, const float* o, const float* ad,\n"
+        f"                          const float* ex) {{\n"
+        f"    const float dz = sub_rn(z, o[2]);\n"
+        f"    return brush_{k}(madd(dz, o[5], h[0]), madd(dz, o[8], h[1]), madd(dz, o[11], h[2]),\n"
+        f"                     ad, ex);\n}}\n\n"
         f"HD float brush_{k}_at(float x, float y, float z, const float* o, const float* ad,\n"
         f"                      const float* ex) {{\n"
-        f"    const float dx = x - o[0], dy = y - o[1], dz = z - o[2];\n"
-        f"    return brush_{k}(dx * o[3] + dy * o[4] + dz * o[5],\n"
-        f"                     dx * o[6] + dy * o[7] + dz * o[8],\n"
-        f"                     dx * o[9] + dy * o[10] + dz * o[11], ad, ex);\n}}\n"
+        f"    float h[3];\n"
+        f"    frame_terms(x, y, o, h);\n"
+        f"    return brush_{k}_column(z, h, o, ad, ex);\n}}\n"
         for k in brushes
     )
 
@@ -80,29 +87,146 @@ def _tape_line(opcode, left, right, dest) -> str:
     raise ValueError(f"unknown opcode {opcode}")
 
 
-def tape_function(scene: CompiledScene, gizmo: bool) -> str:
-    """``HD float field_sdf(x, y, z, bank, ad, ex)``: the scene tape unrolled into
-    straight-line code over register variables, with the k1 gizmo min-ed onto
-    the result when ``gizmo`` (tape.py:101-103 of the JAX package)."""
-    tape = [tuple(int(v) for v in row) for row in np.asarray(scene.arrays.tape)]
+def _tape(scene: CompiledScene):
+    return [tuple(int(v) for v in row) for row in np.asarray(scene.arrays.tape)]
+
+
+def _imports(scene: CompiledScene):
+    """(brush, object) of each IMPORT row in tape order: slot k of the cull
+    plan and of the cone prepass's split is the k-th."""
+    return [(left, right) for opcode, left, right, _ in _tape(scene) if opcode == OP_IMPORT]
+
+
+def _tape_lines(scene: CompiledScene, slot, gizmo_value: Optional[str]):
+    """The tape's registers, rows and result as C++ lines: ``slot(k)`` is
+    the value of IMPORT slot k, ``gizmo_value`` the gizmo's (min-ed onto the
+    result, tape.py:101-103 of the JAX package) or None."""
+    tape = _tape(scene)
     registers = sorted({r for row in tape for r in _registers(row)})
     lines = [
-        "HD float field_sdf(float x, float y, float z, const float* bank, const float* ad,",
-        "                   const float* ex) {",
         "    float " + ", ".join(f"r{i} = MAX_DISTANCE" for i in registers) + ";",
         "    float result = MAX_DISTANCE;",
     ]
+    k = 0
     for opcode, left, right, dest in tape:
         if opcode == OP_IMPORT:
-            lines.append(
-                f"    r{dest} = brush_{left}_at(x, y, z, bank + {right} * BANK_STRIDE, ad, ex);"
-            )
+            lines.append(f"    r{dest} = {slot(k)};")
+            k += 1
         else:
             lines.append(_tape_line(opcode, left, right, dest))
-    if gizmo:
-        lines.append("    result = fminf(result, gizmo_sdf(x, y, z));")
-    lines += ["    return result;", "}", ""]
-    return "\n".join(lines)
+    if gizmo_value is not None:
+        lines.append(f"    result = fminf(result, {gizmo_value});")
+    return lines + ["    return result;", "}", ""]
+
+
+# The column form keeps three registers of frame terms per hoisted import
+# for its whole column.  Past this many imports it hoists no more (their
+# slots keep the point form), so that a scene of many objects keeps its
+# registers: the 89-group scene has 133 imports.
+COLUMN_HOIST_MAX = 16
+GIZMO = "gizmo_sdf(x, y, z)"
+
+
+def column_hoisted(scene: CompiledScene) -> dict:
+    """{import slot: its index among the column form's frame terms}: every
+    slot whose brush reads its coordinates (``cuda_flops`` not 0; the
+    compiler drops the transform of a brush that does not), the first
+    COLUMN_HOIST_MAX of them."""
+    out = {}
+    for k, (brush, _) in enumerate(_imports(scene)):
+        reads = brush >= len(scene.brush_flops) or scene.brush_flops[brush] != 0
+        if reads and len(out) < COLUMN_HOIST_MAX:
+            out[k] = len(out)
+    return out
+
+
+def _slot_value(imports, k: int, column: Optional[dict] = None) -> str:
+    """C++ of import slot ``k`` (``imports``: :func:`_imports`) at (x, y, z):
+    through the column's frame terms ``h`` where ``column``
+    (:func:`column_hoisted`) hoists it."""
+    brush, obj = imports[k]
+    o = f"bank + {obj} * BANK_STRIDE"
+    if column is not None and k in column:
+        return f"brush_{brush}_column(z, h + {3 * column[k]}, {o}, ad, ex)"
+    return f"brush_{brush}_at(x, y, z, {o}, ad, ex)"
+
+
+def tape_function(scene: CompiledScene, gizmo: bool, column: bool = False) -> str:
+    """``HD float field_sdf(x, y, z, bank, ad, ex)``: the scene tape unrolled into
+    straight-line code over register variables, with the k1 gizmo min-ed onto
+    the result when ``gizmo`` (tape.py:101-103 of the JAX package).  With
+    ``column``, its column twin ``field_sdf_column(x, y, z, h, bank, ad, ex)``
+    over the frame terms ``h`` that :func:`column_terms_function` made for
+    the lattice column (x, y): the same bits (csrc/common.cuh frame_terms)."""
+    hoisted = column_hoisted(scene) if column else None
+    imports = _imports(scene)
+    name = "field_sdf_column(float x, float y, float z, const float* h," if column else \
+        "field_sdf(float x, float y, float z,"
+    lines = [f"HD float {name} const float* bank,",
+             "                   const float* ad, const float* ex) {"]
+    return "\n".join(lines + _tape_lines(scene, lambda k: _slot_value(imports, k, hoisted),
+                                          GIZMO if gizmo else None))
+
+
+def column_terms_function(scene: CompiledScene, plan: Optional[CullPlan] = None) -> str:
+    """``N_COLUMN_TERMS`` and ``HD void column_terms(x, y, bank, h)``: the
+    frame terms (csrc/common.cuh frame_terms) of every hoisted import at the
+    lattice column (x, y), made once per column by the grid kernel.  With a
+    cull ``plan``, ``column_terms_culled(x, y, bank, preds, h)``: only those
+    of the groups the tile's predicates evaluate."""
+    hoisted = column_hoisted(scene)
+    imports = _imports(scene)
+
+    def terms(k):
+        return (f"    frame_terms(x, y, bank + {imports[k][1]} * BANK_STRIDE, "
+                f"h + {3 * hoisted[k]});")
+
+    if plan is None:
+        lines = [f"constexpr int N_COLUMN_TERMS = {3 * max(1, len(hoisted))};",
+                 "HD void column_terms(float x, float y, const float* bank, float* h) {"]
+        lines += [terms(k) for k in hoisted]
+        return "\n".join(lines + ["}", ""])
+    grouped = {k for members in plan.groups for k in members}
+    lines = ["HD void column_terms_culled(float x, float y, const float* bank, const Preds& preds,",
+             "                            float* h) {"]
+    lines += [terms(k) for k in hoisted if k not in grouped]
+    for g, members in enumerate(plan.groups):
+        inner = [terms(k) for k in members if k in hoisted]
+        if inner:
+            lines.append(f"    if (preds.w[{g >> 5}] & {1 << (g & 31)}u) {{")
+            lines += ["    " + line for line in inner]
+            lines.append("    }")
+    return "\n".join(lines + ["}", ""])
+
+
+# FP32 operations of the frame transform's two parts (csrc/common.cuh; a
+# multiply-add counts 2): ``frame_terms``, 2 subtractions and per row a
+# product and a multiply-add; per point the subtraction of z and a
+# multiply-add per row (``brush_<k>_column``).  The point form runs both: 18.
+FRAME_TERMS_OPS = 2 + 3 * 3
+FRAME_ROW_OPS = 1 + 3 * 2
+
+
+def column_frame_ops(scene: CompiledScene, gizmo: bool = False) -> dict:
+    """The frame transforms' FP32 operations of the grid kernel, counted from
+    the generated code: per point in the point form (``field_sdf``: each
+    ``brush_<k>_at`` of a brush that reads its coordinates) and in the
+    column form (``field_sdf_column``: each ``brush_<k>_column``, and the
+    point form where it stays), and per column (``column_terms``' calls of
+    ``frame_terms``)."""
+    def reads(brush):
+        return brush >= len(scene.brush_flops) or scene.brush_flops[brush] != 0
+
+    def at_calls(text):
+        return sum(reads(int(b)) for b in re.findall(r"\bbrush_(\d+)_at\(", text))
+
+    column = tape_function(scene, gizmo, column=True)
+    hoisted = len(re.findall(r"\bbrush_\d+_column\(", column))
+    full = FRAME_TERMS_OPS + FRAME_ROW_OPS
+    return dict(point_form=full * at_calls(tape_function(scene, gizmo)),
+                column_form=FRAME_ROW_OPS * hoisted + full * at_calls(column),
+                per_column=FRAME_TERMS_OPS * column_terms_function(scene).count("frame_terms("),
+                hoisted=hoisted)
 
 
 def interval_functions(scene: CompiledScene, plan: CullPlan) -> str:
@@ -236,7 +360,8 @@ def cull_tile_function(plan: CullPlan) -> str:
     """``HD void cull_tile(bx, by, bz, bank, ad, ex, preds, substs)``: the
     culler of ops/cull.py unrolled over the plan's tree, in one thread --
     every slot's padded brush interval and substitute, then the relevance
-    tree (K3's culled grid runs it in one thread of a block)."""
+    tree (the renderer's hoisted cull runs it in every lane; the dynamic
+    cull and the culled grid run the lane chain, its bits)."""
     lines = [
         "HD void cull_tile(Iv bx, Iv by, Iv bz, const float* bank, const float* ad, const float* ex,",
         "                  Preds& preds, float* substs) {",
@@ -336,26 +461,28 @@ def cull_tree_function(plan: CullPlan) -> str:
     return "\n".join(lines)
 
 
-def culled_tape_function(scene: CompiledScene, plan: CullPlan) -> str:
+def culled_tape_function(scene: CompiledScene, plan: CullPlan, column: bool = False) -> str:
     """``HD float field_sdf_culled(x, y, z, bank, ad, ex, preds, substs)``:
     :func:`tape_function`'s field with each group's slots evaluated under
     ``if (preds.w[word] & bit)`` and given their substitutes otherwise (the gizmo is
-    slot ``n_imports`` when the plan has it)."""
-    tape = [tuple(int(v) for v in row) for row in np.asarray(scene.arrays.tape)]
-    slots = [(left, right) for opcode, left, right, _ in tape if opcode == OP_IMPORT]
+    slot ``n_imports`` when the plan has it).  With ``column``, its column
+    twin ``field_sdf_culled_column(x, y, z, h, ...)`` over the terms of
+    ``column_terms_culled``."""
     grouped = {k for members in plan.groups for k in members}
+    hoisted = column_hoisted(scene) if column else None
+    imports = _imports(scene)
+    name = "field_sdf_culled_column(float x, float y, float z, const float* h," if column else \
+        "field_sdf_culled(float x, float y, float z,"
     lines = [
-        "HD float field_sdf_culled(float x, float y, float z, const float* bank, const float* ad,",
-        "                          const float* ex, const Preds& preds, const float* substs) {",
+        f"HD float {name} const float* bank,",
+        "                          const float* ad, const float* ex, const Preds& preds,",
+        "                          const float* substs) {",
     ]
     if grouped:
         lines.append("    float " + ", ".join(f"s{k}" for k in sorted(grouped)) + ";")
 
     def slot_value(k):
-        if k == plan.n_imports:
-            return "gizmo_sdf(x, y, z)"
-        brush, obj = slots[k]
-        return f"brush_{brush}_at(x, y, z, bank + {obj} * BANK_STRIDE, ad, ex)"
+        return GIZMO if k == plan.n_imports else _slot_value(imports, k, hoisted)
 
     for g, members in enumerate(plan.groups):
         lines.append(f"    if (preds.w[{g >> 5}] & {1 << (g & 31)}u) {{")
@@ -363,23 +490,11 @@ def culled_tape_function(scene: CompiledScene, plan: CullPlan) -> str:
         lines.append("    } else {")
         lines += [f"        s{k} = substs[{k}];" for k in members]
         lines.append("    }")
-    registers = sorted({r for row in tape for r in _registers(row)})
-    lines += [
-        "    float " + ", ".join(f"r{i} = MAX_DISTANCE" for i in registers) + ";",
-        "    float result = MAX_DISTANCE;",
-    ]
-    k = 0
-    for opcode, left, right, dest in tape:
-        if opcode == OP_IMPORT:
-            lines.append(f"    r{dest} = {f's{k}' if k in grouped else slot_value(k)};")
-            k += 1
-        else:
-            lines.append(_tape_line(opcode, left, right, dest))
+    gizmo = None
     if plan.gizmo:
-        gz = f"s{plan.n_imports}" if plan.n_imports in grouped else slot_value(plan.n_imports)
-        lines.append(f"    result = fminf(result, {gz});")
-    lines += ["    return result;", "}", ""]
-    return "\n".join(lines)
+        gizmo = f"s{plan.n_imports}" if plan.n_imports in grouped else slot_value(plan.n_imports)
+    return "\n".join(lines + _tape_lines(
+        scene, lambda k: f"s{k}" if k in grouped else slot_value(k), gizmo))
 
 
 def cull_source(scene: CompiledScene, plan: Optional[CullPlan], mode: int,
@@ -387,8 +502,10 @@ def cull_source(scene: CompiledScene, plan: Optional[CullPlan], mode: int,
     """``#define CULL_MODE <mode>`` (0 off, 1 hoisted, 2 dynamic; the point
     and grid unit uses 1) and, with a plan, the cull's constants, the
     interval twins, the chain in one thread (``cull_tile``) and spread over
-    a warp's lanes (``cull_lane`` and ``cull_tree``, the dynamic cull's), and
-    ``field_sdf_culled``.  A renderer's
+    a warp's lanes (``cull_lane`` and ``cull_tree``: the dynamic cull's and
+    the culled grid's), and ``field_sdf_culled``; without a renderer's
+    ``config`` (the point and grid unit) also the culled grid's column form
+    (``column_terms_culled``, ``field_sdf_culled_column``).  A renderer's
     ``config`` adds the hoisted cull's drift pad: accumulated positions
     stray from o + d*r by up to MAX_STEPS ulps (march_kernel.py:477-491 of
     the JAX package)."""
@@ -410,7 +527,8 @@ def cull_source(scene: CompiledScene, plan: Optional[CullPlan], mode: int,
             cull_lane_function(plan),
             cull_tree_function(plan),
             culled_tape_function(scene, plan),
-        ]
+        ] + ([] if config is not None else [
+            column_terms_function(scene, plan), culled_tape_function(scene, plan, column=True)])
     )
 
 
@@ -552,16 +670,19 @@ def cull_mode(config: RenderConfig) -> int:
     return 2 if config.march_cull == "dynamic" else 1
 
 
+# Floats an object of the kernels' interleaved bank (csrc/common.cuh).
+BANK_STRIDE = 12
 # Objects a __constant__ bank holds: 64 KB of constant memory over
-# BANK_STRIDE floats an object (csrc/common.cuh).
-BANK_CONSTANT_MAX_OBJECTS = 65536 // (12 * 4)
+# BANK_STRIDE floats an object.
+BANK_CONSTANT_MAX_OBJECTS = 65536 // (BANK_STRIDE * 4)
 
 
 def scene_source(scene: CompiledScene, render_config: Optional[RenderConfig] = None,
                  cull: int = 0, gizmo: bool = False, bank_constant: bool = False) -> str:
     """The generated scene code: constants (the extras' offsets among them),
     common.cuh, table.cuh (K6), brush functions and the unrolled tape (the k2
-    field, with the k1 gizmo when ``gizmo``).  With ``render_config``: the k1
+    field, with the k1 gizmo when ``gizmo``; without ``render_config`` also
+    its column form for the grid kernel).  With ``render_config``: the k1
     field (with the gizmo iff the config says so), the material and shading
     functions and march.cuh's ``render_pixel``, ``cone_ray`` and
     ``march_ray_closest``.  With ``cull`` (a ``CULL_MODE``) and a scene
@@ -586,6 +707,8 @@ def scene_source(scene: CompiledScene, render_config: Optional[RenderConfig] = N
         csrc("common.cuh"), csrc("table.cuh"), brush_functions(scene), _brush_at(used_brushes(scene)),
     ]
     parts.append(tape_function(scene, gizmo))
+    if render_config is None:  # the point and grid unit: the grid kernel's column form
+        parts += [column_terms_function(scene), tape_function(scene, gizmo, column=True)]
     parts.append(cull_source(scene, make_cull_plan(scene, gizmo) if cull else None, cull,
                              render_config))
     if render_config is not None:
@@ -593,13 +716,63 @@ def scene_source(scene: CompiledScene, render_config: Optional[RenderConfig] = N
     return "\n".join(parts)
 
 
+# K3's culled grid runs its tile's chain over the first warp's lanes where
+# the lane chain's FP32 operations (lane_chain_ops: its kinds' passes run one
+# after another) are at most this share of the one-thread chain's
+# (cull_chain_ops); else one thread runs the chain.  From the A/B on the
+# H100 (PERF.md; ab_render_timing.py times the other side of each unit's
+# choice): on the lanes Design1's culled grid took 0.0223 ms against 0.0278
+# in one thread (its chain 163 of 1,007 operations), Design2's the same
+# 0.0366 (178 of 286), Logo's 0.0195 against 0.0191 (1,137 of 1,360: its
+# letters each a kind of their own).
+GRID_LANE_CHAIN_MAX_SHARE = 0.8
+
+
+def grid_cull_lanes(scene: CompiledScene, gizmo: bool) -> bool:
+    """Whether the culled grid kernel runs the lane chain (``GRID_CULL_LANES``)
+    for this field: where it cuts the chain's operations to at most
+    GRID_LANE_CHAIN_MAX_SHARE of one thread's (Design1 and Design2, with
+    and without the gizmo), not where the lanes' passes, one per brush kind,
+    add up to nearly the whole chain (Logo)."""
+    lanes = lane_chain_ops(scene, gizmo)
+    return lanes is not None and (
+        lanes["fp32_ops"] <= GRID_LANE_CHAIN_MAX_SHARE * cull_chain_ops(scene, gizmo))
+
+
+# K3's culled grid runs its z loop in the column form where the form hoists
+# at least this many imports' frame terms; else in the point form, as the
+# kernel did before columns.  From the A/B on the H100 (PERF.md;
+# ab_render_timing.py times both forms with either chain): the column form
+# took Design1's culled grid from 0.0354 ms to 0.0222 (10 imports hoisted,
+# 110 of its 269 operations a point saved) and Logo's from 0.0205 to 0.0191
+# (3 hoisted), and matched the point form with the gizmo on Logo (0.0211
+# against 0.0212); on Design2 (2 hoisted, 22 of 814 operations) it gained
+# nothing without the gizmo (0.0367 either way) and lost with it (0.0431
+# against 0.0417).
+GRID_CULL_COLUMN_MIN_HOISTED = 3
+
+
+def grid_cull_column(scene: CompiledScene, gizmo: bool) -> bool:
+    """Whether the culled grid kernel's z loop runs the column form of the
+    culled field (``GRID_CULL_COLUMN``): where it hoists at least
+    GRID_CULL_COLUMN_MIN_HOISTED imports (Design1, Logo, the 89-group
+    scene; with and without the gizmo, which has no frame to hoist), not
+    Design2's two."""
+    return len(column_hoisted(scene)) >= GRID_CULL_COLUMN_MIN_HOISTED
+
+
 def sdf_kernel_source(scene: CompiledScene, gizmo: bool = False) -> str:
     """Translation unit of the point and grid eval kernels (the k2 field, or
     with ``gizmo`` the k1 field: the tape min-ed with the axis gizmo), the
     culled grid kernel among them when the tape can be culled (the gizmo
-    then has its own cull slot).  Its bank stays in shared memory: the A/B
-    timed it in constant memory too (PERF.md)."""
-    return scene_source(scene, cull=1, gizmo=gizmo) + "\n" + csrc("sdf_kernels.cu")
+    then has its own cull slot; its chain on the lanes by
+    :func:`grid_cull_lanes`, its z loop's form by :func:`grid_cull_column`).
+    Its bank stays in shared memory: the A/B timed it in constant memory too
+    (PERF.md)."""
+    return (scene_source(scene, cull=1, gizmo=gizmo)
+            + f"\n#define GRID_CULL_LANES {int(grid_cull_lanes(scene, gizmo))}\n"
+            + f"#define GRID_CULL_COLUMN {int(grid_cull_column(scene, gizmo))}\n"
+            + csrc("sdf_kernels.cu"))
 
 
 # Where each sphere-trace unit keeps the object bank: rules from the A/B on
@@ -635,10 +808,107 @@ def march_kernel_source(scene: CompiledScene, config: RenderConfig) -> str:
         "\n" + csrc("march_kernel.cu"))
 
 
-def cone_kernel_source(scene: CompiledScene, config: RenderConfig) -> str:
+# The cone prepass (K5) splits each ray's tape across the warps of a block
+# (csrc/cone_kernel.cu): S warps serve 32 rays, warp j evaluating its share
+# of the tape's slots for all 32.  S is one of these; 0 is one thread a ray.
+CONE_WARP_CHOICES = (1, 2, 4, 8)
+# FP32 operations of common.cuh gizmo_sdf: 3 divisions, 3 cylinders (two
+# products, a sum, an absolute value, 2 subtractions, a square root and a
+# max: 9 each) and 2 mins.
+GIZMO_FLOPS = 3 + 3 * 9 + 2
+
+
+def cone_slot_costs(scene: CompiledScene, gizmo: bool):
+    """FP32 operations of each slot of the cone's field: each import's
+    (ops/cull.py leaf_cost: its CUDA body and frame transform), then the
+    gizmo's."""
+    return [leaf_cost(scene, brush) for brush, _ in _imports(scene)] + (
+        [GIZMO_FLOPS] if gizmo else [])
+
+
+def cone_deal(scene: CompiledScene, gizmo: bool, warps: int):
+    """The slots each of ``warps`` warps evaluates, dealt by their operation
+    counts: the costliest first, each to the warp with the least work so
+    far (the lower warp on a tie)."""
+    costs = cone_slot_costs(scene, gizmo)
+    loads, deal = [0] * warps, [[] for _ in range(warps)]
+    for k in sorted(range(len(costs)), key=lambda k: (-costs[k], k)):
+        w = min(range(warps), key=lambda w: (loads[w], w))
+        deal[w].append(k)
+        loads[w] += costs[k]
+    return [sorted(d) for d in deal]
+
+
+# The cone kernel's warps a block, from the A/B on the H100 (PERF.md;
+# ab_render_timing.py times S = 0, 1, 2, 4 and 8 on every design): four
+# warps ran fastest on Design1 (0.048 ms against 0.058 with one thread a
+# ray), Logo (0.038 against 0.073) and Design2 (0.039 against 0.040, its
+# Hilbert slot 92% of the field on one warp).  Eight lost to four on every
+# design (each warp also runs the tape's rows, its loads and the barrier),
+# two left half of Design1's and Logo's field on one warp, and one warp (a
+# barrier a step on one thread's tape) lost to one thread a ray.
+CONE_WARPS = 4
+# Static shared memory a kernel may declare (48 KB on every CUDA card).
+STATIC_SHARED_BYTES = 48 * 1024
+
+
+def cone_shared_bytes(scene: CompiledScene, gizmo: bool, warps: int) -> int:
+    """Shared memory of the cone kernel at ``warps`` warps a block: the
+    object bank (csrc/common.cuh SCENE_BANK), and with a split the two
+    buffers of each slot's value for the block's 32 rays."""
+    split = 2 * 32 * len(cone_slot_costs(scene, gizmo)) if warps else 0
+    return 4 * (BANK_STRIDE * scene.num_objects + split)
+
+
+def cone_warps(scene: CompiledScene, gizmo: bool) -> int:
+    """The cone kernel's S (``CONE_WARPS``) for a scene: CONE_WARPS where
+    its shared memory fits the 48 KB a kernel may declare (every shipped
+    design; a scene of up to about 160 imports), else 0, one thread a ray,
+    whose bank alone fits any scene the compiler accepts (MAX_OBJECTS)."""
+    fits = cone_shared_bytes(scene, gizmo, CONE_WARPS) <= STATIC_SHARED_BYTES
+    return CONE_WARPS if fits else 0
+
+
+def cone_split_function(scene: CompiledScene, gizmo: bool, warps) -> str:
+    """``N_CONE_SLOTS``; ``cone_slots<S>(warp, x, y, z, bank, ad, ex, v)``
+    for each S of ``warps``: warp ``warp``'s slots of the field
+    (:func:`cone_deal`) at (x, y, z) into ``v[slot * 32]``, the same
+    ``brush_<k>_at`` and ``gizmo_sdf`` calls as ``field_sdf``'s; and
+    ``cone_tape(v)``: the tape's rows over those values, ``field_sdf``'s
+    rows in its order, so it returns its bits."""
+    imports = _imports(scene)
+    n = len(imports) + int(gizmo)
+
+    def value(k):
+        return GIZMO if k == len(imports) else _slot_value(imports, k)
+
+    args = ("float x, float y, float z, const float* bank, const float* ad, const float* ex, "
+            "float* v")
+    lines = ["#define CONE_SPLIT 1", f"constexpr int N_CONE_SLOTS = {n};",
+             f"template <int S> HD void cone_slots(int warp, {args});"]
+    for s in warps:
+        lines.append(f"template <> HD void cone_slots<{s}>(int warp, {args}) {{")
+        for w, slots in enumerate(cone_deal(scene, gizmo, s)):
+            if slots:
+                lines.append(f"    if (warp == {w}) {{")
+                lines += [f"        v[{k} * 32] = {value(k)};" for k in slots]
+                lines.append("    }")
+        lines += ["}", ""]
+    lines.append("HD float cone_tape(const float* v) {")
+    lines += _tape_lines(scene, lambda k: f"v[{k} * 32]", f"v[{len(imports)} * 32]" if gizmo else None)
+    return "\n".join(lines)
+
+
+def cone_kernel_source(scene: CompiledScene, config: RenderConfig,
+                       warps: Optional[int] = None) -> str:
     """Translation unit of the cone prepass kernel (its bank in shared
-    memory, as the point/grid unit's)."""
-    return scene_source(scene, render_config=config) + "\n" + csrc("cone_kernel.cu")
+    memory, as the point/grid unit's): :func:`cone_warps` warps a block of
+    32 rays (``CONE_WARPS``; 0: one thread a ray), or ``warps`` (the A/B's
+    levers)."""
+    s = cone_warps(scene, config.gizmo) if warps is None else warps
+    return (scene_source(scene, render_config=config) + "\n"
+            + cone_split_function(scene, config.gizmo, (s,) if s else ())
+            + f"\n#define CONE_WARPS {s}\n" + csrc("cone_kernel.cu"))
 
 
 def ray_march_kernel_source(scene: CompiledScene, config: RenderConfig) -> str:

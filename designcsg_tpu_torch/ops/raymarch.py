@@ -584,6 +584,17 @@ def coarse_ray_uv(config: RenderConfig) -> np.ndarray:
     ).astype(np.float32)
 
 
+def upload(a: np.ndarray, device) -> torch.Tensor:
+    """``a`` as a tensor on ``device``.  To a card it goes through pinned
+    memory without blocking: a pageable copy would wait for the stream's
+    queued work, and a frame would then wait for the last one to finish
+    before it could enqueue its first kernel."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def compose_hierarchical(config: RenderConfig, cone, fine):
     """Two-pass render (march_kernel.py:782-860 of the JAX package): ``cone``
     (``(arrays, o_proj, rays) -> t_safe``) marches the block-centre rays,
@@ -598,9 +609,8 @@ def compose_hierarchical(config: RenderConfig, cone, fine):
         device = arrays.ad.device
         if str(device) not in uv:
             uv[str(device)] = uv["cpu"].to(device)
-        rows = camera_rows(campos, rgt, upp, fwd)
-        frame = torch.as_tensor(rows[1:], device=device)
-        t_safe = cone(arrays, rows[0], project(uv[str(device)], *frame))
+        rows = upload(camera_rows(campos, rgt, upp, fwd), device)
+        t_safe = cone(arrays, rows[0], project(uv[str(device)], *rows[1:]))
         t0 = t_safe.repeat_interleave(f, dim=0).repeat_interleave(f, dim=1).contiguous()
         return fine(arrays, campos, rgt, upp, fwd, t0)
 

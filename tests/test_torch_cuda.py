@@ -613,3 +613,103 @@ def test_dynamic_cull_held_box_counts(name, cuda_device):
     assert counts["evals"] == plain_counts["evals"]
     assert 0 < counts["chains"] < plain_counts["chains"]
     assert counts["group_evals"] <= counts["evals"] * len(plain_counts["group_evals"])
+
+
+@functools.lru_cache(maxsize=None)
+def _scene_on_card(name):
+    scene = get_design(name)
+    return scene, scene.arrays.to_torch("cuda")
+
+
+@pytest.mark.parametrize("shape", [(1, 5, 3), (17, 33, 70), (33, 257, 257)])
+@pytest.mark.parametrize("name", ["design1", "design2", "logo"])
+def test_grid_kernel_columns_every_form(name, shape, cuda_device):
+    """K3 on lattice columns, at slabs whose planes and z ranges are ragged:
+    every form within the grid rule of its plain version, each culled grid
+    bit-equal to its unculled grid, and one launch each."""
+    scene, arrays = _scene_on_card(name)
+    nz, ny, nx = shape
+    grid = (arrays, np.full(3, -3.5, np.float32), np.float32(7.0 / 256), 100.0, nz, ny, nx)
+    for gizmo in (False, True):
+        plain_grid = make_grid_eval(scene, gizmo=gizmo)
+        culled = make_grid_eval(scene, gizmo=gizmo, cull=True)
+        before = dict(kbuild.LAUNCHES)
+        got, got_cull = plain_grid(*grid), culled(*grid)
+        torch.cuda.synchronize()
+        for kernel in (plain_grid.kernel, culled.kernel):
+            assert kbuild.LAUNCHES[kernel] == before.get(kernel, 0) + 1
+        assert got.shape == shape and _close(got, plain_grid.plain(*grid))
+        assert torch.equal(got_cull, got)
+
+
+@pytest.mark.parametrize("warps", [None, 0, 1, 2, 4, 8])
+@pytest.mark.parametrize("name", ["design1", "design2", "logo"])
+def test_cone_kernel_split_bit_equal(name, warps, cuda_device, monkeypatch):
+    """K5 split across S warps a block (None: tape.cone_warps' choice; 0: one
+    thread a ray) gives the plain version's t_safe bit for bit on the
+    640x480 frame's block rays and on a batch that leaves its last block
+    part empty, with the origin read on the card."""
+    from designcsg_tpu_torch.ops.cuda import march_kernel as mk, tape
+
+    scene, arrays = _scene_on_card(name)
+    config = RenderConfig(march_overrelax=1.6, march_hierarchical=True)
+    if warps is not None:
+        monkeypatch.setattr(mk, "cone_kernel_source",
+                            lambda s, c: tape.cone_kernel_source(s, c, warps=warps))
+    cone = make_cuda_cone_march(scene, config)
+    rows = camera_rows(*Camera.initial().orbit(0.2, -0.1).as_arrays())
+    rays = project(torch.from_numpy(coarse_ray_uv(config)), *torch.from_numpy(rows[1:])).to(cuda_device)
+    o = torch.as_tensor(rows[0], device=cuda_device)
+    for batch in (rays, rays.reshape(-1, 3)[:1000].contiguous()):
+        got = cone(arrays, o, batch)
+        assert torch.equal(got, cone.plain(arrays, rows[0], batch))
+
+
+@pytest.mark.parametrize("n, warps", [(44, 4), (66, 0)])
+def test_cone_kernel_large_scene(n, warps, cuda_device):
+    """K5 on scenes of 133 and 199 objects: the first splits across four
+    warps (40 KB of shared memory), the second, past the 48 KB a kernel may
+    declare with the split's slot buffers, builds one thread a ray; both
+    give the plain version's t_safe bit for bit, and a hierarchical frame
+    of the larger renders through it."""
+    from designcsg_tpu_torch.ops.cuda.tape import cone_warps
+
+    scene = many_groups_scene(n)
+    arrays = scene.arrays.to_torch(cuda_device)
+    config = RenderConfig(width=160, height=120, march_overrelax=1.6, march_hierarchical=True)
+    assert cone_warps(scene, config.gizmo) == warps
+    cone = make_cuda_cone_march(scene, config)
+    cam = Camera.initial().orbit(0.2, -0.1).as_arrays()
+    rows = camera_rows(*cam)
+    rays = project(torch.from_numpy(coarse_ray_uv(config)), *torch.from_numpy(rows[1:])).to(cuda_device)
+    got = cone(arrays, torch.as_tensor(rows[0], device=cuda_device), rays)
+    assert torch.equal(got, cone.plain(arrays, rows[0], rays))
+    assert bool((got < config.max_distance).any())
+    before = kbuild.LAUNCHES["cone_march"]
+    frame = make_cuda_hierarchical_renderer(scene, config)(arrays, *cam)
+    torch.cuda.synchronize()
+    assert kbuild.LAUNCHES["cone_march"] == before + 1
+    assert frame.shape == (120, 160, 3) and bool(torch.isfinite(frame).all())
+
+
+def test_cone_and_hierarchical_frame_do_not_synchronize(design1, cuda_device):
+    """With the origin on the card the cone launch makes no host
+    synchronization, and neither does a hierarchical frame, whose camera
+    rows go up through pinned memory (torch's sync debug mode raises on
+    one)."""
+    scene, arrays = design1
+    config = RenderConfig(march_overrelax=1.6, march_hierarchical=True)
+    cone = make_cuda_cone_march(scene, config)
+    render = make_cuda_hierarchical_renderer(scene, config)
+    cam = Camera.initial().as_arrays()
+    rows = camera_rows(*cam)
+    rays = project(torch.from_numpy(coarse_ray_uv(config)), *torch.from_numpy(rows[1:])).to(cuda_device)
+    o = torch.as_tensor(rows[0], device=cuda_device)
+    ref = cone(arrays, o, rays), render(arrays, *cam)  # builds outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = cone(arrays, o, rays), render(arrays, *cam)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
