@@ -48,7 +48,25 @@ before each and read after:
   ``march_cull=True``, each from the camera and hierarchical at omega = 1.6
   (the cone prepass, then the culled t0 renderer), and the culled grid over
   the 33x257x257 slab, without and with the gizmo; every frame is held to
-  the checked unculled one.
+  the checked unculled one;
+* slice 10 (phase 8H), each part with the counts set to 0 before it and
+  read after: the studio (``StudioSession`` on the card runs the
+  new-design template and a script that builds Design1, renders a
+  640x480 frame exactly, K2 once, orbits and renders again, switches to
+  the fast mode, K5 and K2 from its t0 plane, and runs the monitored
+  background export at grid level 6, K3 and K1's FD form); the viewer's
+  ``orbit_frames``, 4 frames each bit-equal to ``render_scene`` from the
+  same camera; ``cli watch`` on Design1's script with ``--max-renders 1``;
+  ``profile_trace`` around one exact frame in a process of its own, whose
+  Chrome trace must name K2's ``render_kernel``; the compacted renderer on Logo at 320x240 (the
+  proxy prepass, then the exact tape on the survivors), held to
+  ``make_renderer(field="exact")`` on the card by the JAX package's
+  compacted-against-plain rule, its time and survivors beside the fused
+  K2's Logo frame; analytic normals of ``BatchEvaluator(use_kernels=False,
+  normal_mode="analytic")`` at 2^16 points near Design1's surface, held to
+  K1's FD-form normals and to the same evaluation on the CPU; and the
+  dynamic tape, bit-equal to the staged tape on Design1 and Design2 at
+  2^16 points.  It prints a ``slice10`` JSON line.
 
 It times every kernel and its plain version with CUDA events (and Design1's
 renderer built with and without FMA contraction against each other), and
@@ -132,7 +150,7 @@ import time
 import numpy as np
 import torch
 
-from designcsg_tpu_torch import cli, native
+from designcsg_tpu_torch import cli, native, studio, viewer
 from designcsg_tpu_torch.camera import Camera
 from designcsg_tpu_torch.compiler import ExportConfig
 from designcsg_tpu_torch.config import RenderConfig
@@ -165,11 +183,19 @@ from designcsg_tpu_torch.ops.cuda.tape import (
     ray_march_kernel_source,
     sdf_kernel_source,
 )
-from designcsg_tpu_torch.ops.interpreter import dot3, gizmo_sdf, make_normal_fn, make_primary_sdf
+from designcsg_tpu_torch.observability import TRACE_FILE
+from designcsg_tpu_torch.ops.interpreter import (
+    dot3,
+    gizmo_sdf,
+    make_dynamic_primary_sdf,
+    make_normal_fn,
+    make_primary_sdf,
+)
 from designcsg_tpu_torch.ops.table import packed_rank_sample, plane_sample
 from designcsg_tpu_torch.ops.raymarch import (
     camera_rows,
     coarse_ray_uv,
+    make_compacted_renderer,
     make_march,
     project,
     make_renderer,
@@ -750,6 +776,175 @@ def coarse_rays(config, cam, device):
     frame = torch.as_tensor(rows[1:], device=device)
     return (torch.as_tensor(rows[0], device=device),
             project(torch.from_numpy(coarse_ray_uv(config)).to(device), *frame))
+
+
+# Slice 10's script of Design1 for the studio and ``cli watch``.
+DESIGN1_SCRIPT = (
+    "from designcsg_tpu_torch.designs import design1\n\n\n"
+    "def build():\n"
+    "    return design1.build()\n"
+)
+# One exact Design1 frame under profile_trace, the trace to argv[1].
+PROFILE_FRAME = (
+    "import sys\n"
+    "from designcsg_tpu_torch.designs import get_design\n"
+    "from designcsg_tpu_torch.observability import profile_trace\n"
+    "from designcsg_tpu_torch.ops.raymarch import render_scene\n"
+    "scene = get_design('design1')\n"
+    "render_scene(scene)\n"
+    "with profile_trace(sys.argv[1]):\n"
+    "    render_scene(scene)\n"
+)
+# The compacted renderer's frame on Logo: cut from 640x480 for the plain
+# exact-field renders' time.
+COMPACT = RenderConfig(width=320, height=240)
+
+
+def counted_run(fn):
+    """(fn(), the kernel launches it made, its wall seconds)."""
+    kbuild.LAUNCHES.clear()
+    t0 = time.time()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(kbuild.LAUNCHES), time.time() - t0
+
+
+def slice10_phase(scenes, arrays, kernels, smi) -> dict:
+    """Phase 8H: the studio, the viewer, ``cli watch``, ``profile_trace``,
+    the compacted renderer, analytic normals and the dynamic tape on the
+    card (the module docstring)."""
+    out = {"card": smi}
+    cam = Camera.initial().as_arrays()
+    phase_start = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        ws = studio.Workspace(os.path.join(tmp, "ws"))
+        session = studio.StudioSession(ws)
+        ws.new("template")
+        check(session.run_design("template") and session.engine == "cuda",
+              "studio ran the new-design template on the card (engine cuda)")
+        ws.write("design1", DESIGN1_SCRIPT)
+        check(session.run_design("design1") and session.scene.num_objects == 11,
+              "studio ran a script that builds Design1 through designcsg_tpu_torch.designs")
+        check(session.engine == "cuda", f"studio engine {session.engine} == cuda")
+        session.set_render_mode(exact=True)
+        png, counted, secs = counted_run(session.render_png)
+        out["studio_exact_frame_ms"] = 1e3 * secs
+        check(cli.decode_png(png).shape == (480, 640, 3) and counted.get("renderer") == 1
+              and not counted.get("cone_march"),
+              f"studio exact 640x480 frame: renderer launched {counted.get('renderer')} == 1")
+        first = session.render().copy()
+        session.orbit(0.6, -0.3)
+        frame, counted, secs = counted_run(session.render)
+        check(counted.get("renderer") == 1 and np.abs(frame - first).max() > 1e-3,
+              "studio orbit: the frame changed, renderer launched once")
+        session.set_render_mode(exact=False)
+        frame, counted, secs = counted_run(session.render)
+        out["studio_fast_frame_ms"] = 1e3 * secs
+        check(session.config.march_hierarchical and counted.get("cone_march") == 1
+              and counted.get("renderer_t0") == 1,
+              f"studio fast mode: cone_march {counted.get('cone_march')} and renderer_t0 "
+              f"{counted.get('renderer_t0')} launched once each")
+        stl = os.path.join(tmp, "design1.stl")
+        kbuild.LAUNCHES.clear()
+        check(session.start_export(stl, grid_level=6), "studio export started")
+        session._export_thread.join(600)
+        status = session.export_status
+        counted = dict(kbuild.LAUNCHES)
+        check(status["state"] == "done" and status["fraction"] == 1.0 and status["triangles"] > 0,
+              f"studio export at grid level 6: {status['state']}, monitor at "
+              f"{100 * status['fraction']:.1f}%, {status.get('triangles')} triangles")
+        check(counted.get("grid_eval", 0) > 0 and counted.get("point_eval_fd", 0) > 0,
+              f"studio export launched grid_eval {counted.get('grid_eval')} and point_eval_fd "
+              f"{counted.get('point_eval_fd')} times")
+        out["studio_export"] = dict(seconds=status["seconds"], stage_seconds=status["stage_seconds"],
+                                    triangles=status["triangles"], launches=counted)
+
+        scene, a = scenes["design1"], arrays["design1"]
+        frames, counted, secs = counted_run(
+            lambda: viewer.orbit_frames(scene, n_frames=4, config=EXACT))
+        check(len(frames) == 4 and counted.get("renderer") == 4,
+              f"orbit_frames: 4 frames, renderer launched {counted.get('renderer')} == 4")
+        orbit_cam = Camera.initial()
+        for i, f in enumerate(frames):
+            ref = render_scene(scene, camera=orbit_cam, config=EXACT).cpu().numpy()
+            check(np.array_equal(f, ref), f"orbit frame {i} bit-equal to render_scene from its camera")
+            orbit_cam.orbit(2 * np.pi / 4, 0.0)
+
+        script, png = os.path.join(tmp, "d1.py"), os.path.join(tmp, "watch.png")
+        with open(script, "w") as f:
+            f.write(DESIGN1_SCRIPT)
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            _, counted, secs = counted_run(
+                lambda: cli.main(["watch", script, "-o", png, "--max-renders", "1"]))
+        check(os.path.exists(png) and counted.get("renderer") == 1 and "engine: cuda" in printed.getvalue(),
+              f"cli watch --max-renders 1 wrote a PNG, renderer launched {counted.get('renderer')} "
+              f"== 1 ({printed.getvalue().strip().splitlines()[0]})")
+
+        # In a process of its own, as a user profiles a frame: this one has
+        # run profiler sessions of its own since phase 5d.
+        trace_dir = os.path.join(tmp, "trace")
+        subprocess.run([sys.executable, "-c", PROFILE_FRAME, trace_dir], check=True, cwd=ROOT)
+        with open(os.path.join(trace_dir, TRACE_FILE)) as f:
+            events = json.load(f)["traceEvents"]
+        k2 = sorted({e.get("name", "") for e in events if "render_kernel" in e.get("name", "")})
+        device = sorted({e.get("name", "")[:40] for e in events if e.get("cat") == "kernel"})
+        print(f"  profile_trace: {len(events)} events, device kernels {device}")
+        check(bool(k2), f"profile_trace's Chrome trace names K2: {k2[:1]}")
+
+    logo, la = scenes["logo"], arrays["logo"]
+    compact = make_compacted_renderer(logo, COMPACT)
+    img, counted, secs = counted_run(lambda: compact(la, *cam))
+    check(not counted, f"the compacted renderer launched no kernel ({counted})")
+    exact_field = make_renderer(logo, COMPACT, field="exact")
+    plain = exact_field(la, *cam)
+    img_c, img_p = to_u8(img).int(), to_u8(plain).int()
+    hit_c, hit_p = (img_c < 250).any(-1), (img_p < 250).any(-1)
+    flips = float((hit_c != hit_p).float().mean())
+    off8 = float(((img_c - img_p).abs().amax(-1) > 8).float().mean())
+    check(flips < 5e-3 and off8 < 0.03,
+          f"Logo compacted 320x240 vs make_renderer(field='exact'): hit masks differ on "
+          f"{flips:.4%} < 0.5%, {off8:.4%} < 3% of pixels off by more than 8")
+    out["logo_compacted"] = dict(
+        width=COMPACT.width, height=COMPACT.height, survivors=compact.survivors,
+        rays=COMPACT.width * COMPACT.height, ms=cuda_ms(lambda: compact(la, *cam), 1, warmup=0),
+        first_call_s=secs,
+        exact_field_plain_ms=cuda_ms(lambda: exact_field(la, *cam), 1, warmup=0),
+        fused_k2_logo_640x480_ms=cuda_ms(lambda: kernels["logo"]["renderer"](la, *cam), 10),
+        hit_mask_flips=flips, off_by_8_share=off8)
+
+    d1 = scenes["design1"]
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    half = d1.export_config.bounding_box_half_diameter / 2.0
+    pts = (torch.rand(1 << 22, 3, device="cuda", generator=gen) * 2 - 1) * half
+    pts = pts[kernels["design1"]["point_eval"](pts, arrays["design1"]).abs() < 0.05][: 1 << 16]
+    check(pts.shape[0] == 1 << 16, "2^16 seeded points within 0.05 of Design1's surface")
+    ev = BatchEvaluator(d1, use_kernels=False, normal_mode="analytic")
+    (analytic, counted, secs) = counted_run(lambda: ev.eval_normal_at_points(pts.cpu().numpy()))
+    check(not counted and ev.sdf_eval_count == pts.shape[0],
+          "analytic normals on the card: the plain tape, one evaluation a normal")
+    fd = kernels["design1"]["point_eval"].fd(pts, arrays["design1"])[1].cpu().numpy()
+    err_fd = np.abs(analytic - fd).max(-1)
+    cpu = BatchEvaluator(d1, device="cpu", normal_mode="analytic").eval_normal_at_points(pts.cpu().numpy())
+    err_cpu = np.abs(analytic - cpu).max(-1)
+    # FD's offset of 0.005 straddles a box's edge near it, where the two
+    # normals part; elsewhere they agree to 2e-3.
+    share_fd = float((err_fd <= 2e-3).mean())
+    check(share_fd >= 0.9, f"analytic normals within 2e-3 of K1's FD form on {share_fd:.4%} >= 90% "
+                           f"of points (max {err_fd.max():.3g})")
+    check(float(err_cpu.max()) <= 1e-5, f"analytic normals on the card within "
+                                        f"{err_cpu.max():.3g} <= 1e-5 of the CPU's")
+    out["analytic_normals"] = dict(points=int(pts.shape[0]), within_2e3_of_k1_fd=share_fd,
+                                   max_vs_k1_fd=float(err_fd.max()), max_vs_cpu=float(err_cpu.max()),
+                                   ms=1e3 * secs)
+    for name in ("design1", "design2"):
+        sc, a = scenes[name], arrays[name]
+        dyn, counted, secs = counted_run(lambda: make_dynamic_primary_sdf(sc)(pts, a))
+        check(torch.equal(dyn, make_primary_sdf(sc)(pts, a)) and not counted,
+              f"{name} dynamic tape bit-equal to the staged tape at 2^16 points on the card")
+        out[f"{name}_dynamic_tape_ms"] = 1e3 * secs
+    out["phase_seconds"] = time.time() - phase_start
+    return out
 
 
 def main() -> int:
@@ -1571,6 +1766,10 @@ def main() -> int:
         for kernel in list(CULLED) + ["grid_eval_cull", "grid_eval_cull_gizmo"]:
             check(counted.get(kernel) == 1, f"{name} {kernel} launched {counted.get(kernel)} times == 1")
             launches[(kernel, name)] = counted[kernel]
+
+    phase("8H. slice 10: the studio, the viewer, cli watch, profile_trace, the compacted "
+          "renderer on Logo, analytic normals and the dynamic tape (launches counted per part)")
+    print(json.dumps({"slice10": slice10_phase(scenes, arrays, kernels, smi)}))
 
     phase("9. timing (CUDA events, after warm-up)")
     frames = {}

@@ -25,3 +25,18 @@ def resolve_device(device=None) -> torch.device:
             "PyTorch path"
         )
     return device
+
+
+from . import api, brushes, compiler, constants, pose, scene, transforms  # noqa: E402,F401
+from .brushes import Brush, EvalContext, Material  # noqa: E402,F401
+from .compiler import (  # noqa: E402,F401
+    CompiledScene,
+    ExportConfig,
+    SceneArrays,
+    SceneCompiler,
+    load_reference_scene,
+)
+from .scene import Component, IntersectionComponent  # noqa: E402,F401
+from .transforms import Transform  # noqa: E402,F401
+
+__version__ = "0.1.0"

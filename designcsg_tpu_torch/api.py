@@ -264,5 +264,31 @@ def drawIntersection(*components, transform=None, compiler=None):
     return _group(components, transform, False, True, compiler)
 
 
+def define_auxillary_function(function=None, **kwargs):
+    """Compatibility shim (api.py:259-271 of the JAX package).  The
+    reference injects OpenCL helper source into the generated scene.cl
+    (scenecompiler.py:410-411); here a brush is a torch function, so a
+    helper is just a function: a callable comes back unchanged, so ported
+    design scripts keep working, and a source string is refused."""
+    fn = function if function is not None else kwargs.get("function")
+    if isinstance(fn, str):
+        raise TypeError(
+            "OpenCL source strings are not used here: define your helper as a "
+            "plain Python/torch function and call it from your brush function "
+            "(a brush's CUDA body is its define_brush(..., cuda=...) string)"
+        )
+    return fn
+
+
+def add_preprocessor_define(define=None, **kwargs):
+    """Compatibility shim for the reference's #define injection
+    (scenecompiler.py:413-414): use Python constants instead."""
+    raise TypeError(
+        "preprocessor defines are not used here: brushes are Python/torch "
+        "functions with CUDA bodies; use module-level constants or "
+        "closure-captured values"
+    )
+
+
 def eraseIntersection(*components, transform=None, compiler=None):
     return _group(components, transform, True, True, compiler)

@@ -12,6 +12,8 @@ has::
     python -m designcsg_tpu_torch.cli export logo --sdf-field baked  # the kernels' field
     python -m designcsg_tpu_torch.cli artifacts design1 -d build/   # reference IR
     python -m designcsg_tpu_torch.cli fit design1 --steps 150       # shape fit demo
+    python -m designcsg_tpu_torch.cli watch mydesign.py -o live.png  # edit-run loop
+    python -m designcsg_tpu_torch.cli studio workspace/              # browser shell
 
 Every command runs on the card; ``--device cpu`` takes the plain PyTorch
 path (the JAX CLI's ``--backend`` choice).  A design is a builtin name
@@ -42,9 +44,7 @@ SDF_FIELDS = {"auto": None, "baked": True, "exact": False}
 # Commands of the JAX CLI not ported yet, with the ROADMAP.md item that
 # brings each.
 UNPORTED = {
-    "watch": "queue 1, item 11 (shells)",
     "bench": "queue 1, item 11 (no benchmark of the port yet)",
-    "studio": "queue 1, item 11 (shells)",
 }
 
 
@@ -81,9 +81,9 @@ def _camera(args):
     return cam
 
 
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """Write u8[H, W, 3] (or u8[H, W]) as an 8-bit PNG with the standard
-    library's zlib: one IHDR, one IDAT of unfiltered rows, IEND."""
+def png_bytes(rgb: np.ndarray) -> bytes:
+    """u8[H, W, 3] (or u8[H, W]) as the bytes of an 8-bit PNG, made with the
+    standard library's zlib: one IHDR, one IDAT of unfiltered rows, IEND."""
     rgb = np.ascontiguousarray(rgb, np.uint8)
     height, width = rgb.shape[:2]
     color = 2 if rgb.ndim == 3 else 0
@@ -94,19 +94,32 @@ def write_png(path: str, rgb: np.ndarray) -> None:
         )
 
     rows = np.concatenate([np.zeros((height, 1), np.uint8), rgb.reshape(height, -1)], axis=1)
+    return b"".join([
+        b"\x89PNG\r\n\x1a\n",
+        chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, color, 0, 0, 0)),
+        chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)),
+        chunk(b"IEND", b""),
+    ])
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """Write u8[H, W, 3] (or u8[H, W]) as an 8-bit PNG (:func:`png_bytes`)."""
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", width, height, 8, color, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
-        f.write(chunk(b"IEND", b""))
+        f.write(png_bytes(rgb))
 
 
 def read_png(path: str) -> np.ndarray:
     """Read back an 8-bit RGB or grey PNG with unfiltered rows, as
     :func:`write_png` writes it."""
-    data = open(path, "rb").read()
+    with open(path, "rb") as f:
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, name: str = "data") -> np.ndarray:
+    """The pixels of PNG bytes as :func:`png_bytes` makes them; ``name``
+    labels errors."""
     if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise ValueError(f"{path} is not a PNG file")
+        raise ValueError(f"{name} is not a PNG file")
     pos, idat, header = 8, b"", None
     while pos < len(data):
         (length,) = struct.unpack(">I", data[pos : pos + 4])
@@ -120,7 +133,7 @@ def read_png(path: str) -> np.ndarray:
     channels = {0: 1, 2: 3}[color]
     rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(height, 1 + width * channels)
     if depth != 8 or rows[:, 0].any():
-        raise ValueError(f"{path}: only 8-bit PNGs with unfiltered rows are read")
+        raise ValueError(f"{name}: only 8-bit PNGs with unfiltered rows are read")
     img = rows[:, 1:].reshape(height, width, channels)
     return img if channels == 3 else img[..., 0]
 
@@ -156,16 +169,49 @@ def cmd_render(args):
     print(f"wrote {args.output}")
 
 
+def cmd_watch(args):
+    """Edit-run loop (cli.py:121-152 of the JAX package): re-render the
+    design script whenever its mtime changes, printing the render time or
+    the script's exception (the reference's File->Run and log.txt).
+    ``--max-renders`` stops after that many renders (0: until
+    interrupted)."""
+    if not os.path.exists(args.design):
+        raise FileNotFoundError(f"watch needs a design script path: {args.design!r}")
+    last_mtime = None
+    renders = 0
+    while True:
+        try:
+            mtime = os.path.getmtime(args.design)
+        except OSError:
+            time.sleep(args.poll)
+            continue
+        if mtime != last_mtime:
+            last_mtime = mtime
+            try:
+                cmd_render(args)
+            except KeyboardInterrupt:
+                raise
+            except Exception as exc:  # a script error is printed; the loop goes on
+                print(f"design error: {type(exc).__name__}: {exc}")
+            renders += 1
+            if args.max_renders and renders >= args.max_renders:
+                return
+            print(f"watching {args.design} (ctrl-c to stop)")
+        time.sleep(args.poll)
+
+
 def cmd_export(args):
     from .compiler import ExportConfig
     from .evaluator import BatchEvaluator
     from .export.pipeline import export_mesh
+    from .observability import ExportMonitor
 
     scene = load_design(args.design)
     config = scene.export_config
     if args.grid_level is not None:
         config = dataclasses.replace(config or ExportConfig(), grid_level=args.grid_level)
     stl = args.stl or (os.path.splitext(args.design)[0].replace("/", "_") + ".stl")
+    monitor = ExportMonitor(out=sys.stdout)
     t0 = time.time()
     mesh, report = export_mesh(
         scene,
@@ -173,6 +219,7 @@ def cmd_export(args):
         stl_path=stl,
         ply_path=args.ply,
         evaluator=BatchEvaluator(scene, device=args.device, use_kernels=SDF_FIELDS[args.sdf_field]),
+        progress=monitor,
         resume_dir=args.resume_dir,
         strategy=args.strategy,
     )
@@ -183,6 +230,9 @@ def cmd_export(args):
     print(f"  strategy: {report.stats['strategy']}; native mesh ops: {report.stats['native']}")
     for stage, secs in report.stage_seconds.items():
         print(f"  {stage:<14s} {secs:7.2f}s")
+    histogram = monitor.render_histogram(report.stats)
+    if histogram and args.histogram:
+        print(histogram)
     print(f"wrote {stl}" + (f" and {args.ply}" if args.ply else ""))
 
 
@@ -255,6 +305,13 @@ def cmd_fit(args):
     print(f"wrote {args.output}/fit.ckpt")
 
 
+def cmd_studio(args):
+    from .studio import serve
+
+    serve(args.workspace, port=args.port, width=args.width, height=args.height,
+          device=args.device)
+
+
 def _unported(name):
     def cmd(args):
         raise SystemExit(
@@ -288,6 +345,21 @@ def main(argv=None):
     device_arg(p)
     p.set_defaults(fn=cmd_render)
 
+    p = sub.add_parser("watch", help="re-render a design script whenever it changes")
+    p.add_argument("design")
+    p.add_argument("-o", "--output", default="render.png")
+    p.add_argument("--width", type=int, default=640)
+    p.add_argument("--height", type=int, default=480)
+    p.add_argument("--orbit", type=float, nargs=2, metavar=("DA", "DB"))
+    p.add_argument("--zoom", type=float, default=0.0)
+    p.add_argument("--no-gizmo", action="store_true")
+    p.add_argument("--no-default-orbit", action="store_true")
+    p.add_argument("--poll", type=float, default=0.5)
+    p.add_argument("--max-renders", type=int, default=0,
+                   help="stop after N renders (0 = run until interrupted)")
+    device_arg(p)
+    p.set_defaults(fn=cmd_watch, fast=False)
+
     p = sub.add_parser("export", help="mesh-export a design (STL/PLY)")
     p.add_argument("design")
     p.add_argument("--stl")
@@ -302,6 +374,8 @@ def main(argv=None):
                    help="SDF field the export evaluates: exact tape (reference k2 "
                    "semantics), the kernels' baked twin field, or the evaluator's auto "
                    "choice (exact for approximate-twin scenes such as logo)")
+    p.add_argument("--histogram", action="store_true",
+                   help="print the per-slab/per-level triangle histogram after export")
     device_arg(p)
     p.set_defaults(fn=cmd_export)
 
@@ -334,6 +408,14 @@ def main(argv=None):
                    "and design2)")
     device_arg(p)
     p.set_defaults(fn=cmd_fit)
+
+    p = sub.add_parser("studio", help="browser-based editor/viewport/export shell")
+    p.add_argument("workspace", nargs="?", default="designs_workspace")
+    p.add_argument("--port", type=int, default=8642)
+    p.add_argument("--width", type=int, default=640)
+    p.add_argument("--height", type=int, default=480)
+    device_arg(p)
+    p.set_defaults(fn=cmd_studio)
 
     for name in UNPORTED:
         p = sub.add_parser(name, help=f"not ported yet (ROADMAP.md {UNPORTED[name]})")

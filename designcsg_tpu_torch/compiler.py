@@ -32,6 +32,7 @@ from .constants import (
     INITIAL_SCALE,
     MAX_BUILD_STEPS,
     MAX_OBJECTS,
+    OPCODE_NAMES,
     STACK_MEMORY_PER_PIXEL,
 )
 
@@ -59,6 +60,13 @@ class ExportConfig:
 
     def to_lines(self) -> str:
         return "".join(str(v) + "\n" for v in dataclasses.astuple(self))
+
+    @staticmethod
+    def from_lines(text: str) -> "ExportConfig":
+        """Parse the nine lines :meth:`to_lines` writes."""
+        vals = [ln.strip() for ln in text.strip().splitlines() if ln.strip()]
+        kinds = [f.type for f in dataclasses.fields(ExportConfig)]
+        return ExportConfig(*(float(v) if k == "float" else int(v) for v, k in zip(vals, kinds)))
 
 
 #: Field order of SceneArrays (the JAX package's pytree leaf order).
@@ -171,6 +179,10 @@ class CompiledScene:
     @property
     def num_objects(self) -> int:
         return int(self.arrays.shape_id.shape[0])
+
+    @property
+    def num_build_steps(self) -> int:
+        return int(self.arrays.tape.shape[0])
 
     def ad_offset(self, name: str) -> int:
         """Start offset of a named arbitrary-data chunk (the reference's
@@ -469,3 +481,76 @@ class SceneCompiler:
             with open(os.path.join(directory, "exportConfig.txt"), "w") as fl:
                 fl.write(self.export_config.to_lines())
         return compiled
+
+
+def load_reference_scene(
+    scene_txt_path: str,
+    buildprocedure_path: str,
+    brush_fns: Sequence[Callable],
+    material_fns: Sequence[Callable] = (),
+    arbitrary_data_path: Optional[str] = None,
+    export_config_path: Optional[str] = None,
+) -> CompiledScene:
+    """Load a scene from the reference's on-disk IR (the formats parsed by
+    DrawPane.cpp:267-371; compiler.py:431-507 of the JAX package) for
+    differential testing.
+
+    ``brush_fns`` supplies a torch function per brush bank index the tape
+    uses (the reference's scene.cl is OpenCL source, not run here); the
+    materials default to the builtin abs_normals and basic_lighting.  The
+    functions carry no CUDA bodies, so the scene runs on the plain tape on
+    every device, each brush its own twin."""
+    rows = []
+    with open(scene_txt_path) as fl:
+        for line in fl:
+            parts = line.split()
+            if parts:
+                rows.append([float(x) for x in parts])
+    rows_np = np.asarray(rows, dtype=np.float64)
+
+    with open(buildprocedure_path) as fl:
+        tape = np.asarray(
+            [[int(x) for x in line.split()] for line in fl if len(line.split()) == 4],
+            dtype=np.int32,
+        )
+
+    ad = np.zeros((ARBITRARY_DATA_POINTS,), dtype=np.float32)
+    if arbitrary_data_path is not None:
+        data = np.fromfile(arbitrary_data_path, dtype="<f4").astype(np.float32)
+        ad = data if data.shape[0] >= ARBITRARY_DATA_POINTS else np.pad(
+            data, (0, ARBITRARY_DATA_POINTS - data.shape[0]))
+
+    export_config = None
+    if export_config_path is not None:
+        with open(export_config_path) as fl:
+            export_config = ExportConfig.from_lines(fl.read())
+
+    # Registers read by MIN/MAX/NEGATE/IDENTITY/EXPORT may exceed the
+    # destinations.
+    num_registers = int(tape[:, 3].max()) + 1 if len(tape) else 1
+    for opcode, left, right, _ in tape:
+        name = OPCODE_NAMES[int(opcode)]
+        if name in ("MIN", "MAX", "NEGATE", "IDENTITY", "EXPORT"):
+            num_registers = max(num_registers, int(left) + 1)
+        if name in ("MIN", "MAX"):
+            num_registers = max(num_registers, int(right) + 1)
+
+    arrays = SceneArrays(
+        shape_id=rows_np[:, 0].astype(np.int32),
+        material_id=rows_np[:, 1].astype(np.int32),
+        position=rows_np[:, 2:5].astype(np.float32),
+        right=rows_np[:, 5:8].astype(np.float32),
+        up=rows_np[:, 8:11].astype(np.float32),
+        forward=rows_np[:, 11:14].astype(np.float32),
+        tape=tape,
+        ad=ad,
+    )
+    brush_fns = tuple(brush_fns)
+    return CompiledScene(
+        arrays=arrays,
+        brush_fns=brush_fns,
+        material_fns=tuple(material_fns) or (_brushes.abs_normals_fn, _brushes.basic_lighting_fn),
+        num_registers=num_registers,
+        export_config=export_config,
+        brush_twin=brush_fns,
+    )

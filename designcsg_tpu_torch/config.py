@@ -1,10 +1,7 @@
 """Render configuration.
 
 Every field and default of the JAX package's ``RenderConfig`` is kept, so a
-config written for one package reads the same in the other.  Knobs whose
-machinery this package does not have yet raise ``NotImplementedError`` at
-construction, naming the ROADMAP.md item that brings them; nothing silently
-falls back to another march mode.
+config written for one package reads the same in the other.
 """
 
 from __future__ import annotations
@@ -51,19 +48,14 @@ class RenderConfig:
     # the JAX package, the differentiable renders, the fit's ray march (K4)
     # and the cone prepass (K5) have no cull and ignore it.
     march_cull: Optional[bool] = None
+    # The two-phase proxy march of the plain renderers (ops/raymarch.py):
+    # phase 1 steps through open space on the brushes' cheap lower bounds
+    # (``__proxy_fn__``, Logo's letter plates), phase 2 marches the tape
+    # from the handoff.  None: the compacted renderer takes it for a scene
+    # with safe proxies off the kernels (render_scene), make_march does not;
+    # True: make_march too; False: neither.  The CUDA renderer ignores it.
     march_proxy: Optional[bool] = None
     # TPU loop-unroll knob of the JAX kernel; the CUDA renderer marches each
     # ray in its own thread, so there is nothing to unroll.
     march_unroll: int = 8
 
-    def __post_init__(self):
-        unported = [
-            (self.march_proxy is True, "march_proxy=True", "queue 1, item 10"),
-            (self.normal_mode != "fd", f"normal_mode={self.normal_mode!r}",
-             "queue 1, item 4"),
-        ]
-        for active, knob, item in unported:
-            if active:
-                raise NotImplementedError(
-                    f"RenderConfig({knob}) is not ported yet (ROADMAP.md {item})"
-                )

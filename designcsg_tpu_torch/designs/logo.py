@@ -404,9 +404,22 @@ def _plate_clip(x, y, z, signed):
     return torch.maximum(torch.maximum(signed, box), slab)
 
 
+def plate_proxy(v, ctx):
+    """An exact lower bound of the letter brush and of its twin: both are
+    ``max(signed, box, slab)`` >= ``max(box, slab)`` (designs/logo.py:550-562
+    of the JAX package).  The proxy march steps through open space on it
+    and never evaluates the Bezier samples there (ops/raymarch.py)."""
+    v = 2.0 * v
+    x, y, z = v[..., 0], v[..., 1], v[..., 2]
+    box = torch.maximum(torch.abs(x) - 1.25, torch.maximum(torch.abs(y) - 1.25, torch.abs(z) - 1.25))
+    return torch.maximum(box, torch.abs(z - 1.25) - 0.125)
+
+
 def _make_letter_brush(curve_start: int, n_curves: int, mask_start: int):
     """The exact brush, reading curve data and bitmask from ``ctx.ad``
-    (designs/logo.py:473-549 of the JAX package); differentiable in ``ad``."""
+    (designs/logo.py:473-549 of the JAX package); differentiable in ``ad``.
+    It carries :func:`plate_proxy` as ``__proxy_fn__``, as the JAX brush
+    does."""
     r = LETTER_RESOLUTION
     offs = curve_start + 11 * np.arange(n_curves)
     t_host = torch.from_numpy((np.arange(SUBSEGMENTS, dtype=np.float32) / SUBSEGMENTS)[None, :, None])
@@ -462,6 +475,7 @@ def _make_letter_brush(curve_start: int, n_curves: int, mask_start: int):
         signed = torch.where(in_range & (bit == 1), -d, d - thickness)
         return _plate_clip(x, y, z, signed)
 
+    letter_fn.__proxy_fn__ = plate_proxy
     return letter_fn
 
 

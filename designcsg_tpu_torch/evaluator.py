@@ -38,7 +38,8 @@ logger = logging.getLogger("designcsg_tpu_torch")
 # ~7x that for the temporaries of the plain FD normal.
 DEFAULT_CHUNK = 1 << 20
 
-# An FD normal costs 6 tape evaluations (k2.cl:149-179).
+# An FD normal costs 6 tape evaluations (k2.cl:149-179), an analytic one 1
+# (evaluator.py:145-149 of the JAX package).
 NORMAL_EVAL_COST = 6
 
 
@@ -70,8 +71,10 @@ class BatchEvaluator:
     (``brushes_kernel.supports_scene``), which the plain tape evaluates.
 
     ``gizmo`` evaluates the k1 field (the tape min-ed with the axis gizmo).
-    ``normal_mode`` is "fd" (central differences); "analytic" is not ported
-    yet and raises.
+    ``normal_mode`` is "fd" (central differences) or "analytic" (autograd of
+    the tape, ops/interpreter.py make_normal_fn) on the exact tape; the
+    kernels' field keeps FD normals (K1's FD form), as the JAX package's
+    Pallas evaluator builds FD whatever the mode (evaluator.py:106-118).
 
     ``sdf_field`` names the field the evaluations ride: "cuda-exact" or
     "cuda-baked" (the CUDA kernels on an exact or baked twin), "tape-exact"
@@ -121,8 +124,11 @@ class BatchEvaluator:
             self._normal = normal
         self.set_arrays(arrays if arrays is not None else scene.arrays)
         # Every point evaluated through this evaluator is counted; an FD
-        # normal counts as NORMAL_EVAL_COST tape evaluations.
+        # normal counts as NORMAL_EVAL_COST tape evaluations, an analytic
+        # one as 1.
         self.sdf_eval_count = 0
+        self.normal_eval_cost = (
+            NORMAL_EVAL_COST if self.use_kernels or normal_mode == "fd" else 1)
 
     def set_arrays(self, arrays: SceneArrays):
         """Swap scene parameters (the reference's setArbitraryData path,
@@ -146,7 +152,7 @@ class BatchEvaluator:
 
     def eval_normal_at_points(self, points) -> np.ndarray:
         """f32[N, 3] -> f32[N, 3] (Evaluator.cpp:167-211 semantics)."""
-        self.sdf_eval_count += NORMAL_EVAL_COST * len(points)
+        self.sdf_eval_count += self.normal_eval_cost * len(points)
         return self._run_chunked(self._normal, points, 3)
 
     # -- lattice and cell-corner entry points ------------------------------
@@ -187,8 +193,8 @@ class BatchEvaluator:
         return self._run_lattice(self.point_eval, idx, None, lo, cellsize, 1)
 
     def eval_normal_at_lattice(self, idx, lo, cellsize) -> np.ndarray:
-        """f32[N, 3]: FD normals at ``lo + cellsize * idx``."""
-        self.sdf_eval_count += NORMAL_EVAL_COST * len(idx)
+        """f32[N, 3]: normals at ``lo + cellsize * idx``."""
+        self.sdf_eval_count += self.normal_eval_cost * len(idx)
         return self._run_lattice(self._normal, idx, None, lo, cellsize, 3)
 
     def eval_sdf_at_cell_corners(self, cells, lo, cellsize, offsets) -> np.ndarray:
@@ -197,8 +203,8 @@ class BatchEvaluator:
         return self._run_lattice(self.point_eval, cells, offsets, lo, cellsize, 1)
 
     def eval_normal_at_cell_corners(self, cells, lo, cellsize, offsets) -> np.ndarray:
-        """f32[N, K, 3]: FD normals at the cells' ``offsets``."""
-        self.sdf_eval_count += NORMAL_EVAL_COST * len(offsets) * len(cells)
+        """f32[N, K, 3]: normals at the cells' ``offsets``."""
+        self.sdf_eval_count += self.normal_eval_cost * len(offsets) * len(cells)
         return self._run_lattice(self._normal, cells, offsets, lo, cellsize, 3)
 
     def eval_corner_signs_near(self, cells, lo, cellsize, offsets, near_bound: float):
@@ -231,12 +237,12 @@ class BatchEvaluator:
     ) -> np.ndarray:
         """The Newton-projection loop ``p <- p - n(p)*sdf(p)`` (the reference's
         "gradient descent", mesh.hpp:540-590), with the vertices kept on the
-        device across steps: each step is one SDF evaluation and one FD
-        normal (7 point evaluations; on the kernels' field one launch of K1's
-        FD form), chunk by chunk."""
+        device across steps: each step is one SDF evaluation and one normal
+        (7 point evaluations with FD normals; on the kernels' field one
+        launch of K1's FD form), chunk by chunk."""
         v = np.asarray(vertices, dtype=np.float32)
         n = v.shape[0]
-        self.sdf_eval_count += int(steps) * n * (1 + NORMAL_EVAL_COST)
+        self.sdf_eval_count += int(steps) * n * (1 + self.normal_eval_cost)
         out = np.empty_like(v)
         for start in range(0, n, self.chunk_size):
             p = torch.from_numpy(v[start : start + self.chunk_size]).to(self.device)

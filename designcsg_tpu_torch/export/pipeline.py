@@ -253,6 +253,10 @@ def export_mesh(
         if progress is not None:
             progress(stage, frac)
 
+    # A monitor (observability.ExportMonitor) reads the live telemetry.
+    if hasattr(progress, "attach_stats"):
+        progress.attach_stats(stats)
+
     t0 = time.time()
     if autodetect:
         _tick(ExportStage.ESTIMATING_BOUNDING_BOX.name, 0.0)

@@ -16,7 +16,13 @@ Two fields: ``"exact"`` calls each brush's own function, ``"twin"`` the field
 its CUDA body computes (``Brush.twin``: the same function for every brush but
 a baked one, such as Logo's letters).  The plain versions of the kernels
 evaluate the twin; the evaluator's exact field and the fit's gradients the
-exact tape.
+exact tape.  ``proxy=True`` puts each brush's ``__proxy_fn__`` (a cheap lower
+bound, Logo's letter plates) in its place: the field of the proxy march
+(ops/raymarch.py).
+
+:func:`make_dynamic_primary_sdf` is the runtime-tape interpreter of the JAX
+package (interpreter.py:143-206 there): it reads the tape when it is called,
+so a tape passed at call time changes the result without a rebuild.
 """
 
 from __future__ import annotations
@@ -101,14 +107,20 @@ def eval_context(scene: CompiledScene, arrays: SceneArrays, **frame) -> EvalCont
     return EvalContext(ad=arrays.ad, extras=scene.device_extras(arrays.ad.device)[1], **frame)
 
 
-def make_primary_sdf(scene: CompiledScene, gizmo: bool = False, field: str = "exact") -> Callable:
+def make_primary_sdf(scene: CompiledScene, gizmo: bool = False, field: str = "exact",
+                     proxy: bool = False) -> Callable:
     """``sdf(points, arrays=None, slots=None) -> distances`` with the scene's
     tape unrolled over the brushes of ``field``; ``arrays`` defaults to the
     scene's own banks.  ``slots`` maps IMPORT positions (and ``n_imports``,
     the gizmo) to values that stand in for their evaluation: the culled tape
-    (ops/cull.py) passes the slots it evaluated or substituted."""
+    (ops/cull.py) passes the slots it evaluated or substituted.  ``proxy``
+    evaluates each brush's ``__proxy_fn__`` where its exact function has
+    one (interpreter.py:92-139 of the JAX package)."""
     tape = [tuple(int(x) for x in row) for row in scene.arrays.tape]
     brush_fns = brush_bank(scene, field)
+    if proxy:
+        brush_fns = [getattr(exact, "__proxy_fn__", None) or fn
+                     for exact, fn in zip(scene.brush_fns, brush_fns)]
     n_imports = sum(1 for row in tape if row[0] == OP_IMPORT)
 
     def primary_sdf(points, arrays: Optional[SceneArrays] = None, slots=None):
@@ -146,6 +158,60 @@ def make_primary_sdf(scene: CompiledScene, gizmo: bool = False, field: str = "ex
     return primary_sdf
 
 
+def make_dynamic_primary_sdf(scene: CompiledScene, gizmo: bool = False) -> Callable:
+    """``sdf(points, arrays=None) -> distances`` over the tape in
+    ``arrays.tape`` as it is when called (interpreter.py:143-206 of the JAX
+    package): a dense register file f32[R, ...] and a loop over the tape's
+    rows, read from the tensor once per call (on the card, one host sync).
+    Opcodes clip to 0-5, register operands and brush indices to their
+    banks; a destination outside the register file is dropped and an object
+    index clamps to the bank, as JAX's scatter and gather do.  The brush
+    bank (the exact functions) stays the scene's."""
+    brush_fns = scene.brush_fns
+    num_registers = max(scene.num_registers, 1)
+
+    def clip(i: int, n: int) -> int:
+        return min(max(i, 0), n - 1)
+
+    def primary_sdf(points, arrays: Optional[SceneArrays] = None):
+        arrays = _device_arrays(scene, arrays, points.device)
+        ctx = eval_context(scene, arrays)
+        batch = points.shape[:-1]
+        regs = torch.full((num_registers,) + batch, MAX_DISTANCE, dtype=points.dtype,
+                          device=points.device)
+        export = torch.full(batch, MAX_DISTANCE, dtype=points.dtype, device=points.device)
+        n_objects = arrays.position.shape[0]
+        for opcode, left, right, dest in torch.as_tensor(arrays.tape).tolist():
+            opcode = clip(opcode, 6)
+            lhs = regs[clip(left, num_registers)]
+            rhs = regs[clip(right, num_registers)]
+            if opcode == OP_EXPORT:
+                export = lhs
+                continue
+            if opcode == OP_IMPORT:
+                obj = clip(right + n_objects if right < 0 else right, n_objects)
+                value = brush_fns[clip(left, len(brush_fns))](
+                    import_local_coords(points, arrays, obj), ctx)
+            elif opcode == OP_MIN:
+                value = torch.minimum(lhs, rhs)
+            elif opcode == OP_MAX:
+                value = torch.maximum(lhs, rhs)
+            elif opcode == OP_NEGATE:
+                value = -lhs
+            else:
+                value = lhs
+            dest = dest + num_registers if dest < 0 else dest
+            if 0 <= dest < num_registers:
+                # Out of place: autograd keeps the registers read before.
+                index = torch.tensor([dest], device=points.device)
+                regs = regs.index_put((index,), value[None])
+        if gizmo:
+            export = torch.minimum(export, gizmo_sdf(points))
+        return export
+
+    return primary_sdf
+
+
 def brute_force_min_sdf(scene: CompiledScene, points, arrays: Optional[SceneArrays] = None):
     """The semantic oracle for purely-additive scenes: MIN over every object's
     own SDF (the commented-out reference loop, k1.cl:157-184)."""
@@ -159,27 +225,41 @@ def brute_force_min_sdf(scene: CompiledScene, points, arrays: Optional[SceneArra
 
 
 def make_normal_fn(sdf_fn: Callable, mode: str = "fd", epsilon: float = NORMAL_EPSILON) -> Callable:
-    """Surface normals ``normals(points, arrays) -> f32[..., 3]`` by the
-    reference's central finite differences: 6 extra SDF evals at offset
-    ``epsilon``, divided by ``2*epsilon`` and normalized (k1.cl:381-418).
-    The norm's square root is taken through float64, so it is IEEE-rounded
-    on every device (PyTorch's float32 ``sqrt`` on the CPU can be an ulp off)
-    and the glue gives the bits of K1's FD form (csrc/common.cuh
-    ``sdf_fd_normal``) over the same seven field values.  The analytic mode
-    is not ported yet (ROADMAP.md queue 1, item 4)."""
-    if mode != "fd":
-        raise NotImplementedError(
-            f"normal mode {mode!r} is not ported yet (ROADMAP.md queue 1, item 4)"
-        )
+    """Surface normals ``normals(points, arrays) -> f32[..., 3]``.
 
-    def normals(points, arrays=None):
+    ``mode="fd"``: the reference's central finite differences, 6 extra SDF
+    evals at offset ``epsilon``, divided by ``2*epsilon`` and normalized
+    (k1.cl:381-418).  ``mode="analytic"``: the gradient of the field at each
+    point by autograd, normalized (interpreter.py:251-266 of the JAX
+    package).  The tape is pointwise, so one ``torch.autograd.grad`` of the
+    summed field gives each point's own gradient; the graph is kept when the
+    caller differentiates through the normals (the points or the banks need
+    gradients).  The norm's square root is taken through float64, so it is
+    IEEE-rounded on every device (PyTorch's float32 ``sqrt`` on the CPU can
+    be an ulp off); with FD the glue gives the bits of K1's FD form
+    (csrc/common.cuh ``sdf_fd_normal``) over the same seven field values."""
+    if mode not in ("fd", "analytic"):
+        raise ValueError(f"unknown normal mode {mode!r}")
+
+    def normalize(g):
+        return g / torch.sqrt(dot3(g, g).double()).to(g.dtype)[..., None]
+
+    def fd_normals(points, arrays=None):
         e = torch.tensor(epsilon, dtype=points.dtype, device=points.device)
         g = []
         for axis in range(3):
             offset = torch.zeros(3, dtype=points.dtype, device=points.device)
             offset[axis] = e
             g.append(sdf_fn(points + offset, arrays) - sdf_fn(points - offset, arrays))
-        g = torch.stack(g, dim=-1) / (2.0 * e)
-        return g / torch.sqrt(dot3(g, g).double()).to(g.dtype)[..., None]
+        return normalize(torch.stack(g, dim=-1) / (2.0 * e))
 
-    return normals
+    def analytic_normals(points, arrays=None):
+        banks = arrays.fields() if arrays is not None else ()
+        keep = torch.is_grad_enabled() and (
+            points.requires_grad or any(getattr(a, "requires_grad", False) for a in banks))
+        with torch.enable_grad():
+            q = points if points.requires_grad else points.detach().requires_grad_()
+            (g,) = torch.autograd.grad(sdf_fn(q, arrays).sum(), q, create_graph=keep)
+        return normalize(g)
+
+    return fd_normals if mode == "fd" else analytic_normals

@@ -10,10 +10,18 @@ over-relaxed and may start from a per-pixel ``t0`` plane;
 :func:`make_cone_march` and :func:`make_hierarchical_renderer` are the cone
 prepass and the two-pass fast viewport built on it.  These are the plain
 versions of the CUDA kernels of ops/cuda/march_kernel.py, which
-:func:`render_scene` takes on the card, so they march, take normals and
-shade on the field the kernels compute: each brush's twin
+:func:`render_scene` takes on the card, so by default they march, take
+normals and shade on the field the kernels compute: each brush's twin
 (ops/interpreter.py), which is the exact tape for every design but Logo,
-whose kernels sample baked letter tables.
+whose kernels sample baked letter tables.  ``field="exact"`` takes the
+brushes' own functions instead.
+
+Off the kernels, :func:`render_scene` renders as the JAX package does off
+its TPU (raymarch.py:611-655 there): on the exact field, through
+:func:`make_compacted_renderer` for a scene with safe brush proxies (Logo's
+letter plates; :func:`make_proxy_prepass` marches them through open space
+and only the surviving rays march the exact tape), else through
+:func:`make_renderer` on the exact field.
 
 :func:`make_differentiable_march`, :func:`make_ray_renderer` and
 :func:`make_geometry_renderer` are the fit's renders: the fit's ray-march
@@ -38,6 +46,7 @@ Replicated quirks:
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 from typing import Optional
 
@@ -50,7 +59,16 @@ from ..camera import Camera
 from ..compiler import CompiledScene, SceneArrays
 from ..config import RenderConfig
 from ..constants import AXES_SHADE_RADIUS, INITIAL_SCALE, MAX_DISTANCE
-from .cull import array_bank_reader, inflate, make_culled_sdf, make_tape_culler, ray_box, stack_cull
+from .cull import (
+    array_bank_reader,
+    build_tape_tree,
+    inflate,
+    make_culled_sdf,
+    make_tape_culler,
+    push_neg,
+    ray_box,
+    stack_cull,
+)
 from .interpreter import (
     axes_cylinder_sdf,
     brush_bank,
@@ -167,7 +185,64 @@ class MarchCull:
         return self.culled_sdf(v, arrays, preds, substs, self.counts)
 
 
-def make_march(scene: CompiledScene, config: RenderConfig):
+def _has_safe_proxies(scene: CompiledScene) -> bool:
+    """True when some brush carries a ``__proxy_fn__`` (a cheap lower bound
+    of its field) and every proxied brush sits at positive parity in the
+    CSG tree: under an odd number of NEGATEs a lower bound becomes an upper
+    bound, and the proxy march could step through a surface
+    (raymarch.py:88-118 of the JAX package)."""
+    proxied = [getattr(fn, "__proxy_fn__", None) is not None for fn in scene.brush_fns]
+    if not any(proxied):
+        return False
+    root, _ = build_tape_tree([tuple(int(v) for v in row) for row in scene.arrays.tape])
+    if root is None:
+        return False
+
+    def leaves(node):
+        if node.op == "leaf":
+            yield node
+        for child in node.children:
+            yield from leaves(child)
+
+    return not any(proxied[leaf.brush] and leaf.negated for leaf in leaves(push_neg(root)))
+
+
+def make_proxy_prepass(scene: CompiledScene, config: RenderConfig):
+    """Phase 1 of the proxy march (raymarch.py:121-163 of the JAX package):
+    ``prepass(origins, dirs f32[..., 3], arrays) -> (t0 f32[...], miss
+    bool[...])``.  Each ray sphere-traces the proxy scene (each proxied
+    brush replaced by its lower bound) and stops where the proxy dips under
+    epsilon: every true hit has ``sdf < eps``, hence ``proxy < eps``, so no
+    hit is stepped over.  A ray past ``max_distance`` is a miss; one out of
+    steps hands over where it stands."""
+    proxy_sdf = make_primary_sdf(scene, gizmo=config.gizmo, proxy=True)
+    eps, tol, max_d = config.sdf_epsilon, config.march_tolerance, config.max_distance
+
+    def prepass(origins, dirs, arrays: SceneArrays):
+        batch = dirs.shape[:-1]
+        r = dirs.reshape(-1, 3)
+        v = torch.broadcast_to(origins, r.shape).to(r.dtype).clone()
+        d = torch.zeros(r.shape[0], dtype=r.dtype, device=r.device)
+        miss = torch.zeros(d.shape, dtype=torch.bool, device=r.device)
+        live = torch.arange(d.shape[0], device=r.device)
+        for _ in range(config.max_steps):
+            if live.numel() == 0:
+                break
+            s = proxy_sdf(v[live], arrays) * tol
+            go = ~(s < eps)
+            adv, s = live[go], s[go]
+            v[adv] = v[adv] + s[:, None] * r[adv]
+            d_adv = d[adv] + s
+            d[adv] = d_adv
+            out = d_adv > max_d
+            miss[adv[out]] = True
+            live = adv[~out]
+        return d.reshape(batch), miss.reshape(batch)
+
+    return prepass
+
+
+def make_march(scene: CompiledScene, config: RenderConfig, field: str = "twin"):
     """``march(origins, dirs, arrays, return_steps=False, t0=None,
     return_closest=False) -> d``: signed hit distance along the
     (unnormalized) ray, -1 on a miss (k1.cl:420-470).  With
@@ -187,16 +262,24 @@ def make_march(scene: CompiledScene, config: RenderConfig):
     bounding spheres stop overlapping (``|s| + prev_|s| < last_step``),
     retracts the last step and drops that ray to plain sphere tracing
     (raymarch.py:252-336 and march_kernel.py:565-632 of the JAX package).
-    The field is the twin: this is the plain version of the kernels'
-    marches.  ``cull`` (a :class:`MarchCull`) evaluates the culled tape at
-    each step instead, as the culled renderer kernel does."""
-    sdf = make_primary_sdf(scene, gizmo=config.gizmo, field="twin")
+    ``field`` is "twin" (the plain version of the kernels' marches) or
+    "exact".  ``cull`` (a :class:`MarchCull`) evaluates the culled tape at
+    each step instead, as the culled renderer kernel does.
+
+    With ``config.march_proxy`` True and safe proxies
+    (:func:`_has_safe_proxies`) the march has two phases, as the JAX
+    package's make_march (raymarch.py:166-249): a ray without ``t0`` starts
+    from :func:`make_proxy_prepass`'s handoff, a proxy miss beyond
+    ``max_distance`` so that it is a miss before its first step."""
+    sdf = make_primary_sdf(scene, gizmo=config.gizmo, field=field)
     eps = config.sdf_epsilon
     tol = config.march_tolerance
     max_d = config.max_distance
     omega = float(config.march_overrelax)
     if omega > 1.0:
         warn_if_not_lipschitz(scene, "over-relaxed march")
+    prepass = (make_proxy_prepass(scene, config)
+               if config.march_proxy and _has_safe_proxies(scene) else None)
 
     def march(origins, dirs, arrays: SceneArrays, return_steps: bool = False, t0=None,
               return_closest: bool = False, cull: Optional[MarchCull] = None):
@@ -204,6 +287,8 @@ def make_march(scene: CompiledScene, config: RenderConfig):
         r = dirs.reshape(-1, 3)
         v = torch.broadcast_to(origins, r.shape).to(r.dtype).clone()
         d = torch.zeros(r.shape[0], dtype=r.dtype, device=r.device)
+        if prepass is not None and t0 is None:
+            t0 = prepass(origins, dirs, arrays)[0]
         if t0 is not None:
             # A copy: the march updates d in place.
             d = torch.broadcast_to(torch.as_tensor(t0, device=r.device), batch).to(r.dtype).flatten().clone()
@@ -416,13 +501,18 @@ def make_shade(scene: CompiledScene, config: RenderConfig, field: str = "exact")
     return shade
 
 
-def make_renderer(scene: CompiledScene, config: Optional[RenderConfig] = None):
+def make_renderer(scene: CompiledScene, config: Optional[RenderConfig] = None,
+                  field: str = "twin"):
     """``render(arrays, campos, rgt, upp, fwd, t0=None, cull_counts=None) ->
     f32[H, W, 3]`` linear RGB on the device of ``arrays``; wrap with
     :func:`to_u8` for the reference's byte pixels.  ``t0`` f32[H, W] is a
     per-pixel start parameter (see :func:`make_march`); a ray that stops at
-    its ``t0 > 0`` is shaded.  March, normals and shading ride the twin
-    field: the plain version of the fused renderer kernel.
+    its ``t0 > 0`` is shaded.  March, normals and shading ride ``field``:
+    the twin (the default) makes it the plain version of the fused renderer
+    kernel, whose normals are FD whatever ``config.normal_mode`` says, as
+    the JAX package's Pallas renderer's are; "exact" makes it the JAX
+    package's jnp renderer (raymarch.py:568-590), with
+    ``config.normal_mode``'s normals.
 
     With ``config.march_cull`` (and a tape that can be culled) it is the
     plain version of the culled kernel, at the kernel's tiles (warps,
@@ -433,12 +523,13 @@ def make_renderer(scene: CompiledScene, config: Optional[RenderConfig] = None):
     hit pixels' normal evaluations (``evals``), per group those that
     evaluated it (``group_evals``) and the tile culls (``chains``)."""
     config = config or RenderConfig()
-    march = make_march(scene, config)
-    field = make_primary_sdf(scene, gizmo=config.gizmo, field="twin")
-    normal_fn = make_normal_fn(field, epsilon=config.normal_epsilon)
-    shade = make_shade(scene, config, field="twin")
+    march = make_march(scene, config, field)
+    normal_fn = make_normal_fn(make_primary_sdf(scene, gizmo=config.gizmo, field=field),
+                               mode=config.normal_mode if field == "exact" else "fd",
+                               epsilon=config.normal_epsilon)
+    shade = make_shade(scene, config, field=field)
     culler = make_tape_culler(scene, gizmo=config.gizmo) if config.march_cull else None
-    culled_sdf = None if culler is None else make_culled_sdf(scene, culler, field="twin")
+    culled_sdf = None if culler is None else make_culled_sdf(scene, culler, field=field)
 
     def cull_for(o_proj, r_proj, t0, arrays, counts):
         """The frame's :class:`MarchCull` and the FD normal's culled field."""
@@ -622,7 +713,8 @@ def make_hierarchical_renderer(scene: CompiledScene, config: Optional[RenderConf
     prepass (:func:`make_cone_march`, slope :func:`cone_slope`) at
     1/``hierarchical_factor`` resolution hands each pixel a safe start
     parameter, from which :func:`make_renderer` marches.  The plain version
-    of the CUDA hierarchical renderer."""
+    of the CUDA hierarchical renderer, on the twin field: for Logo, the
+    baked letters."""
     config = config or RenderConfig()
     warn_if_not_lipschitz(scene, "hierarchical cone prepass")
     cone = make_cone_march(scene, config)
@@ -635,14 +727,105 @@ def to_u8(image):
     return torch.clamp(torch.trunc(255.0 * image), 0.0, 255.0).to(torch.uint8)
 
 
+def _compaction_eligible(scene: CompiledScene, config: RenderConfig) -> bool:
+    """The compacted renderer serves plain forward frames of a scene with
+    safe proxies, unless ``config.march_proxy`` is False
+    (raymarch.py:726-736 of the JAX package)."""
+    return (
+        config.march_proxy is not False
+        and not config.differentiable
+        and config.soft_silhouette_bandwidth <= 0
+        and _has_safe_proxies(scene)
+    )
+
+
+#: The compacted batch: survivors padded to a power of two, at least this.
+MIN_COMPACT_BATCH = 1024
+#: A padding ray's direction; it starts beyond ``max_distance``, so it is a
+#: miss before its first step and costs the march nothing.
+INERT_RAY = (0.0, 0.0, 1e-6)
+
+
+def make_compacted_renderer(scene: CompiledScene, config: Optional[RenderConfig] = None):
+    """``render(arrays, campos, rgt, upp, fwd) -> f32[H, W, 3]`` for a scene
+    with safe brush proxies (:func:`_has_safe_proxies`), on the exact field
+    (raymarch.py:739-844 of the JAX package):
+
+    1. :func:`make_proxy_prepass` marches every ray on the proxy scene; a
+       proxy miss is a pixel of ``miss_color`` and never touches the exact
+       brushes;
+    2. each survivor's handoff retreats by ``2*sdf_epsilon`` (not below 0),
+       so that phase 2 approaches the surface with its own steps;
+    3. the survivors are gathered into a batch padded to a power of two of
+       at least ``MIN_COMPACT_BATCH`` rays with inert padding rays
+       (``INERT_RAY``), and :func:`make_march` (``march_proxy`` off, the
+       exact field) marches it from ``o + t0*r``, giving ``dd`` per ray;
+    4. a ray with ``dd >= 0`` and ``t0 + max(dd, 0) > 0`` is shaded at
+       ``o + t0*r + max(dd, 0)*r`` (the reference's ``d == 0`` miss rule
+       applies to the whole parameter: a hit at the handoff is shaded),
+       with ``config.normal_mode``'s normals, and scattered back.
+
+    The JAX package jits each stage per batch size; the plain march here
+    drops finished rays itself, so the padding keeps the JAX package's
+    batch and buys no speed.  Normals and shading run on the survivors,
+    which are pointwise the same values as on the whole batch."""
+    config = config or RenderConfig()
+    prepass = make_proxy_prepass(scene, config)
+    march = make_march(scene, dataclasses.replace(config, march_proxy=False), field="exact")
+    normal_fn = make_normal_fn(make_primary_sdf(scene, gizmo=config.gizmo),
+                               mode=config.normal_mode, epsilon=config.normal_epsilon)
+    shade = make_shade(scene, config)
+
+    def render(arrays: SceneArrays, campos, rgt, upp, fwd):
+        device = arrays.ad.device
+        o_proj, rgt, upp, fwd = torch.as_tensor(camera_rows(campos, rgt, upp, fwd), device=device)
+        r_proj = project(ray_directions(config, device), rgt, upp, fwd).reshape(-1, 3)
+        miss_color = torch.tensor(config.miss_color, dtype=r_proj.dtype, device=device)
+        t0, miss = prepass(o_proj, r_proj, arrays)
+        t0 = torch.clamp(t0 - 2.0 * config.sdf_epsilon, min=0.0)
+        img = miss_color.expand(r_proj.shape).clone()
+        idx = torch.nonzero(~miss).squeeze(1)
+        n = idx.numel()
+        render.survivors = n
+        if n:
+            n_pad = max(MIN_COMPACT_BATCH, 1 << (n - 1).bit_length())
+            r_flat = torch.tensor(INERT_RAY, dtype=r_proj.dtype, device=device).repeat(n_pad, 1)
+            r_flat[:n] = r_proj[idx]
+            t0_flat = torch.zeros(n_pad, dtype=r_proj.dtype, device=device)
+            t0_flat[:n] = t0[idx]
+            o_shift = o_proj + t0_flat[:, None] * r_flat
+            # Padding rays start beyond max_distance: misses before a step.
+            start = torch.full_like(t0_flat, float("inf"))
+            start[:n] = 0.0
+            dd = march(o_shift, r_flat, arrays, t0=start)
+            dd, o_shift, t0_flat, r_flat = dd[:n], o_shift[:n], t0_flat[:n], r_flat[:n]
+            step = torch.clamp(dd, min=0.0)
+            shaded = (dd >= 0.0) & (t0_flat + step > 0.0)
+            p = o_shift + step[:, None] * r_flat
+            ctx = eval_context(scene, arrays, rgt=rgt, upp=upp, fwd=fwd)
+            color = shade(p, normal_fn(p, arrays), arrays, ctx)
+            img[idx] = torch.where(shaded[:, None], color, miss_color)
+        return img.reshape(config.height, config.width, 3)
+
+    render.survivors = 0
+    return render
+
+
 def make_scene_renderer(scene: CompiledScene, config: RenderConfig, device: torch.device):
     """``render(arrays, campos, rgt, upp, fwd) -> f32[H, W, 3]`` for
     ``device``, routed from the scene before anything is built
-    (raymarch.py:631-651 of the JAX package): on the card the CUDA renderer
-    when every brush and material the scene uses has a CUDA body (and, under
-    ``march_cull``, its CUDA interval twin; brushes_kernel.supports_scene),
-    else the plain renderer on the card; on the CPU the plain renderer.
-    ``render.engine`` names the route: "cuda" or "tape"."""
+    (raymarch.py:631-651 of the JAX package).  On the card: the CUDA
+    renderer when every brush and material the scene uses has a CUDA body
+    (and, under ``march_cull``, its CUDA interval twin;
+    brushes_kernel.supports_scene), for proxy scenes too, as the JAX
+    package's TPU route keeps its Pallas renderer.  Otherwise, on either
+    device, the plain route: the plain hierarchical or culled renderer
+    (the plain versions of those kernels, on the twin field) under
+    ``march_hierarchical`` or ``march_cull``, else the JAX package's
+    off-TPU route on the exact field: :func:`make_compacted_renderer` for a
+    scene with safe proxies (:func:`_compaction_eligible`), else
+    :func:`make_renderer` with ``field="exact"``.  ``render.engine`` names
+    the route: "cuda" or "tape"."""
     from .cuda.brushes_kernel import supports_scene
     from .cuda.march_kernel import make_cuda_hierarchical_renderer, make_cuda_renderer
 
@@ -654,9 +837,14 @@ def make_scene_renderer(scene: CompiledScene, config: RenderConfig, device: torc
     if cuda:
         render = (make_cuda_hierarchical_renderer if config.march_hierarchical
                   else make_cuda_renderer)(scene, config)
+    elif config.march_hierarchical:
+        render = make_hierarchical_renderer(scene, config)
+    elif config.march_cull:
+        render = make_renderer(scene, config)
+    elif _compaction_eligible(scene, config):
+        render = make_compacted_renderer(scene, config)
     else:
-        render = (make_hierarchical_renderer if config.march_hierarchical
-                  else make_renderer)(scene, config)
+        render = make_renderer(scene, config, field="exact")
     render.engine = "cuda" if cuda else "tape"
     return render
 
@@ -670,11 +858,12 @@ def render_scene(
 ):
     """One-shot viewport render with the default camera through
     :func:`make_scene_renderer`: the CUDA renderers on the card (the
-    default) for a scene with CUDA bodies, the plain renderer otherwise and
-    with ``device="cpu"``.  ``config.march_hierarchical`` takes the cone
-    prepass + ``t0`` renderer, otherwise the renderer marches exactly or,
-    with ``march_overrelax > 1``, over-relaxed.  ``arrays`` defaults to the
-    scene's own banks."""
+    default) for a scene with CUDA bodies; otherwise, and with
+    ``device="cpu"``, the plain route (the JAX package's off-TPU frames on
+    the exact field, or the plain hierarchical and culled renderers).
+    ``config.march_hierarchical`` takes the cone prepass + ``t0`` renderer,
+    otherwise the renderer marches exactly or, with ``march_overrelax > 1``,
+    over-relaxed.  ``arrays`` defaults to the scene's own banks."""
     device = resolve_device(device)
     camera = camera or Camera.initial()
     config = config or RenderConfig()

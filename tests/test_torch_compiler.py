@@ -114,8 +114,9 @@ def test_intersection_and_subtraction_tape_equal():
 
 
 def test_port_stands_alone_without_jax():
-    """Importing and running the port's CPU path with jax, designcsg_tpu and
-    designs unimportable."""
+    """Importing and running the port's CPU path, its shells (observability,
+    viewer, studio, cli) and one studio render of the new-design template,
+    with jax, designcsg_tpu and designs unimportable."""
     code = textwrap.dedent(
         """
         import sys
@@ -137,6 +138,12 @@ def test_port_stands_alone_without_jax():
         mesh, report = export_mesh(scene, export_config=cfg, autodetect_resolution=16,
                                    strategy="dense", device="cpu")
         assert report.num_triangles > 0
+        import tempfile
+        from designcsg_tpu_torch import cli, observability, studio, viewer
+        with tempfile.TemporaryDirectory() as tmp:
+            session = studio.StudioSession(studio.Workspace(tmp), width=32, height=24, device="cpu")
+            assert session.run_text(studio.NEW_DESIGN_TEMPLATE)
+            assert session.render_png()[1:4] == b"PNG"
         assert not any(m.split(".")[0] in ("jax", "designcsg_tpu", "designs")
                        for m, v in sys.modules.items() if v is not None)
         print("standalone ok")

@@ -713,3 +713,91 @@ def test_cone_and_hierarchical_frame_do_not_synchronize(design1, cuda_device):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+# -- slice 10: the shells, the compacted renderer, analytic normals and the
+# dynamic tape on the card (chip_smoke.py phase 8H at the full size).
+
+D1_SCRIPT = "from designcsg_tpu_torch.designs import design1\n\n\ndef build():\n    return design1.build()\n"
+
+
+def test_studio_on_the_card(cuda_device, tmp_path):
+    """A StudioSession on the card renders through the CUDA renderer: the
+    exact mode launches K2 once a frame, the fast mode the cone kernel and
+    K2 from its t0 plane; the export runs the grid kernel and K1's FD
+    form."""
+    from designcsg_tpu_torch.studio import StudioSession, Workspace
+
+    ws = Workspace(str(tmp_path / "ws"))
+    session = StudioSession(ws, width=160, height=120)
+    ws.write("d1", D1_SCRIPT)
+    assert session.run_design("d1") and session.engine == "cuda"
+    session.set_render_mode(exact=True)
+    before = dict(kbuild.LAUNCHES)
+    assert session.render().shape == (120, 160, 3)
+    assert kbuild.LAUNCHES["renderer"] == before.get("renderer", 0) + 1
+    session.set_render_mode(exact=False)
+    session.render()
+    assert kbuild.LAUNCHES["cone_march"] == before.get("cone_march", 0) + 1
+    assert kbuild.LAUNCHES["renderer_t0"] == before.get("renderer_t0", 0) + 1
+    assert session.start_export(str(tmp_path / "d1.stl"), grid_level=5)
+    session._export_thread.join(300)
+    status = session.export_status
+    assert status["state"] == "done" and status["fraction"] == 1.0 and status["triangles"] > 0
+    assert kbuild.LAUNCHES["point_eval_fd"] > before.get("point_eval_fd", 0)
+
+
+def test_orbit_frames_and_trace_on_the_card(design1, cuda_device, tmp_path):
+    """orbit_frames on the card equals render_scene from each camera bit for
+    bit, and profile_trace's Chrome trace names K2's kernel."""
+    import json
+    import os
+
+    from designcsg_tpu_torch.observability import TRACE_FILE, profile_trace
+    from designcsg_tpu_torch.ops.raymarch import render_scene
+    from designcsg_tpu_torch.viewer import orbit_frames
+
+    scene, _ = design1
+    config = RenderConfig(width=160, height=120)
+    frames = orbit_frames(scene, n_frames=2, config=config)
+    cam = Camera.initial()
+    for frame in frames:
+        assert np.array_equal(frame, render_scene(scene, camera=cam, config=config).cpu().numpy())
+        cam.orbit(np.pi, 0.0)
+    with profile_trace(str(tmp_path)):
+        render_scene(scene, config=config)
+    with open(os.path.join(str(tmp_path), TRACE_FILE)) as f:
+        assert any("render_kernel" in e.get("name", "") for e in json.load(f)["traceEvents"])
+
+
+def test_compacted_renderer_on_the_card(cuda_device):
+    """Logo's compacted frame on the card against make_renderer on the exact
+    field by the JAX package's rule (tests/test_raymarch.py:202-207)."""
+    from designcsg_tpu_torch.ops.raymarch import make_compacted_renderer, to_u8
+
+    scene = get_design("logo")
+    arrays = scene.arrays.to_torch(cuda_device)
+    config = RenderConfig(width=96, height=72)
+    cam = Camera.initial().as_arrays()
+    img_c = to_u8(make_compacted_renderer(scene, config)(arrays, *cam)).int()
+    img_p = to_u8(make_renderer(scene, config, field="exact")(arrays, *cam)).int()
+    hit_c, hit_p = (img_c < 250).any(-1), (img_p < 250).any(-1)
+    assert float((hit_c != hit_p).float().mean()) < 5e-3
+    assert float(((img_c - img_p).abs().amax(-1) > 8).float().mean()) < 0.03
+
+
+def test_analytic_normals_and_dynamic_tape_on_the_card(design1, cuda_device):
+    """Analytic normals of the plain tape on the card within 1e-5 of the
+    CPU's; the dynamic tape bit-equal to the staged tape on the card."""
+    from designcsg_tpu_torch.ops.interpreter import make_dynamic_primary_sdf, make_primary_sdf
+
+    scene, arrays = design1
+    pts = np.random.default_rng(5).uniform(-4, 4, (1 << 16, 3)).astype(np.float32)
+    card = BatchEvaluator(scene, use_kernels=False, normal_mode="analytic").eval_normal_at_points(pts)
+    cpu = BatchEvaluator(scene, device="cpu", normal_mode="analytic").eval_normal_at_points(pts)
+    assert np.abs(card - cpu).max() <= 1e-5
+    t = torch.from_numpy(pts).to(cuda_device)
+    for name in ("design1", "design2"):
+        sc = get_design(name)
+        a = sc.arrays.to_torch(cuda_device)
+        assert torch.equal(make_dynamic_primary_sdf(sc)(t, a), make_primary_sdf(sc)(t, a))

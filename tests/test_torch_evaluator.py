@@ -162,11 +162,15 @@ def test_gizmo_point_eval_matches_jax_pallas(name):
 
 
 def test_normal_modes():
+    """Both normal modes evaluate; the analytic one counts one tape
+    evaluation a normal, FD six (tests/test_torch_interpreter_rest.py holds
+    the analytic normals against JAX's)."""
     scene = get_design("design1")
-    assert BatchEvaluator(scene, device="cpu", normal_mode="fd").eval_normal_at_points(
-        np.array([[3.0, 0.0, 0.0]], np.float32)).shape == (1, 3)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        BatchEvaluator(scene, device="cpu", normal_mode="analytic")
+    pts = np.array([[3.0, 0.0, 0.0]], np.float32)
+    fd = BatchEvaluator(scene, device="cpu", normal_mode="fd")
+    analytic = BatchEvaluator(scene, device="cpu", normal_mode="analytic")
+    assert fd.eval_normal_at_points(pts).shape == analytic.eval_normal_at_points(pts).shape == (1, 3)
+    assert (fd.sdf_eval_count, analytic.sdf_eval_count) == (6, 1)
 
 
 def test_scene_without_cuda_bodies_takes_the_tape(monkeypatch):

@@ -65,8 +65,8 @@ def test_fd_normals_match_jax(scenes):
     ref = np.asarray(jn(jnp.asarray(pts), jscene.arrays))
     ours = tn(torch.from_numpy(pts), arrays.to_torch("cpu")).numpy()
     np.testing.assert_allclose(ours, ref, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tinterp.make_normal_fn(tinterp.make_primary_sdf(tscene), mode="analytic")
+    with pytest.raises(ValueError, match="normal mode"):
+        tinterp.make_normal_fn(tinterp.make_primary_sdf(tscene), mode="sobel")
 
 
 def test_brute_force_and_gizmo_match_jax(scenes):
