@@ -269,12 +269,22 @@ def cone_and_frame(n, s, a, cone, o_cone, rays, rows):
                                           enqueue_ms=enqueue_ms(lambda: hier(a, *cam)))
 
 
+def culled_source(s, gizmo):
+    """The unit that carries K3's culled grid: a unit of its own in a tree
+    whose point/grid unit makes no cull plan, else that unit."""
+    try:
+        return sdf_kernel_source(s, gizmo=gizmo, cull=True)
+    except TypeError:
+        return sdf_kernel_source(s, gizmo=gizmo)
+
+
 def grids(n, s, a):
     """K3 in its four forms and its levers."""
-    sdf_srcs = {"sdf": sdf_kernel_source(s), "sdf gizmo": sdf_kernel_source(s, gizmo=True)}
+    sdf_srcs = {"sdf": sdf_kernel_source(s), "sdf gizmo": sdf_kernel_source(s, gizmo=True),
+                "sdf cull": culled_source(s, False), "sdf gizmo cull": culled_source(s, True)}
     grid_units = {k: ("sdf", v) for k, v in sdf_srcs.items()}
     grid_units.update({f"{k} no bound": ("sdf", v.replace(GRID_LB, NO_GRID_LB))
-                       for k, v in sdf_srcs.items() if GRID_LB in v})
+                       for k, v in sdf_srcs.items() if GRID_LB in v and "cull" not in k})
     for k, v in sdf_srcs.items():
         for flips in CULL_LEVERS:
             if all(f"#define {flag}" in v for flag in flips.split("+")):
@@ -287,7 +297,7 @@ def grids(n, s, a):
                               ("grid cull", False, True), ("grid cull gizmo", True, True)):
         g = make_grid_eval(s, gizmo=gizmo, cull=cull_)
         kname = "grid_eval_cull_kernel" if cull_ else "grid_eval_kernel"
-        unit = "sdf gizmo" if gizmo else "sdf"
+        unit = ("sdf gizmo" if gizmo else "sdf") + (" cull" if cull_ else "")
         out[f"{n} {key}"] = dict(timed(lambda g=g: g(a, *GRID), kname, registers(grid_logs[unit], kname), 100),
                                  sass=sass("sdf", sdf_srcs[unit], kname))
         save(f"{n}_{key}", g(a, *GRID))
@@ -299,7 +309,7 @@ def grids(n, s, a):
             out[f"{n} {key} no launch bound"] = timed(
                 lambda g=g: g(a, *GRID), "grid_eval_kernel", registers(grid_logs[unit], "grid_eval_kernel"), 100)
     for key, gizmo in (("grid cull", False), ("grid cull gizmo", True)):
-        unit = "sdf gizmo" if gizmo else "sdf"
+        unit = "sdf gizmo cull" if gizmo else "sdf cull"
         for flips in CULL_LEVERS:
             if f"{unit} {flips}" not in grid_units:
                 continue

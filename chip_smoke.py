@@ -66,7 +66,21 @@ before each and read after:
   normal_mode="analytic")`` at 2^16 points near Design1's surface, held to
   K1's FD-form normals and to the same evaluation on the CPU; and the
   dynamic tape, bit-equal to the staged tape on Design1 and Design2 at
-  2^16 points.  It prints a ``slice10`` JSON line.
+  2^16 points.  It prints a ``slice10`` JSON line;
+* multi-device (phase 8I), as a world of one process over NCCL
+  (``make_mesh()`` on cuda:0): the sharded 640x480 exact and fast frames
+  bit-equal to ``render_scene``, ``shard_pointwise`` over a 2^20-point K1
+  query and the sharded corner provider bit-equal to K1 and K3, Design1's
+  256^3 ``active`` export with ``sharded=True`` giving the same triangles,
+  and a fit step with ``mesh=make_mesh()`` against the same step without;
+  it prints a ``parallel`` JSON line.
+
+Phase 6b (``capacity`` line) builds the capacity rings' units (the JAX
+package's 512-object gate and rings of 1,100 and 1,500 objects, whose banks
+lie in global memory) in phase 2's nvcc batch, prints each unit's nvcc
+seconds and bank placement (the 512-ring's under 120 s), and holds their
+K1, K1-FD, K3, K2, K5 and K4 against the plain versions at small shapes and
+the 1,100-ring's culled grid bit for bit against its unculled grid.
 
 It times every kernel and its plain version with CUDA events (and Design1's
 renderer built with and without FMA contraction against each other), and
@@ -149,6 +163,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from designcsg_tpu_torch import cli, native, studio, viewer
 from designcsg_tpu_torch.camera import Camera
@@ -182,6 +197,8 @@ from designcsg_tpu_torch.ops.cuda.tape import (
     march_kernel_source,
     ray_march_kernel_source,
     sdf_kernel_source,
+    tape_qualifier,
+    unit_bank,
 )
 from designcsg_tpu_torch.observability import TRACE_FILE
 from designcsg_tpu_torch.ops.interpreter import (
@@ -204,11 +221,14 @@ from designcsg_tpu_torch.ops.raymarch import (
     render_scene,
     to_u8,
 )
+from designcsg_tpu_torch.parallel.export import make_sharded_corner_provider
 from designcsg_tpu_torch.parallel.fit import make_fit_harness
+from designcsg_tpu_torch.parallel.mesh import make_mesh
+from designcsg_tpu_torch.parallel.render import make_sharded_renderer, shard_pointwise
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
-from torch_scenes import custom_brush_scene, many_groups_scene  # noqa: E402
+from torch_scenes import custom_brush_scene, many_groups_scene, ring_scene  # noqa: E402
 DESIGNS = ("design1", "design2", "logo")
 GOLDENS = ("design1", "design2")
 
@@ -372,10 +392,10 @@ def grid_ranges(scene, nz: int, ny: int, nx: int) -> int:
     """The z ranges the unculled grid kernel cuts an (nz, ny, nx) slab into
     on this card (csrc/sdf_kernels.cu grid_eval_z_ranges, from the unit's
     occupancy): each makes its columns' terms."""
-    lib = kbuild.load("sdf", sdf_kernel_source(scene))
+    lib = kbuild.load("sdf", sdf_kernel_source(scene), torch.device("cuda", 0))
     ranges, zper = ctypes.c_int(), ctypes.c_int()
     kbuild.check_call("grid_eval_z_ranges", lib.grid_eval_z_ranges(
-        nz, ny, nx, ctypes.byref(ranges), ctypes.byref(zper)))
+        nz, ny, nx, 0, ctypes.byref(ranges), ctypes.byref(zper)))
     return ranges.value
 
 
@@ -947,6 +967,235 @@ def slice10_phase(scenes, arrays, kernels, smi) -> dict:
     return out
 
 
+# Item 13's capacity rings (tests/test_capacity.py): 512 objects, the JAX
+# package's own gate, and 1,100 and 1,500, past the static limits of a shared
+# (1,024 objects) and a constant (1,365) bank, so their banks lie in global
+# memory (ops/cuda/tape.py bank_placement).  Small shapes: the plain tape of
+# 1,500 objects is some 20,000 PyTorch operations an evaluation.
+RINGS = (512, 1500)
+RING_CULLED = 1100
+RING_EXACT = RenderConfig(width=48, height=32, max_steps=32)  # test_capacity.py:74
+# The cone on 48x32 block-centre rays: a 240x160 frame at F = 5.
+RING_CONE = RenderConfig(width=240, height=160, max_steps=32, march_overrelax=1.6,
+                         march_hierarchical=True)
+RING_FIT = dataclasses.replace(FIT, width=48, height=32, max_steps=32)
+RING_COMPILE_BUDGET_S = 120.0  # tests/test_capacity.py:33
+# A long tape without runs: 100 dented boxes, 301 slots outside loops, past
+# tape.py's TAPE_INLINE_MAX_SLOTS, so its tape and shading are called
+# functions (HD_CALL) rather than inlined at each call site.
+CALLED_PARTS = 100
+RING_POINTS = 1 << 14
+RING_SLAB = (33, 65)  # planes, then a plane's side
+
+
+def capacity_scenes() -> dict:
+    """{label: scene} of phase 6b: the rings of RINGS and the CALLED_PARTS
+    dented boxes (torch_scenes many_groups_scene)."""
+    scenes = {f"ring{n}": ring_scene(n) for n in RINGS}
+    scenes[f"parts{CALLED_PARTS}"] = many_groups_scene(CALLED_PARTS)
+    return scenes
+
+
+def capacity_units():
+    """The capacity scenes' units for phase 2's nvcc batch: K1/K3 (and K1's
+    FD form), K2, K5 and K4 of each scene of :func:`capacity_scenes`, and
+    the 1,100-ring's point/grid unit with and without the culled grid
+    (K7)."""
+    units = {}
+    for label, scene in capacity_scenes().items():
+        units[f"{label} sdf"] = ("sdf", sdf_kernel_source(scene))
+        units[f"{label} sdf_fd"] = ("sdf_fd", sdf_kernel_source(scene))
+        units[f"{label} march"] = ("march", march_kernel_source(scene, RING_EXACT))
+        units[f"{label} cone"] = ("cone", cone_kernel_source(scene, RING_CONE))
+        units[f"{label} ray_march"] = ("ray_march", ray_march_kernel_source(scene, RING_FIT))
+    scene = ring_scene(RING_CULLED)
+    units[f"ring{RING_CULLED} sdf"] = ("sdf", sdf_kernel_source(scene))
+    units[f"ring{RING_CULLED} sdf cull"] = ("sdf", sdf_kernel_source(scene, cull=True))
+    return units
+
+
+def capacity_phase(units, dev) -> dict:
+    """Phase 6b: each capacity unit's nvcc seconds and bank placement (the
+    512-ring's within the JAX package's 120 s), each ring kernel (and each
+    kernel of CALLED_PARTS boxes, whose tape is called) against its
+    plain version at small shapes (2^14 points, one 33x65x65 slab, a 48x32
+    frame, 48x32 cone rays, a 48x32 fit march) by the rules of the designs'
+    phases, and the 1,100-ring's culled grid bit-equal to its unculled
+    grid.  The kernels' times are printed; speed is not a target here."""
+    start = time.time()
+    out = {"units": {}, "rings": {}}
+    # A unit's seconds are the wall time of its nvcc inside phase 2's
+    # concurrent batch, an upper bound on its own compile time; a unit
+    # already on disk from an earlier run in this checkout was not compiled.
+    out["nvcc_s_is"] = "wall seconds inside phase 2's concurrent nvcc batch"
+    for label, (_, source) in units.items():
+        seconds = kbuild.BUILD_SECONDS.get(label)
+        out["units"][label] = dict(nvcc_s=seconds, bank=unit_bank(source))
+        if label.startswith("ring512 ") and seconds is None:
+            print(f"  {label}: loaded from an earlier run's build, nvcc not timed "
+                  f"(bank: {unit_bank(source)})")
+        elif label.startswith("ring512 "):
+            check(seconds < RING_COMPILE_BUDGET_S,
+                  f"{label} built by nvcc in {seconds:.1f} s of batch wall time "
+                  f"< {RING_COMPILE_BUDGET_S:.0f} s (bank: {unit_bank(source)})")
+    cam = Camera.initial().as_arrays()
+    rng = np.random.default_rng(13)
+    # Points and a slab across the ring (radius 7.5 in the xz plane, spheres
+    # of radius 1: the compiler's frames scale the design by 5).
+    nz, side = RING_SLAB
+    glo, gcell = np.array([-8.5, -8.5, -1.0], np.float32), np.float32(17.0 / (side - 1))
+    scenes = capacity_scenes()
+    check(all(tape_qualifier(scene) == ("HD_CALL" if label.startswith("parts") else "HD")
+              for label, scene in scenes.items()),
+          f"parts{CALLED_PARTS}'s tape is called (HD_CALL), the rings' inlined (HD)")
+    for name, scene in scenes.items():
+        n = name.removeprefix("ring")
+        a = scene.arrays.to_torch(dev)
+        row = out["rings"][n] = {}
+        pts = rng.uniform(-9.0, 9.0, (RING_POINTS, 3)) * [1.0, 0.2, 1.0]
+        pts = torch.from_numpy(pts.astype(np.float32)).to(dev)
+        pe, ge = make_point_eval(scene), make_grid_eval(scene)
+        grid = (a, glo, gcell, 0.0, nz, side)
+        (sdf, nrm), (sdf_ref, nrm_ref) = pe.fd(pts, a), pe.fd.plain(pts, a)
+        for kernel, fn, got, ref in (
+            ("point_eval", lambda: pe(pts, a), pe(pts, a), pe.plain(pts, a)),
+            ("point_eval_fd sdf", lambda: pe.fd(pts, a), sdf, sdf_ref),
+            ("point_eval_fd normal", None, nrm, nrm_ref),
+            ("grid_eval", lambda: ge(*grid), ge(*grid), ge.plain(*grid)),
+        ):
+            torch.cuda.synchronize()
+            err = (got - ref).abs()
+            check(bool(torch.isfinite(got).all()) and bool((err <= 1e-5 + 1e-6 * ref.abs()).all()),
+                  f"{name} {kernel} {tuple(got.shape)} max|d| = {float(err.max()):.3g} within "
+                  f"1e-5 + 1e-6|ref| of its plain version")
+            row[kernel] = dict(max_abs_err=float(err.max()))
+            if fn is not None:
+                row[kernel]["ms"] = cuda_ms(fn, 5)
+        render = make_cuda_renderer(scene, RING_EXACT)
+        img, ref = render(a, *cam), render.plain(a, *cam)
+        row["renderer"] = dict(max_abs_err=check_render(f"{name} renderer 48x32", img, ref),
+                               ms=cuda_ms(lambda: render(a, *cam), 5))
+        check(bool((img < 0.99).any()), f"{name} renderer: something rendered")
+        cone = make_cuda_cone_march(scene, RING_CONE)
+        o, rays = coarse_rays(RING_CONE, cam, dev)
+        t_safe, t_ref = cone(a, o, rays), cone.plain(a, o, rays)
+        row["cone_march"] = dict(
+            max_abs_err=check_handoffs(f"{name} cone_march {tuple(rays.shape[:2])}", t_safe, t_ref,
+                                       RING_CONE.max_distance),
+            ms=cuda_ms(lambda: cone(a, o, rays), 5))
+        march = make_cuda_ray_march(scene, RING_FIT)
+        o_fit, r_fit = fit_rays(RING_FIT, cam, dev)
+        row["ray_march"] = dict(
+            max_abs_err=check_ray_march(f"{name} ray_march 48x32", march(a, o_fit, r_fit),
+                                        march.plain(a, o_fit, r_fit)),
+            ms=cuda_ms(lambda: march(a, o_fit, r_fit), 5))
+    scene = ring_scene(RING_CULLED)
+    a = scene.arrays.to_torch(dev)
+    grid = (a, glo, gcell, 0.0, nz, side)
+    unculled, culled = make_grid_eval(scene), make_grid_eval(scene, cull=True)
+    check(culled.culler is not None, f"ring{RING_CULLED} has a cull plan")
+    got, ref = culled(*grid), unculled(*grid)
+    check(bool(torch.equal(got, ref)),
+          f"ring{RING_CULLED} grid_eval_cull {tuple(got.shape)} bit-equal to the unculled grid kernel")
+    err = (ref - unculled.plain(*grid)).abs()
+    check(bool((err <= 1e-5 + 1e-6 * ref.abs()).all()),
+          f"ring{RING_CULLED} grid_eval max|d| = {float(err.max()):.3g} within 1e-5 + 1e-6|ref| "
+          f"of its plain version")
+    out["rings"][RING_CULLED] = dict(
+        grid_eval_cull=dict(bit_equal=True, ms=cuda_ms(lambda: culled(*grid), 5)),
+        grid_eval=dict(max_abs_err=float(err.max()), ms=cuda_ms(lambda: unculled(*grid), 5)))
+    out["phase_seconds"] = time.time() - start
+    return out
+
+
+def parallel_phase(dev) -> dict:
+    """Phase 8I, item 12's main path: a world of one process over NCCL
+    (``make_mesh()`` on cuda:0, no launcher) driving the sharded entry
+    points at full size, each against the same call unsharded: the 640x480
+    exact and fast frames (K2; K5 and K2 from its t0 plane) bit-equal to
+    ``render_scene``, ``shard_pointwise`` over a 2^20-point K1 query and the
+    sharded corner provider against K3, bit-equal; Design1's 256^3
+    ``active`` export with ``sharded=True`` giving the same triangles; one
+    fit step with ``mesh=make_mesh()`` against the same step without (loss
+    rtol 1e-6, gradients atol 1e-6).  Each sharded call's launches are
+    counted alone, set to 0 just before it and read just after, and must
+    equal those of its unsharded reference."""
+    start = time.time()
+    out = {}
+    scene = get_design("design1")
+    a = scene.arrays.to_torch(dev)
+    cam = Camera.initial().as_arrays()
+    mesh = make_mesh()
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1 and mesh.size() == 1,
+          f"a world of one over {dist.get_backend()}: mesh {mesh}")
+    launches = {}
+
+    def counted(label, sharded_fn, single_fn, expect=None):
+        """Count each sharded call's launches alone (set to 0 just before it,
+        read just after), then its unsharded reference's: a world of one runs
+        the same kernels as the single process, so the counts must agree."""
+        got, counts, seconds = counted_run(sharded_fn)
+        ref, ref_counts, ref_seconds = counted_run(single_fn)
+        out[f"{label} seconds"] = dict(sharded=seconds, single=ref_seconds)
+        check(counts == ref_counts and (expect is None or counts == expect),
+              f"{label}: sharded launches {counts} == unsharded {ref_counts}"
+              + ("" if expect is None else f" == {expect}"))
+        launches[label] = counts
+        return got, ref
+
+    for label, config, expect in (("exact", EXACT, {"renderer": 1}),
+                                  ("fast", HIERARCHICAL, {"cone_march": 1, "renderer_t0": 1})):
+        sharded, single = counted(f"{label} frame", lambda: make_sharded_renderer(scene, config, mesh)(
+            scene.arrays, *cam), lambda: render_scene(scene, config=config), expect)
+        check(torch.equal(sharded, single) and tuple(sharded.shape) == (480, 640, 3),
+              f"sharded {label} 640x480 frame bit-equal to render_scene")
+    half = scene.export_config.bounding_box_half_diameter / 2.0
+    pts = torch.from_numpy(np.random.default_rng(12).uniform(-half, half, (1 << 20, 3))
+                           .astype(np.float32)).to(dev)
+    pe = make_point_eval(scene)
+    sharded, single = counted("points", lambda: shard_pointwise(pe, mesh)(pts, a), lambda: pe(pts, a),
+                              {"point_eval": 1})
+    check(torch.equal(sharded, single), "shard_pointwise over a 2^20-point K1 query bit-equal to K1")
+    res, box = 256, scene.export_config.bounding_box_half_diameter
+    lo32, cell32 = np.full(3, -box, np.float32), np.float32(2.0 * box / res)
+    corners, direct = counted(
+        "corners", lambda: make_sharded_corner_provider(scene, np.zeros(3), box, res, mesh)(0, 32),
+        lambda: make_grid_eval(scene)(a, lo32, cell32, 0.0, 33, res + 1).cpu().numpy(), {"grid_eval": 1})
+    check(corners.shape == (33, res + 1, res + 1) and np.array_equal(corners, direct),
+          f"sharded corner provider {corners.shape} bit-equal to K3")
+    cfg256 = dataclasses.replace(scene.export_config, grid_level=8)
+    (m_sharded, _), (m_single, _) = counted(
+        "export", lambda: export_mesh(scene, cfg256, strategy="active", sharded=True),
+        lambda: export_mesh(scene, cfg256, strategy="active"))
+    check(launches["export"].get("grid_eval", 0) > 0 and launches["export"].get("point_eval_fd", 0) > 0,
+          f"the sharded export launched grid_eval and point_eval_fd: {launches['export']}")
+    check(m_sharded.num_faces == m_single.num_faces > 0
+          and np.array_equal(m_sharded.faces, m_single.faces)
+          and np.array_equal(m_sharded.vertices, m_single.vertices),
+          f"256^3 active export with sharded=True: the same {m_sharded.num_faces} triangles")
+    start_pos = np.asarray(scene.arrays.position).copy()
+    start_pos[1:, 0] += 0.05
+
+    def fit_step(harness):
+        target = harness.render_target(scene.arrays, *cam)
+        state, loss = harness.step_fn(harness.init({"position": start_pos}), target, *cam)
+        return float(loss), state.params["position"].grad.detach().clone()
+
+    (l_mesh, g_mesh), (l_single, g_single) = counted(
+        "fit step", lambda: fit_step(make_fit_harness(scene, FIT, mesh=mesh)),
+        lambda: fit_step(make_fit_harness(scene, FIT)))
+    check(launches["fit step"].get("ray_march", 0) > 0,
+          f"the sharded fit step launched ray_march: {launches['fit step']}")
+    grad_err = float((g_mesh - g_single).abs().max())
+    check(abs(l_mesh - l_single) <= 1e-6 * abs(l_single) and grad_err <= 1e-6,
+          f"fit step with mesh=make_mesh(): loss {l_mesh:.9g} vs {l_single:.9g} (rtol 1e-6), "
+          f"gradients max|d| {grad_err:.3g} <= 1e-6")
+    dist.destroy_process_group()
+    out.update(launches=launches, fit_loss=dict(mesh=l_mesh, single=l_single), fit_grad_max_abs=grad_err,
+               triangles=m_sharded.num_faces, phase_seconds=time.time() - start)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -988,11 +1237,15 @@ def main() -> int:
     units["logo march near cull"] = ("march", march_kernel_source(scenes["logo"], NEAR_CULLED))
     for name, scene in scenes.items():
         units[f"{name} sdf gizmo"] = ("sdf", sdf_kernel_source(scene, gizmo=True))
+        # K3's culled grid: its own unit, the only one that makes a cull plan.
+        units[f"{name} sdf cull"] = ("sdf", sdf_kernel_source(scene, cull=True))
+        units[f"{name} sdf gizmo cull"] = ("sdf", sdf_kernel_source(scene, gizmo=True, cull=True))
         # K1's FD form: the same sources built without FMA contraction.
         units[f"{name} sdf_fd"] = ("sdf_fd", sdf_kernel_source(scene))
         units[f"{name} sdf_fd gizmo"] = ("sdf_fd", sdf_kernel_source(scene, gizmo=True))
     many = many_groups_scene()
     units["many sdf"] = ("sdf", sdf_kernel_source(many))
+    units["many sdf cull"] = ("sdf", sdf_kernel_source(many, cull=True))
     for label, config in (("exact", EXACT), ("cull", CULLED["renderer_cull"][0]),
                           ("cull dynamic", CULLED["renderer_cull_dynamic"][0])):
         units[f"many march {label}"] = ("march", march_kernel_source(many, config))
@@ -1002,6 +1255,9 @@ def main() -> int:
         "ray_march", ray_march_kernel_source(scenes["design1"], cli.fit_config(64, 48)))
     # Timing phase only: Design1's renderer with FMA contraction.
     units["design1 march_fma"] = ("march_fma", march_kernel_source(scenes["design1"], EXACT))
+    # Phase 6b's capacity rings.
+    ring_units = capacity_units()
+    units.update(ring_units)
     t0 = time.time()
     logs = kbuild.build(units)
     print(f"  built {len(units)} units in {time.time() - t0:.1f} s")
@@ -1028,9 +1284,9 @@ def main() -> int:
         row = dict(cone_warps=cone_warps(scene, HIERARCHICAL.gizmo), column_ops=column_ops(scene))
         for label, unit, source, kernel in (
             ("grid", "sdf", sdf_kernel_source(scene), "grid_eval_kernel"),
-            ("grid_cull", "sdf", sdf_kernel_source(scene), "grid_eval_cull_kernel"),
+            ("grid_cull", "sdf cull", sdf_kernel_source(scene, cull=True), "grid_eval_cull_kernel"),
             ("grid_gizmo", "sdf gizmo", sdf_kernel_source(scene, gizmo=True), "grid_eval_kernel"),
-            ("grid_cull_gizmo", "sdf gizmo", sdf_kernel_source(scene, gizmo=True),
+            ("grid_cull_gizmo", "sdf gizmo cull", sdf_kernel_source(scene, gizmo=True, cull=True),
              "grid_eval_cull_kernel"),
             ("cone", "cone", cone_kernel_source(scene, HIERARCHICAL), "cone_march_kernel"),
         ):
@@ -1406,6 +1662,10 @@ def main() -> int:
 
     launches = {}  # (kernel, design) -> launches on its main path
 
+    phase("6b. capacity (item 13): the 512-, 1,100- and 1,500-object rings' kernels vs plain, "
+          "each unit's nvcc seconds and bank placement")
+    print(json.dumps({"capacity": capacity_phase(ring_units, dev)}))
+
     phase("7. main path A, Design1: render, point eval, k1-field queries, bench's 512^3 active "
           "export (launches counted)")
     kbuild.LAUNCHES.clear()
@@ -1771,7 +2031,14 @@ def main() -> int:
           "renderer on Logo, analytic normals and the dynamic tape (launches counted per part)")
     print(json.dumps({"slice10": slice10_phase(scenes, arrays, kernels, smi)}))
 
+    phase("8I. item 12: a world of one over NCCL, the sharded frames, points, corners, export "
+          "and fit step against the unsharded calls (launches counted)")
+    print(json.dumps({"parallel": parallel_phase(dev)}))
+
     phase("9. timing (CUDA events, after warm-up)")
+    # Each plain version is timed by one run (it was a warm-up and two or
+    # three runs; the 640x480 plain frames took most of the script's time):
+    # the plain versions are no yardstick of speed.
     frames = {}
     for name, scene in scenes.items():
         k, a, x = kernels[name], arrays[name], inputs[name]
@@ -1787,7 +2054,7 @@ def main() -> int:
         r[("point_eval", name)].update(
             ms=cuda_ms(lambda: k["point_eval"](pts, a), 100),
             enqueue_ms=enqueue_ms(lambda: k["point_eval"](pts, a)),
-            plain_ms=cuda_ms(lambda: k["point_eval"].plain(pts, a), 3),
+            plain_ms=cuda_ms(lambda: k["point_eval"].plain(pts, a), 1, warmup=0),
         )
         r[("point_eval", name)].update(
             zip(("bound_ms", "bound_by"), bound_ms(16 * n_pts + tables, ops * n_pts)), tape_evals=n_pts)
@@ -1796,7 +2063,7 @@ def main() -> int:
         r[("grid_eval", name)].update(
             ms=cuda_ms(lambda: k["grid_eval"](*grid), 100),
             enqueue_ms=enqueue_ms(lambda: k["grid_eval"](*grid)),
-            plain_ms=cuda_ms(lambda: k["grid_eval"].plain(*grid), 3),
+            plain_ms=cuda_ms(lambda: k["grid_eval"].plain(*grid), 1, warmup=0),
         )
         # K3's work is its column form's (column_ops): per point the tape
         # with the hoisted slots' frame rows, per column the hoisted terms,
@@ -1818,7 +2085,7 @@ def main() -> int:
         ):
             calls[kernel] = (lambda fn=fn, args=args: fn(*args), kname)
             r[(kernel, name)].update(ms=cuda_ms(calls[kernel][0], 100), enqueue_ms=enqueue_ms(calls[kernel][0]),
-                                     plain_ms=cuda_ms(lambda fn=fn, args=args: fn.plain(*args), 3),
+                                     plain_ms=cuda_ms(lambda fn=fn, args=args: fn.plain(*args), 1, warmup=0),
                                      tape_evals=n)
             r[(kernel, name)].update(zip(("bound_ms", "bound_by"), bound_ms(n_bytes, n_ops)))
         # K1's FD form at the same points: seven tape evaluations and the FD
@@ -1828,7 +2095,7 @@ def main() -> int:
             fd = k[kernel]
             calls[kernel] = (lambda fd=fd: fd(pts, a), "point_eval_fd_kernel")
             r[(kernel, name)].update(ms=cuda_ms(calls[kernel][0], 50), enqueue_ms=enqueue_ms(calls[kernel][0]),
-                                     plain_ms=cuda_ms(lambda fd=fd: fd.plain(pts, a), 2),
+                                     plain_ms=cuda_ms(lambda fd=fd: fd.plain(pts, a), 1, warmup=0),
                                      tape_evals=7 * n_pts)
             r[(kernel, name)].update(zip(("bound_ms", "bound_by"),
                                          bound_ms(28 * n_pts + tables, per_point * n_pts)))
@@ -1850,7 +2117,7 @@ def main() -> int:
             r[(kernel, name)].update(
                 ms=cuda_ms(call, 20),
                 enqueue_ms=enqueue_ms(call),
-                plain_ms=cuda_ms(lambda: plain(a, *cam, t0=t0), 2),
+                plain_ms=cuda_ms(lambda: plain(a, *cam, t0=t0), 1, warmup=0),
             )
             d, steps = make_march(scene, config)(rows[0], r_proj, a, return_steps=True, t0=t0)
             evals = int(steps.sum()) + 6 * int((d > 0).sum())
@@ -1866,7 +2133,7 @@ def main() -> int:
         r[("cone_march", name)].update(
             ms=cuda_ms(lambda: cone(a, o_proj, rays), 50),
             enqueue_ms=enqueue_ms(lambda: cone(a, o_proj, rays)),
-            plain_ms=cuda_ms(lambda: cone.plain(a, o_proj, rays), 2),
+            plain_ms=cuda_ms(lambda: cone.plain(a, o_proj, rays), 1, warmup=0),
         )
         _, steps = cone.plain(a, o_proj, rays, return_steps=True)
         n_rays = rays.numel() // 3
@@ -1975,7 +2242,7 @@ def main() -> int:
             hierarchical_single_ms=single_ms(lambda: hier(a, *cam)),
             hierarchical_device_ms=sum(v["mean_ms"] for v in frame_kernels.values()),
             hierarchical_kernel_records=frame_kernels,
-            hierarchical_plain_ms=cuda_ms(lambda: hier.plain(a, *cam), 2),
+            hierarchical_plain_ms=cuda_ms(lambda: hier.plain(a, *cam), 1, warmup=0),
         )
         if scene.extras:
             # A model, not a measurement: the time K6's table reads alone

@@ -42,9 +42,10 @@ BUILTIN = ("design1", "design2", "logo")
 SDF_FIELDS = {"auto": None, "baked": True, "exact": False}
 
 # Commands of the JAX CLI not ported yet, with the ROADMAP.md item that
-# brings each.
+# brings each: ``bench``, the last module of the port, with the benchmark
+# that will measure it.
 UNPORTED = {
-    "bench": "queue 1, item 11 (no benchmark of the port yet)",
+    "bench": "queue 1, item 11's rest (no benchmark of the port yet)",
 }
 
 

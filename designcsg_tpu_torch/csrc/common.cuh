@@ -12,17 +12,32 @@
 
 #ifdef __CUDACC__
 #define HD __host__ __device__ __forceinline__
+// A function that every call site calls, where a copy at each would make
+// the unit too large for the compiler (ops/cuda/tape.py tape_qualifier).
+#define HD_CALL __host__ __device__ __noinline__
 #else
 #define HD inline
+#define HD_CALL inline
 #endif
 
 constexpr float MAX_DISTANCE = 64.0f;
 constexpr float INITIAL_SCALE = 5.0f;
 constexpr float AXES_RADIUS = 0.015f;
 constexpr float AXES_SHADE_RADIUS = 0.025f;
-// Floats per object in the bank copy a kernel keeps in shared memory:
-// position, right, up, forward (reciprocal frame rows), 3 each.
+// Floats per object in the interleaved bank a kernel reads: position,
+// right, up, forward (reciprocal frame rows), 3 each.
 constexpr int BANK_STRIDE = 12;
+
+// Word ``i`` of the bank row ``o``.  Where the bank lies in global memory
+// (BANK_GLOBAL) the read goes through the read-only data cache; the lanes of
+// a warp read the same word at once, which L1 serves as a broadcast.
+HD float bank_word(const float* o, int i) {
+#if defined(__CUDA_ARCH__) && BANK_GLOBAL
+    return __ldg(o + i);
+#else
+    return o[i];
+#endif
+}
 
 struct Rgb {
     float r, g, b;
@@ -89,10 +104,10 @@ HD float madd(float a, float b, float c) {
 // before; built without contraction every product and sum rounds on its
 // own, in that sum's order.
 HD void frame_terms(float x, float y, const float* o, float* h) {
-    const float dx = sub_rn(x, o[0]), dy = sub_rn(y, o[1]);
-    h[0] = madd(dx, o[3], mul_rn(dy, o[4]));
-    h[1] = madd(dx, o[6], mul_rn(dy, o[7]));
-    h[2] = madd(dx, o[9], mul_rn(dy, o[10]));
+    const float dx = sub_rn(x, bank_word(o, 0)), dy = sub_rn(y, bank_word(o, 1));
+    h[0] = madd(dx, bank_word(o, 3), mul_rn(dy, bank_word(o, 4)));
+    h[1] = madd(dx, bank_word(o, 6), mul_rn(dy, bank_word(o, 7)));
+    h[2] = madd(dx, bank_word(o, 9), mul_rn(dy, bank_word(o, 10)));
 }
 
 // IEEE-rounded quotient and square root, whatever the build's flags.
@@ -170,6 +185,23 @@ HD float gizmo_sdf(float x, float y, float z) {
 }
 
 #ifdef __CUDACC__
+// Make ``device`` the current card of this unit's runtime before a host
+// function's first runtime call.  nvcc links the CUDA runtime into every
+// unit statically, so each unit keeps a current device of its own, apart
+// from PyTorch's: every launcher is told the card of its tensors.
+static int use_device(int device) { return (int)cudaSetDevice(device); }
+
+// Every launcher takes the scene's banks (pos, right, up, fwd), its
+// arbitrary data ``ad`` and extra tables ``ex``, the launch's interleaved
+// bank buffer ``gbank`` (BANK_GLOBAL only, else null), the card of its
+// tensors and the stream; it returns a cudaError_t.
+#define SCENE_PARAMS                                                                     \
+    const void *pos, const void *right, const void *up, const void *fwd, const void *ad, \
+        const void *ex, void *gbank, int device, void *stream
+#define SCENE_ARGS                                                                        \
+    (const float*)pos, (const float*)right, (const float*)up, (const float*)fwd,          \
+        (const float*)ad, (const float*)ex, (const float*)gbank
+
 // Copy the four object banks into the block's shared bank, interleaved per
 // object.  Every thread of the block must call it.
 __device__ __forceinline__ void load_bank(float* s_bank, const float* pos, const float* right,
@@ -186,76 +218,108 @@ __device__ __forceinline__ void load_bank(float* s_bank, const float* pos, const
     __syncthreads();
 }
 
-// Where a kernel reads the object bank (BANK_CONSTANT, generated per unit).
+// The interleaved bank (BANK_STRIDE floats an object) of the four bank
+// arrays, written to ``dst`` in global memory by one block.
+__global__ void interleave_bank_kernel(const float* __restrict__ pos,
+                                       const float* __restrict__ right,
+                                       const float* __restrict__ up,
+                                       const float* __restrict__ fwd, float* __restrict__ dst) {
+    for (int i = threadIdx.x; i < N_OBJ * 3; i += blockDim.x) {
+        const int row = (i / 3) * BANK_STRIDE + i % 3;
+        dst[row] = pos[i];
+        dst[row + 3] = right[i];
+        dst[row + 6] = up[i];
+        dst[row + 9] = fwd[i];
+    }
+}
+
+// Where a kernel reads the object bank (BANK_CONSTANT and BANK_GLOBAL,
+// generated per unit by ops/cuda/tape.py bank_placement, from the bytes
+// each placement needs).  A kernel takes the bank through
+// SCENE_BANK(name, lane_name, gbank, pos, right, up, fwd): ``name`` for its
+// warp-uniform reads, ``lane_name`` for reads whose row differs between the
+// lanes of a warp (the lane chain of the cull, interval.cuh), ``gbank`` the
+// launch's interleaved bank in global memory (null unless BANK_GLOBAL).
 //
-// 0: a copy in the block's shared memory (load_bank).  Every lane reads the
-//    same word at the same moment, a broadcast, but through an LDS into a
-//    register; inside a march loop the compiler hoists those loads out of
-//    the loop, so the bank of every live object stays in registers for the
-//    whole march (Design1's fit march: 149 registers, PERF.md).
-// 1: ``c_bank`` in constant memory, where an FP32 instruction takes a bank
-//    word as an operand (c[0x3][...]) and no register holds it.  The
-//    launcher fills it on the launch's stream before the kernel, device to
-//    device (``prepare_bank``: one tiny interleaving kernel into ``g_bank``
-//    and one copy to the symbol), so the banks may change on the card
-//    between launches, as the fit's do, with no host copy and no
-//    synchronisation.  One unit holds one bank: launches of a unit are
-//    ordered on one stream, and the port launches everything on the
-//    current stream.  ``g_bank``, the same interleaved bank in global
-//    memory, serves reads whose row differs between the lanes of a warp (the
-//    lane chain of the cull, march.cuh), which constant memory would
+// Shared (neither): a copy in the block's shared memory (load_bank).  Every
+//    lane reads the same word at the same moment, a broadcast, but through
+//    an LDS into a register; inside a march loop the compiler hoists those
+//    loads out of the loop, so the bank of every live object stays in
+//    registers for the whole march (Design1's fit march: 149 registers,
+//    PERF.md).  A static array: with the kernel's other shared buffers it
+//    must stay within the 48 KB a block may declare (48 B an object).
+// BANK_CONSTANT: ``c_bank`` in constant memory, where an FP32 instruction
+//    takes a bank word as an operand (c[0x3][...]) and no register holds
+//    it.  The launcher fills it on the launch's stream before the kernel,
+//    device to device (``prepare_bank``: one tiny interleaving kernel into
+//    ``g_bank`` and one copy to the symbol), so the banks may change on the
+//    card between launches, as the fit's do, with no host copy and no
+//    synchronisation.  One unit holds one bank per card: launches of a
+//    unit on a card are ordered on one stream (ops/cuda/build.py
+//    stream_handle).  ``g_bank``, the same interleaved bank in global
+//    memory, serves the lane-dependent reads, which constant memory would
 //    serialise.  64 KB of constant memory hold 1,365 objects
-//    (ops/cuda/tape.py BANK_CONSTANT_MAX_OBJECTS raises above it).
+//    (ops/cuda/tape.py BANK_CONSTANT_MAX_OBJECTS).
+// BANK_GLOBAL: the interleaved bank in a device buffer that the caller
+//    allocates and passes per launch (``gbank``), filled by the launcher on
+//    the launch's stream; reads go through __ldg (bank_word).  No size
+//    limit and no state of the unit: the placement of a scene whose bank
+//    fits neither of the others.
 #if BANK_CONSTANT
 static_assert(N_OBJ * BANK_STRIDE * sizeof(float) <= 65536,
               "a __constant__ bank holds at most 1365 objects");
 __constant__ float c_bank[N_OBJ * BANK_STRIDE];
 __device__ float g_bank[N_OBJ * BANK_STRIDE];
 
-__global__ void interleave_bank_kernel(const float* __restrict__ pos,
-                                       const float* __restrict__ right,
-                                       const float* __restrict__ up,
-                                       const float* __restrict__ fwd) {
-    for (int i = threadIdx.x; i < N_OBJ * 3; i += blockDim.x) {
-        const int row = (i / 3) * BANK_STRIDE + i % 3;
-        g_bank[row] = pos[i];
-        g_bank[row + 3] = right[i];
-        g_bank[row + 6] = up[i];
-        g_bank[row + 9] = fwd[i];
-    }
-}
-
 // Fill g_bank and c_bank from the four bank arrays on ``stream``; returns a
 // cudaError_t.
 static int prepare_bank(const void* pos, const void* right, const void* up, const void* fwd,
-                        cudaStream_t stream) {
+                        void*, cudaStream_t stream) {
+    void* dst = nullptr;
+    int rc = (int)cudaGetSymbolAddress(&dst, g_bank);
+    if (rc != 0) return rc;
     interleave_bank_kernel<<<1, 256, 0, stream>>>((const float*)pos, (const float*)right,
-                                                  (const float*)up, (const float*)fwd);
-    int rc = (int)cudaGetLastError();
-    void* src = nullptr;
-    if (rc == 0) rc = (int)cudaGetSymbolAddress(&src, g_bank);
+                                                  (const float*)up, (const float*)fwd,
+                                                  (float*)dst);
+    rc = (int)cudaGetLastError();
     if (rc == 0) {
-        rc = (int)cudaMemcpyToSymbolAsync(c_bank, src, sizeof(c_bank), 0,
+        rc = (int)cudaMemcpyToSymbolAsync(c_bank, dst, sizeof(c_bank), 0,
                                           cudaMemcpyDeviceToDevice, stream);
     }
     return rc;
 }
 
-// ``name``: the bank the kernel's uniform reads take; ``lane_name``: the
-// bank for reads at lane-dependent rows.
-#define SCENE_BANK(name, lane_name, pos, right, up, fwd) \
-    const float* name = c_bank;                           \
-    const float* lane_name = g_bank;                      \
+#define SCENE_BANK(name, lane_name, gbank, pos, right, up, fwd) \
+    const float* name = c_bank;                                  \
+    const float* lane_name = g_bank;                             \
+    (void)lane_name
+#elif BANK_GLOBAL
+// Fill the launch's bank buffer ``gbank`` (N_OBJ * BANK_STRIDE floats) on
+// ``stream``; returns a cudaError_t.
+static int prepare_bank(const void* pos, const void* right, const void* up, const void* fwd,
+                        void* gbank, cudaStream_t stream) {
+    if (gbank == nullptr) return (int)cudaErrorInvalidValue;
+    interleave_bank_kernel<<<1, 256, 0, stream>>>((const float*)pos, (const float*)right,
+                                                  (const float*)up, (const float*)fwd,
+                                                  (float*)gbank);
+    return (int)cudaGetLastError();
+}
+
+#define SCENE_BANK(name, lane_name, gbank, pos, right, up, fwd) \
+    const float* name = gbank;                                   \
+    const float* lane_name = gbank;                              \
     (void)lane_name
 #else
-static int prepare_bank(const void*, const void*, const void*, const void*, cudaStream_t) {
+static int prepare_bank(const void*, const void*, const void*, const void*, void*, cudaStream_t) {
     return 0;
 }
 
-#define SCENE_BANK(name, lane_name, pos, right, up, fwd) \
-    __shared__ float name[N_OBJ * BANK_STRIDE];           \
-    load_bank(name, pos, right, up, fwd);                 \
-    const float* lane_name = name;                        \
+#define SCENE_BANK(name, lane_name, gbank, pos, right, up, fwd) \
+    __shared__ float name[N_OBJ * BANK_STRIDE];                  \
+    static_assert(N_OBJ * BANK_STRIDE * sizeof(float) <= 48 * 1024, \
+                  "a shared bank holds at most 1024 objects (ops/cuda/tape.py bank_placement)"); \
+    load_bank(name, pos, right, up, fwd);                        \
+    const float* lane_name = name;                               \
     (void)lane_name
 #endif
 #endif

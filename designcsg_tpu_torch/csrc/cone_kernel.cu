@@ -32,12 +32,14 @@
 // every shipped design, by the A/B.  0 keeps one thread a ray with its own
 // loop (per-ray early exit): the form for a scene whose bank and slot
 // buffers (256 B a slot) would pass the 48 KB of static shared memory, from
-// about 160 imports, while its bank alone (48 B an object) fits any scene
-// the compiler accepts.
+// about 160 imports.  Its bank (48 B an object) stays in shared memory up
+// to 1,024 objects and lies in global memory above (common.cuh
+// BANK_GLOBAL; ops/cuda/tape.py bank_placement).
 //
 // Rays are an AoS input f32[N, 3] formed by the caller exactly as its plain
 // version forms them, the projected camera origin ``o`` f32[3] is read on the
-// card (no host copy), the object banks sit in shared memory, and the slope,
+// card (no host copy), the object bank sits in shared memory (in global
+// memory for a scene of more than 1,024 objects), and the slope,
 // CONE_STRICT, EPS, TOL, MAX_D and MAX_STEPS are constants; the scene's baked
 // tables (if any) are ``ex``.  Built with -fmad=false, as the renderer
 // (ops/cuda/build.py): one rounding decides where a march stops.
@@ -52,9 +54,10 @@ cone_march_kernel(float* __restrict__ t_safe, long long n, const float* __restri
                   const float* __restrict__ o, const float* __restrict__ pos,
                   const float* __restrict__ right, const float* __restrict__ up,
                   const float* __restrict__ fwd, const float* __restrict__ ad,
-                  const float* __restrict__ ex) {
-    SCENE_BANK(s_bank, lane_bank, pos, right, up, fwd);
-    static_assert(4 * (N_OBJ * BANK_STRIDE + 2 * 32 * N_CONE_SLOTS) <= 48 * 1024,
+                  const float* __restrict__ ex, const float* __restrict__ gbank) {
+    SCENE_BANK(s_bank, lane_bank, gbank, pos, right, up, fwd);
+    static_assert(4 * ((BANK_CONSTANT || BANK_GLOBAL ? 0 : N_OBJ * BANK_STRIDE) +
+                       2 * 32 * N_CONE_SLOTS) <= 48 * 1024,
                   "the split cone's shared memory passes 48 KB (tape.cone_warps keeps it under)");
     __shared__ float s_slots[2][N_CONE_SLOTS * 32];
     const int lane = threadIdx.x, warp = threadIdx.y;
@@ -83,8 +86,8 @@ cone_march_kernel(float* __restrict__ t_safe, long long n, const float* __restri
                   const float* __restrict__ o, const float* __restrict__ pos,
                   const float* __restrict__ right, const float* __restrict__ up,
                   const float* __restrict__ fwd, const float* __restrict__ ad,
-                  const float* __restrict__ ex) {
-    SCENE_BANK(s_bank, lane_bank, pos, right, up, fwd);
+                  const float* __restrict__ ex, const float* __restrict__ gbank) {
+    SCENE_BANK(s_bank, lane_bank, gbank, pos, right, up, fwd);
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     t_safe[i] = cone_ray(o[0], o[1], o[2], rays[3 * i], rays[3 * i + 1], rays[3 * i + 2], s_bank,
@@ -96,14 +99,12 @@ static long long cone_rays_per_block() { return 128; }
 #endif
 
 extern "C" int launch_cone_march(void* t_safe, long long n, const void* rays, const void* o,
-                                 const void* pos, const void* right, const void* up,
-                                 const void* fwd, const void* ad, const void* ex, void* stream) {
+                                 SCENE_PARAMS) {
+    if (const int rc = use_device(device)) return rc;
     if (n <= 0) return 0;
     const unsigned blocks = (unsigned)((n + cone_rays_per_block() - 1) / cone_rays_per_block());
-    if (const int rc = prepare_bank(pos, right, up, fwd, (cudaStream_t)stream)) return rc;
+    if (const int rc = prepare_bank(pos, right, up, fwd, gbank, (cudaStream_t)stream)) return rc;
     cone_march_kernel<<<blocks, cone_block(), 0, (cudaStream_t)stream>>>(
-        (float*)t_safe, n, (const float*)rays, (const float*)o, (const float*)pos,
-        (const float*)right, (const float*)up, (const float*)fwd, (const float*)ad,
-        (const float*)ex);
+        (float*)t_safe, n, (const float*)rays, (const float*)o, SCENE_ARGS);
     return (int)cudaGetLastError();
 }

@@ -64,11 +64,13 @@ HD Iv iv_pad(Iv a) {
 // The object's local coordinates over the box: ((v-o).r, (v-o).u, (v-o).f)
 // with the frame row ``o`` of the bank (position, right, up, forward).
 HD void iv_local(Iv bx, Iv by, Iv bz, const float* o, Iv& a, Iv& b, Iv& c) {
-    const Iv dx = iv_sub(bx, iv_const(o[0])), dy = iv_sub(by, iv_const(o[1]));
-    const Iv dz = iv_sub(bz, iv_const(o[2]));
-    a = iv_add(iv_add(iv_mul_scalar(dx, o[3]), iv_mul_scalar(dy, o[4])), iv_mul_scalar(dz, o[5]));
-    b = iv_add(iv_add(iv_mul_scalar(dx, o[6]), iv_mul_scalar(dy, o[7])), iv_mul_scalar(dz, o[8]));
-    c = iv_add(iv_add(iv_mul_scalar(dx, o[9]), iv_mul_scalar(dy, o[10])), iv_mul_scalar(dz, o[11]));
+#define W(i) bank_word(o, i)
+    const Iv dx = iv_sub(bx, iv_const(W(0))), dy = iv_sub(by, iv_const(W(1)));
+    const Iv dz = iv_sub(bz, iv_const(W(2)));
+    a = iv_add(iv_add(iv_mul_scalar(dx, W(3)), iv_mul_scalar(dy, W(4))), iv_mul_scalar(dz, W(5)));
+    b = iv_add(iv_add(iv_mul_scalar(dx, W(6)), iv_mul_scalar(dy, W(7))), iv_mul_scalar(dz, W(8)));
+    c = iv_add(iv_add(iv_mul_scalar(dx, W(9)), iv_mul_scalar(dy, W(10))), iv_mul_scalar(dz, W(11)));
+#undef W
 }
 
 // Interval twin of the k1 gizmo (cull.py:347-364 of the JAX package).

@@ -323,8 +323,9 @@ __device__ __forceinline__ void count_cull(int evals, int group_evals, int chain
 }
 
 // The counters since the last read (evals, group evals, chains), then zero.
-extern "C" int read_cull_stats(unsigned long long* out) {
-    int rc = (int)cudaMemcpyFromSymbol(out, cull_stats, sizeof(cull_stats));
+extern "C" int read_cull_stats(int device, unsigned long long* out) {
+    int rc = use_device(device);
+    if (rc == 0) rc = (int)cudaMemcpyFromSymbol(out, cull_stats, sizeof(cull_stats));
     const unsigned long long zero[3] = {0, 0, 0};
     if (rc == 0) rc = (int)cudaMemcpyToSymbol(cull_stats, zero, sizeof(zero));
     return rc;

@@ -61,16 +61,17 @@ constexpr int RENDER_BX = 16;
 constexpr int RENDER_BY = 8;
 
 __global__ void __launch_bounds__(RENDER_BX * RENDER_BY)
-render_kernel(float* __restrict__ out, int height, int width, Cam cam,
-              const float* __restrict__ pos, const float* __restrict__ right,
-              const float* __restrict__ up, const float* __restrict__ fwd,
-              const float* __restrict__ ad, const float* __restrict__ ex,
-              const float* __restrict__ t0) {
-    SCENE_BANK(bank, lane_bank, pos, right, up, fwd);
+render_kernel(float* __restrict__ out, int height, int width, int row0, int rows, Cam cam,
+              const float* __restrict__ t0, const float* __restrict__ pos,
+              const float* __restrict__ right, const float* __restrict__ up,
+              const float* __restrict__ fwd, const float* __restrict__ ad,
+              const float* __restrict__ ex, const float* __restrict__ gbank) {
+    SCENE_BANK(bank, lane_bank, gbank, pos, right, up, fwd);
     const int ix = blockIdx.x * RENDER_BX + threadIdx.x;
-    const int iy = blockIdx.y * RENDER_BY + threadIdx.y;
-    const bool on = ix < width && iy < height;
-    const long long pixel = (long long)iy * width + ix;
+    const int ly = blockIdx.y * RENDER_BY + threadIdx.y;  // row of the block
+    const int iy = row0 + ly;                              // row of the frame
+    const bool on = ix < width && ly < rows;
+    const long long pixel = (long long)ly * width + ix;
 #if CULL_MODE
     const Rgb c = render_pixel_culled(on, ix, iy, width, height, cam, bank, lane_bank, ad, ex,
                                       on && t0 ? t0[pixel] : 0.0f);
@@ -85,11 +86,13 @@ render_kernel(float* __restrict__ out, int height, int width, Cam cam,
     px[2] = c.b;
 }
 
-extern "C" int launch_render(void* out, int height, int width, const float* cam_host,
-                             const void* pos, const void* right, const void* up,
-                             const void* fwd, const void* ad, const void* ex, const void* t0,
-                             void* stream) {
-    if (height <= 0 || width <= 0) return 0;
+// Rows [row0, row0 + rows) of the height x width frame into ``out``
+// f32[rows, width, 3]; ``t0`` (null: from the camera) is f32[rows, width].
+extern "C" int launch_render(void* out, int height, int width, int row0, int rows,
+                             const float* cam_host, const void* t0, SCENE_PARAMS) {
+    if (const int rc = use_device(device)) return rc;
+    if (rows <= 0 || width <= 0) return 0;
+    if (row0 < 0 || row0 + rows > height) return (int)cudaErrorInvalidValue;
     Cam cam;
     for (int k = 0; k < 3; ++k) {
         cam.o[k] = cam_host[k];
@@ -98,10 +101,9 @@ extern "C" int launch_render(void* out, int height, int width, const float* cam_
         cam.fwd[k] = cam_host[9 + k];
     }
     const dim3 block(RENDER_BX, RENDER_BY);
-    const dim3 grid((width + RENDER_BX - 1) / RENDER_BX, (height + RENDER_BY - 1) / RENDER_BY);
-    if (const int rc = prepare_bank(pos, right, up, fwd, (cudaStream_t)stream)) return rc;
+    const dim3 grid((width + RENDER_BX - 1) / RENDER_BX, (rows + RENDER_BY - 1) / RENDER_BY);
+    if (const int rc = prepare_bank(pos, right, up, fwd, gbank, (cudaStream_t)stream)) return rc;
     render_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        (float*)out, height, width, cam, (const float*)pos, (const float*)right,
-        (const float*)up, (const float*)fwd, (const float*)ad, (const float*)ex, (const float*)t0);
+        (float*)out, height, width, row0, rows, cam, (const float*)t0, SCENE_ARGS);
     return (int)cudaGetLastError();
 }

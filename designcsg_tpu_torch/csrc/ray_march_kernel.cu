@@ -62,8 +62,9 @@ ray_march_kernel(float* __restrict__ d, float* __restrict__ vmin, long long n,
                  const float* __restrict__ rays, const float* __restrict__ o,
                  const float* __restrict__ pos, const float* __restrict__ right,
                  const float* __restrict__ up, const float* __restrict__ fwd,
-                 const float* __restrict__ ad, const float* __restrict__ ex) {
-    SCENE_BANK(bank, lane_bank, pos, right, up, fwd);
+                 const float* __restrict__ ad, const float* __restrict__ ex,
+                 const float* __restrict__ gbank) {
+    SCENE_BANK(bank, lane_bank, gbank, pos, right, up, fwd);
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     float mx, my, mz;
@@ -75,14 +76,12 @@ ray_march_kernel(float* __restrict__ d, float* __restrict__ vmin, long long n,
 }
 
 extern "C" int launch_ray_march(void* d, void* vmin, long long n, const void* rays, const void* o,
-                                const void* pos, const void* right, const void* up,
-                                const void* fwd, const void* ad, const void* ex, void* stream) {
+                                SCENE_PARAMS) {
+    if (const int rc = use_device(device)) return rc;
     if (n <= 0) return 0;
     const unsigned blocks = (unsigned)((n + RAY_THREADS - 1) / RAY_THREADS);
-    if (const int rc = prepare_bank(pos, right, up, fwd, (cudaStream_t)stream)) return rc;
+    if (const int rc = prepare_bank(pos, right, up, fwd, gbank, (cudaStream_t)stream)) return rc;
     ray_march_kernel<<<blocks, RAY_THREADS, 0, (cudaStream_t)stream>>>(
-        (float*)d, (float*)vmin, n, (const float*)rays, (const float*)o, (const float*)pos,
-        (const float*)right, (const float*)up, (const float*)fwd, (const float*)ad,
-        (const float*)ex);
+        (float*)d, (float*)vmin, n, (const float*)rays, (const float*)o, SCENE_ARGS);
     return (int)cudaGetLastError();
 }

@@ -28,7 +28,12 @@
 // The point kernel: one thread per point, the tape inlined into
 // straight-line code with its registers in registers, and the object banks
 // (a few hundred bytes) copied once per block into shared memory, where
-// every thread reads the same word (a broadcast).  Points stay AoS (x, y, z
+// every thread reads the same word (a broadcast).  A bank that would pass
+// the 48 KB of static shared memory a block may declare (with the culled
+// grid's predicate and substitute buffers) is read from global memory
+// instead, through the read-only cache (common.cuh BANK_GLOBAL,
+// ops/cuda/tape.py bank_placement): a scene of more than about 1,000
+// objects, which JAX's kernels take too.  Points stay AoS (x, y, z
 // interleaved), the layout the callers hold; a warp's 32 points are 384
 // contiguous bytes.
 //
@@ -70,8 +75,9 @@ __global__ void __launch_bounds__(SDF_THREADS)
 point_eval_kernel(const float* __restrict__ pts, float* __restrict__ out, long long n,
                   const float* __restrict__ pos, const float* __restrict__ right,
                   const float* __restrict__ up, const float* __restrict__ fwd,
-                  const float* __restrict__ ad, const float* __restrict__ ex) {
-    SCENE_BANK(s_bank, lane_bank, pos, right, up, fwd);
+                  const float* __restrict__ ad, const float* __restrict__ ex,
+                  const float* __restrict__ gbank) {
+    SCENE_BANK(s_bank, lane_bank, gbank, pos, right, up, fwd);
     const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= n) return;
     out[i] = field_sdf(pts[3 * i], pts[3 * i + 1], pts[3 * i + 2], s_bank, ad, ex);
@@ -88,8 +94,8 @@ point_eval_fd_kernel(const float* __restrict__ pts, float* __restrict__ out,
                      float* __restrict__ normal, long long n, const float* __restrict__ pos,
                      const float* __restrict__ right, const float* __restrict__ up,
                      const float* __restrict__ fwd, const float* __restrict__ ad,
-                     const float* __restrict__ ex) {
-    SCENE_BANK(s_bank, lane_bank, pos, right, up, fwd);
+                     const float* __restrict__ ex, const float* __restrict__ gbank) {
+    SCENE_BANK(s_bank, lane_bank, gbank, pos, right, up, fwd);
     const auto field = [&](float x, float y, float z) { return field_sdf(x, y, z, s_bank, ad, ex); };
     const long long stride = (long long)gridDim.x * blockDim.x;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
@@ -110,8 +116,8 @@ grid_eval_kernel(float* __restrict__ out, int nz, int ny, int nx, int zper, floa
                  float loy, float loz, float cell, float z0, const float* __restrict__ pos,
                  const float* __restrict__ right, const float* __restrict__ up,
                  const float* __restrict__ fwd, const float* __restrict__ ad,
-                 const float* __restrict__ ex) {
-    SCENE_BANK(s_bank, lane_bank, pos, right, up, fwd);
+                 const float* __restrict__ ex, const float* __restrict__ gbank) {
+    SCENE_BANK(s_bank, lane_bank, gbank, pos, right, up, fwd);
     const int plane = ny * nx;
     const int col = blockIdx.x * SDF_THREADS + threadIdx.x;
     if (col >= plane) return;
@@ -145,8 +151,8 @@ grid_eval_cull_kernel(float* __restrict__ out, int nz, int ny, int nx, float lox
                       float loz, float cell, float z0, const float* __restrict__ pos,
                       const float* __restrict__ right, const float* __restrict__ up,
                       const float* __restrict__ fwd, const float* __restrict__ ad,
-                      const float* __restrict__ ex) {
-    SCENE_BANK(s_bank, lane_bank, pos, right, up, fwd);
+                      const float* __restrict__ ex, const float* __restrict__ gbank) {
+    SCENE_BANK(s_bank, lane_bank, gbank, pos, right, up, fwd);
     __shared__ Preds s_preds;
     __shared__ float s_substs[N_CULL_SLOTS];
     const int x0 = blockIdx.x * CULL_TX, y0 = blockIdx.y * CULL_TY, zb = blockIdx.z * CULL_TZ;
@@ -192,65 +198,66 @@ static unsigned int blocks_for(long long n) {
     return (unsigned int)((n + SDF_THREADS - 1) / SDF_THREADS);
 }
 
-extern "C" int launch_point_eval(const void* pts, void* out, long long n, const void* pos,
-                                 const void* right, const void* up, const void* fwd,
-                                 const void* ad, const void* ex, void* stream) {
+extern "C" int launch_point_eval(const void* pts, void* out, long long n, SCENE_PARAMS) {
+    if (const int rc = use_device(device)) return rc;
     if (n <= 0) return 0;
-    if (const int rc = prepare_bank(pos, right, up, fwd, (cudaStream_t)stream)) return rc;
+    if (const int rc = prepare_bank(pos, right, up, fwd, gbank, (cudaStream_t)stream)) return rc;
     point_eval_kernel<<<blocks_for(n), SDF_THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)pts, (float*)out, n, (const float*)pos, (const float*)right,
-        (const float*)up, (const float*)fwd, (const float*)ad, (const float*)ex);
+        (const float*)pts, (float*)out, n, SCENE_ARGS);
     return (int)cudaGetLastError();
 }
 
-// Blocks of SDF_THREADS threads of ``kernel`` resident on the card at once
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor on every SM), computed
-// once per process into ``cache``.
+// Blocks of SDF_THREADS threads of ``kernel`` resident on the current card
+// at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor on every SM),
+// computed once per process and card into ``cache``.
+constexpr int MAX_CARDS = 64;
+
 template <class Kernel>
-static int resident_blocks(Kernel kernel, int& cache, int* blocks) {
-    if (cache == 0) {
-        int dev = 0, sms = 0, per_sm = 0;
-        int rc = (int)cudaGetDevice(&dev);
-        if (rc == 0) rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+static int resident_blocks(Kernel kernel, int* cache, int* blocks) {
+    int dev = 0;
+    int rc = (int)cudaGetDevice(&dev);
+    if (rc != 0) return rc;
+    if (dev >= MAX_CARDS) return (int)cudaErrorInvalidDevice;
+    if (cache[dev] == 0) {
+        int sms = 0, per_sm = 0;
+        rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
         if (rc == 0) rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, SDF_THREADS, 0);
         if (rc != 0) return rc;
-        cache = sms * (per_sm > 0 ? per_sm : 1);
+        cache[dev] = sms * (per_sm > 0 ? per_sm : 1);
     }
-    *blocks = cache;
+    *blocks = cache[dev];
     return 0;
 }
 
 // The FD kernel's grid: as many blocks as can be resident on the card at
 // once, fewer for a small batch.
 static int fd_resident_blocks(int* blocks) {
-    static int resident = 0;
+    static int resident[MAX_CARDS] = {};
     return resident_blocks(point_eval_fd_kernel, resident, blocks);
 }
 
 extern "C" int launch_point_eval_fd(const void* pts, void* out, void* normal, long long n,
-                                    const void* pos, const void* right, const void* up,
-                                    const void* fwd, const void* ad, const void* ex,
-                                    void* stream) {
+                                    SCENE_PARAMS) {
+    if (const int rc = use_device(device)) return rc;
     if (n <= 0) return 0;
     int resident = 0;
     const int rc = fd_resident_blocks(&resident);
     if (rc != 0) return rc;
     const long long need = (long long)blocks_for(n);
     const unsigned int blocks = (unsigned int)(need < resident ? need : resident);
-    if (const int rc = prepare_bank(pos, right, up, fwd, (cudaStream_t)stream)) return rc;
+    if (const int rc = prepare_bank(pos, right, up, fwd, gbank, (cudaStream_t)stream)) return rc;
     point_eval_fd_kernel<<<blocks, SDF_THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)pts, (float*)out, (float*)normal, n, (const float*)pos,
-        (const float*)right, (const float*)up, (const float*)fwd, (const float*)ad,
-        (const float*)ex);
+        (const float*)pts, (float*)out, (float*)normal, n, SCENE_ARGS);
     return (int)cudaGetLastError();
 }
 
-// The unculled grid's z ranges for an (nz, ny, nx) slab: as many as fill one
-// wave of the blocks resident on the card (at least one, at most nz), each
-// of ``*zper`` planes but the last.  Column indices are ints: a plane of at
-// most 2^31 - 1 points.
-extern "C" int grid_eval_z_ranges(int nz, int ny, int nx, int* ranges, int* zper) {
-    static int resident = 0;
+// The unculled grid's z ranges for an (nz, ny, nx) slab on ``device``: as
+// many as fill one wave of the blocks resident on the card (at least one,
+// at most nz), each of ``*zper`` planes but the last.  Column indices are
+// ints: a plane of at most 2^31 - 1 points.
+extern "C" int grid_eval_z_ranges(int nz, int ny, int nx, int device, int* ranges, int* zper) {
+    static int resident[MAX_CARDS] = {};
+    if (const int rc = use_device(device)) return rc;
     if ((long long)ny * nx > 0x7fffffffLL || nz <= 0) return (int)cudaErrorInvalidValue;
     int blocks = 0;
     if (const int rc = resident_blocks(grid_eval_kernel, resident, &blocks)) return rc;
@@ -263,38 +270,31 @@ extern "C" int grid_eval_z_ranges(int nz, int ny, int nx, int* ranges, int* zper
 }
 
 extern "C" int launch_grid_eval(void* out, int nz, int ny, int nx, float lox, float loy,
-                                float loz, float cell, float z0, const void* pos,
-                                const void* right, const void* up, const void* fwd,
-                                const void* ad, const void* ex, void* stream) {
+                                float loz, float cell, float z0, SCENE_PARAMS) {
+    if (const int rc = use_device(device)) return rc;
     if ((long long)nz * ny * nx <= 0) return 0;
     int ranges = 0, zper = 0;
-    if (const int rc = grid_eval_z_ranges(nz, ny, nx, &ranges, &zper)) return rc;
+    if (const int rc = grid_eval_z_ranges(nz, ny, nx, device, &ranges, &zper)) return rc;
     const dim3 grid(blocks_for((long long)ny * nx), ranges);
-    if (const int rc = prepare_bank(pos, right, up, fwd, (cudaStream_t)stream)) return rc;
+    if (const int rc = prepare_bank(pos, right, up, fwd, gbank, (cudaStream_t)stream)) return rc;
     grid_eval_kernel<<<grid, SDF_THREADS, 0, (cudaStream_t)stream>>>(
-        (float*)out, nz, ny, nx, zper, lox, loy, loz, cell, z0, (const float*)pos,
-        (const float*)right, (const float*)up, (const float*)fwd, (const float*)ad,
-        (const float*)ex);
+        (float*)out, nz, ny, nx, zper, lox, loy, loz, cell, z0, SCENE_ARGS);
     return (int)cudaGetLastError();
 }
 
-// Returns cudaErrorInvalidValue (1) for a scene whose tape cannot be culled
-// (its wrapper launches grid_eval_kernel instead).
-extern "C" int launch_grid_eval_cull(void* out, int nz, int ny, int nx, float lox, float loy,
-                                     float loz, float cell, float z0, const void* pos,
-                                     const void* right, const void* up, const void* fwd,
-                                     const void* ad, const void* ex, void* stream) {
 #if CULL_MODE
+// Only in the culled grid's unit (ops/cuda/tape.py sdf_kernel_source with
+// ``cull``), built for a scene whose tape can be culled.
+extern "C" int launch_grid_eval_cull(void* out, int nz, int ny, int nx, float lox, float loy,
+                                     float loz, float cell, float z0, SCENE_PARAMS) {
+    if (const int rc = use_device(device)) return rc;
     if ((long long)nz * ny * nx <= 0) return 0;
     const dim3 block(CULL_TX, CULL_TY);
     const dim3 grid((nx + CULL_TX - 1) / CULL_TX, (ny + CULL_TY - 1) / CULL_TY,
                     (nz + CULL_TZ - 1) / CULL_TZ);
-    if (const int rc = prepare_bank(pos, right, up, fwd, (cudaStream_t)stream)) return rc;
+    if (const int rc = prepare_bank(pos, right, up, fwd, gbank, (cudaStream_t)stream)) return rc;
     grid_eval_cull_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        (float*)out, nz, ny, nx, lox, loy, loz, cell, z0, (const float*)pos, (const float*)right,
-        (const float*)up, (const float*)fwd, (const float*)ad, (const float*)ex);
+        (float*)out, nz, ny, nx, lox, loy, loz, cell, z0, SCENE_ARGS);
     return (int)cudaGetLastError();
-#else
-    return (int)cudaErrorInvalidValue;
-#endif
 }
+#endif

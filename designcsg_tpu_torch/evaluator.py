@@ -76,6 +76,15 @@ class BatchEvaluator:
     kernels' field keeps FD normals (K1's FD form), as the JAX package's
     Pallas evaluator builds FD whatever the mode (evaluator.py:106-118).
 
+    ``sharded`` shards the point axis of every point, lattice and corner
+    evaluation and of the refine over a device mesh of the world's ranks
+    (parallel/render.py ``shard_pointwise`` over parallel/mesh.py
+    ``make_mesh``, a world of one without a process group; evaluator.py:37,
+    116-123 of the JAX package): each rank runs K1 (or its FD form, or the
+    plain tape) on its block, and every rank gets all values.  ``mesh`` is
+    that mesh, None unsharded; ``local_point_eval`` the unsharded point
+    evaluation, for callers that shard on their own (active.py's slabs).
+
     ``sdf_field`` names the field the evaluations ride: "cuda-exact" or
     "cuda-baked" (the CUDA kernels on an exact or baked twin), "tape-exact"
     (the exact tape) or "tape-baked" (the kernels' plain versions on a baked
@@ -92,6 +101,7 @@ class BatchEvaluator:
         use_kernels: Optional[bool] = None,
         gizmo: bool = False,
         normal_mode: str = "fd",
+        sharded: bool = False,
     ):
         self.scene = scene
         self.device = resolve_device(device)
@@ -115,13 +125,24 @@ class BatchEvaluator:
         # The SDF and its FD normal: on the kernels' field one launch of K1's
         # FD form per chunk (ops/cuda/sdf_kernel.py), else the composition
         # that launch equals.
+        point_eval = self.local_point_eval = self.point_eval
         if self.use_kernels:
-            self._sdf_normal = self.point_eval.fd
-            self._normal = lambda points, arrays: self._sdf_normal(points, arrays)[1]
+            self._sdf_normal = point_eval.fd
         else:
-            self._sdf_normal = lambda points, arrays: (
-                self.point_eval(points, arrays), normal(points, arrays))
-            self._normal = normal
+            self._sdf_normal = lambda points, arrays: (point_eval(points, arrays),
+                                                       normal(points, arrays))
+        self._normal = normal
+        self.mesh = None
+        if sharded:
+            from .parallel.mesh import make_mesh
+            from .parallel.render import shard_pointwise
+
+            self.mesh = make_mesh(device=self.device)
+            self.point_eval = shard_pointwise(point_eval, self.mesh)
+            self._sdf_normal = shard_pointwise(self._sdf_normal, self.mesh)
+            self._normal = shard_pointwise(normal, self.mesh)
+        if self.use_kernels:
+            self._normal = lambda points, arrays: self._sdf_normal(points, arrays)[1]
         self.set_arrays(arrays if arrays is not None else scene.arrays)
         # Every point evaluated through this evaluator is counted; an FD
         # normal counts as NORMAL_EVAL_COST tape evaluations, an analytic

@@ -18,8 +18,10 @@ surface crosses leave it (export/active.py of the JAX package):
 
 The triangle set is the dense path's: the same cells, corner values and
 table; only the enumeration order, and so the vertex numbering, differs.
-The JAX package's sharded slab provider comes with multi-device support
-(ROADMAP queue 1, item 12).
+With a device mesh (parallel/mesh.py) each rank evaluates its z-rows of the
+slab and ``all_gather`` assembles the slab on every rank, where the mask and
+the gather run (the JAX package keeps the slab sharded and lets GSPMD insert
+the halo exchanges; the explicit gather is the plain equivalent).
 """
 
 from __future__ import annotations
@@ -37,23 +39,39 @@ from ..ops.marching_cubes import Mesh, _block_triangles, assemble_mesh
 BLOCK_CAP = (4, 8, 8)
 
 
-def make_slab_provider(evaluator: BatchEvaluator) -> Callable:
+def make_slab_provider(evaluator: BatchEvaluator, device_mesh=None) -> Callable:
     """``provider(lo f64[3], cell, z0, rows, r1) -> f32[rows, r1, r1]`` on the
     evaluator's device: corner values at ``lo + cell * (x, y, z0 + z)``,
     rounded as the grid kernel rounds them.  On the kernels' field the grid
     kernel computes them (its plain version on the CPU); on the exact tape's
     field the plain tape evaluates the same lattice, made on the device,
-    ``chunk_size`` points at a time."""
+    ``chunk_size`` points at a time.  With ``device_mesh`` the slab's z-rows
+    shard over the mesh's ranks (all axes jointly), each rank evaluating
+    ``ceil(rows / n)`` of them (the last block may overhang), and every rank
+    gets the whole slab (active.py:108-178 of the JAX package)."""
+    # A mesh shards the rows here: the evaluator's own point shards would
+    # split each rank's block again.
+    point_eval = evaluator.point_eval if device_mesh is None else evaluator.local_point_eval
 
-    def provider(lo, cell, z0, rows: int, r1: int) -> torch.Tensor:
+    def evaluate(lo, cell, z0, rows: int, r1: int) -> torch.Tensor:
         lo32, cell32, arrays = np.asarray(lo, np.float32), np.float32(cell), evaluator.device_arrays
         if evaluator.use_kernels:
             return evaluator.grid_eval(arrays, lo32, cell32, np.float32(z0), rows, r1)
         pts = lattice_points(lo32, cell32, np.float32(z0), rows, r1, r1, evaluator.device)
         pts, step = pts.reshape(-1, 3), evaluator.chunk_size
-        vals = torch.cat([evaluator.point_eval(pts[s : s + step], arrays)
+        vals = torch.cat([point_eval(pts[s : s + step], arrays)
                           for s in range(0, pts.shape[0], step)])
         return vals.reshape(rows, r1, r1)
+
+    if device_mesh is None:
+        return evaluate
+    from ..parallel.mesh import gather_rows, mesh_rank
+
+    k, n = mesh_rank(device_mesh)
+
+    def provider(lo, cell, z0, rows: int, r1: int) -> torch.Tensor:
+        per = -(-rows // n)
+        return gather_rows(evaluate(lo, cell, z0 + k * per, per, r1), device_mesh)[:rows]
 
     return provider
 
@@ -143,6 +161,7 @@ def extract_surface_active(
     use_native: Optional[bool] = None,
     slab_store=None,
     stats: Optional[dict] = None,
+    device_mesh=None,
 ) -> Mesh:
     """March ``resolution^3`` cells over ``center ± half_diameter``, copying
     only surface-active blocks to the host.  Produces the triangle set of
@@ -150,7 +169,9 @@ def extract_surface_active(
     ``slab_cells | resolution``.
 
     ``slab_store`` / ``stats``: per-slab resume shards and per-slab triangle
-    counts (``stats["slab_triangles"]``), as in ``extract_surface``."""
+    counts (``stats["slab_triangles"]``), as in ``extract_surface``.
+    ``device_mesh`` shards each slab's z-rows over its ranks
+    (:func:`make_slab_provider`); every rank assembles the whole mesh."""
     res = int(resolution)
     slab = min(int(slab_cells), res)
     if res % slab != 0:
@@ -162,7 +183,7 @@ def extract_surface_active(
     cell = 2.0 * half_diameter / res
     lo = center - half_diameter
     r1 = res + 1
-    provider = make_slab_provider(evaluator)
+    provider = make_slab_provider(evaluator, device_mesh)
     step = torch.tensor([bz, by, bx], device=evaluator.device)
     all_keys, all_pos = [], []
     for z0 in range(0, res, slab):

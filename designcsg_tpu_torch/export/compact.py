@@ -68,13 +68,16 @@ def extract_surface_compact(
     use_native: Optional[bool] = None,
     slab_store=None,
     stats: Optional[dict] = None,
+    device_mesh=None,
 ) -> Mesh:
     """March ``resolution^3`` cells, copying only the compacted (cell case,
     edge t) streams off the device.  The triangle set of the dense and
     active paths (up to enumeration order).
 
     ``slab_store`` / ``stats``: per-slab resume shards, and per slab the
-    count of active cells under ``stats["slab_cells_active"]``."""
+    count of active cells under ``stats["slab_cells_active"]``.
+    ``device_mesh`` shards each slab's z-rows over its ranks
+    (active.py make_slab_provider, compact.py:137-161 of the JAX package)."""
     res = int(resolution)
     slab = min(int(slab_cells), res)
     if res % slab != 0:
@@ -83,7 +86,7 @@ def extract_surface_compact(
     cell = 2.0 * half_diameter / res
     lo = center - half_diameter
     r1 = res + 1
-    provider = make_slab_provider(evaluator)
+    provider = make_slab_provider(evaluator, device_mesh)
     # Per axis, a z-plane's (ny, nx) of edges: global keys are
     # ((axis * r1 + gz) * r1 + gy) * r1 + gx, as in ops/marching_cubes.py.
     edge_dims = ((r1, res), (res, r1), (r1, r1))

@@ -106,6 +106,29 @@ class SlabStore:
         os.replace(tmp, path)
 
 
+class SharedSlabStore:
+    """The resume shards of a sharded export: the mesh's first rank alone
+    reads and writes them and broadcasts what it read, so the ranks never
+    race on a file and all resume the same slabs (and so join the same
+    collectives)."""
+
+    def __init__(self, directory: str, key: str, device_mesh):
+        from ..parallel.mesh import mesh_rank
+
+        self.device_mesh = device_mesh
+        self.store = SlabStore(directory, key) if mesh_rank(device_mesh)[0] == 0 else None
+
+    def load(self, z0: int) -> Optional[dict]:
+        from ..parallel.mesh import broadcast_from_first
+
+        found = self.store.load(z0) if self.store is not None else None
+        return broadcast_from_first(found, self.device_mesh)
+
+    def save(self, z0: int, **arrays) -> None:
+        if self.store is not None:
+            self.store.save(z0, **arrays)
+
+
 def _scan_lattice(half_diameter: float, resolution: int):
     """The reference's autodetect lattice: it spans +-half_diameter/2 (the
     half-diameter is treated as a diameter), offset by -cell/2; keeps points
@@ -225,6 +248,7 @@ def export_mesh(
     slab_cells: int = 32,
     strategy: str = "auto",
     device=None,
+    sharded: bool = False,
 ) -> tuple[Mesh, ExportReport]:
     """Run the full export: autodetect -> extract -> refine -> write.
 
@@ -236,12 +260,26 @@ def export_mesh(
     slab (an octree level for adaptive; :class:`SlabStore`) and the
     pre-refinement mesh, keyed by the scene and configuration.  The
     evaluator's device (default ``cuda``) decides the dataflow.
+
+    ``sharded`` runs the export over a device mesh of the world's ranks
+    (parallel/mesh.py ``make_mesh``; a world of one without a process
+    group): the evaluator's point evaluations shard their points
+    (``BatchEvaluator(sharded=True)``), and ``active`` and ``compact`` shard
+    each slab's z-rows.  Every rank computes the same mesh; only rank 0
+    reads and writes ``resume_dir`` (broadcasting what it read) and writes
+    the files.
     """
     config = export_config or scene.export_config or ExportConfig()
     resolution = 1 << config.grid_level
     slab = min(slab_cells, resolution)
     strategy = resolve_strategy(strategy, config, resolution, slab)
-    evaluator = evaluator or BatchEvaluator(scene, device=device)
+    evaluator = evaluator or BatchEvaluator(scene, device=device, sharded=sharded)
+    device_mesh, first = None, True
+    if sharded:
+        from ..parallel.mesh import broadcast_from_first, make_mesh, mesh_rank
+
+        device_mesh = evaluator.mesh or make_mesh(device=evaluator.device)
+        first = mesh_rank(device_mesh)[0] == 0
     stage_seconds: dict = {}
     stats: dict = {"sdf_field": evaluator.sdf_field, "strategy": strategy,
                    "native": native.available()}
@@ -289,11 +327,22 @@ def export_mesh(
         key.update(np.float64(config.complex_surface_threshold).tobytes())
         digest = key.hexdigest()[:16]
         cache_path = os.path.join(resume_dir, f"extract_{digest}.npz")
-        if os.path.exists(cache_path):
+        # A sharded export's first rank alone reads and writes the resume
+        # files, and every rank resumes from what it found.
+        cached = None
+        if first and os.path.exists(cache_path):
             with np.load(cache_path) as data:
-                mesh = Mesh(vertices=data["vertices"], faces=data["faces"])
+                cached = (data["vertices"], data["faces"])
+        if device_mesh is not None:
+            cached = broadcast_from_first(cached, device_mesh)
+        if cached is not None:
+            mesh = Mesh(vertices=cached[0], faces=cached[1])
+        elif device_mesh is not None:
+            slab_store = SharedSlabStore(resume_dir, digest, device_mesh)
         else:
             slab_store = SlabStore(resume_dir, digest)
+        if not first:
+            cache_path = None
 
     if mesh is None:
         extract_progress = lambda s, f: _tick(ExportStage.EXTRACTING_SURFACE.name, f)  # noqa: E731
@@ -313,7 +362,8 @@ def export_mesh(
 
             extract = extract_surface_active if strategy == "active" else extract_surface_compact
             mesh = extract(evaluator, center, half, resolution, midpoint=False, slab_cells=slab,
-                           progress=extract_progress, slab_store=slab_store, stats=stats)
+                           progress=extract_progress, slab_store=slab_store, stats=stats,
+                           device_mesh=device_mesh)
         else:
             mesh = _extract_dense(evaluator, center, half, resolution, slab_cells,
                                   extract_progress, slab_store, stats)
@@ -336,9 +386,9 @@ def export_mesh(
 
     t0 = time.time()
     _tick(ExportStage.WRITING_TRIANGLES.name, 0.0)
-    if stl_path is not None:
+    if stl_path is not None and first:
         writers.write_stl(stl_path, mesh)
-    if ply_path is not None:
+    if ply_path is not None and first:
         writers.write_ply(ply_path, mesh)
     stage_seconds["write"] = time.time() - t0
     _tick(ExportStage.FINISHED.name, 1.0)

@@ -18,8 +18,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -50,7 +51,11 @@ EXTRA_FLAGS = {
 }
 
 LAUNCHES: collections.Counter = collections.Counter()
-_LOADED: Dict[str, ctypes.CDLL] = {}
+# Wall seconds of each unit's nvcc run in this process, by its build label.
+BUILD_SECONDS: Dict[str, float] = {}
+# Loaded libraries by (path, card): a unit's constant bank and its stream
+# are per card (``stream_handle``).
+_LOADED: Dict[Tuple[str, Optional[int]], ctypes.CDLL] = {}
 
 
 def csrc(name: str) -> str:
@@ -76,8 +81,9 @@ def _stem(name: str, source: str) -> Path:
 def build(units: Dict[str, Tuple[str, str]]) -> Dict[str, str]:
     """Compile each ``label -> (name, source)`` not yet on disk, all at once
     (``name`` picks the library's flags, ``EXTRA_FLAGS``); returns ``label ->
-    nvcc output`` (the ``-Xptxas -v`` register/spill report).  Raises with
-    the compiler's output if one fails."""
+    nvcc output`` (the ``-Xptxas -v`` register/spill report).  Each
+    compile's wall seconds go to ``BUILD_SECONDS[label]``.  Raises with the
+    compiler's output if one fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     running = {}
     for label, (name, source) in units.items():
@@ -87,17 +93,25 @@ def build(units: Dict[str, Tuple[str, str]]) -> Dict[str, str]:
         cu = stem.with_suffix(".cu")
         cu.write_text(source)
         tmp = f"{stem}.{os.getpid()}.so.tmp"
+        log = open(f"{stem}.{os.getpid()}.log.tmp", "w")
         cmd = [nvcc(), *_flags(name), "-o", tmp, str(cu)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        running[stem] = (label, proc, tmp)
+        proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, text=True)
+        running[stem] = (label, proc, tmp, log, time.time())
     failures = []
-    for stem, (label, proc, tmp) in running.items():
-        out, _ = proc.communicate()
-        stem.with_suffix(".log").write_text(out)
-        if proc.returncode != 0:
-            failures.append(f"nvcc failed for {label} ({stem}.cu):\n{out}")
-        else:
-            os.replace(tmp, stem.with_suffix(".so"))
+    while running:
+        for stem, (label, proc, tmp, log, start) in list(running.items()):
+            if proc.poll() is None:
+                continue
+            BUILD_SECONDS[label] = time.time() - start
+            log.close()
+            os.replace(log.name, stem.with_suffix(".log"))
+            if proc.returncode != 0:
+                failures.append(f"nvcc failed for {label} ({stem}.cu):\n"
+                                f"{stem.with_suffix('.log').read_text()}")
+            else:
+                os.replace(tmp, stem.with_suffix(".so"))
+            del running[stem]
+        time.sleep(0.05)
     if failures:
         raise RuntimeError("\n".join(failures))
     logs = {}
@@ -107,18 +121,25 @@ def build(units: Dict[str, Tuple[str, str]]) -> Dict[str, str]:
     return logs
 
 
-def load(name: str, source: str) -> ctypes.CDLL:
-    """The built library of ``source`` (building it first if needed).
-    ``global_bank`` on it says whether its object bank is module-global
-    state (``BANK_CONSTANT``, csrc/common.cuh): see :func:`stream_handle`."""
+def load(name: str, source: str, device: Optional[torch.device] = None) -> ctypes.CDLL:
+    """The built library of ``source`` (building it first if needed), for
+    launches on ``device``.  ``bank`` on it is its object bank's placement
+    (csrc/common.cuh, ops/cuda/tape.py bank_placement); ``global_bank`` says
+    whether that bank is module-global state of the unit (a constant bank):
+    see :func:`stream_handle`.  Each card gets a library object of its own,
+    whose ``bank_stream`` is that card's."""
+    from .tape import unit_bank
+
     so = str(_stem(name, source).with_suffix(".so"))
-    if so not in _LOADED:
+    key = (so, None if device is None else device.index)
+    if key not in _LOADED:
         build({name: (name, source)})
         lib = ctypes.CDLL(so)
-        lib.global_bank = "#define BANK_CONSTANT 1" in source
+        lib.bank = unit_bank(source)
+        lib.global_bank = lib.bank == "constant"
         lib.bank_stream = None
-        _LOADED[so] = lib
-    return _LOADED[so]
+        _LOADED[key] = lib
+    return _LOADED[key]
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -190,3 +211,21 @@ def bank_pointers(scene, arrays, device: torch.device):
     return [ptr(getattr(arrays, name)) for name in names] + [
         None if extras is None else ptr(extras)
     ]
+
+
+def scene_args(scene, arrays, device: torch.device, lib: ctypes.CDLL) -> Tuple[List, object]:
+    """The launchers' trailing arguments (csrc/common.cuh SCENE_PARAMS): the
+    bank pointers (:func:`bank_pointers`), the launch's interleaved bank
+    buffer where ``lib`` reads its bank from global memory (null
+    otherwise), the card's index and the stream (:func:`stream_handle`);
+    then the buffer, which the caller keeps until the launch is enqueued.
+    The buffer is freed to PyTorch's allocator on the launch's stream, so
+    its memory is reused only after the kernel."""
+    from .tape import BANK_STRIDE
+
+    args = bank_pointers(scene, arrays, device)
+    buf = None
+    if lib.bank == "global":
+        buf = torch.empty(scene.num_objects * BANK_STRIDE, dtype=torch.float32, device=device)
+    return args + [None if buf is None else ptr(buf), device.index,
+                   stream_handle(device, lib)], buf

@@ -38,16 +38,7 @@ from ..raymarch import (
     make_march,
     make_renderer,
 )
-from .build import (
-    bank_pointers,
-    check_call,
-    check_launch,
-    load,
-    on_cuda,
-    ptr,
-    require_cuda_f32,
-    stream_handle,
-)
+from .build import check_call, check_launch, load, on_cuda, ptr, require_cuda_f32, scene_args
 from .tape import (
     cone_kernel_source,
     cull_mode,
@@ -57,17 +48,22 @@ from .tape import (
 
 _P = ctypes.c_void_p
 _F = ctypes.c_float
+_I = ctypes.c_int
+# The launchers' trailing arguments (csrc/common.cuh SCENE_PARAMS): the bank
+# pointers, the bank buffer, the card and the stream.
+_SCENE = [_P] * 7 + [_I, _P]
 
 
 def make_cuda_renderer(
     scene: CompiledScene, config: Optional[RenderConfig] = None, fmad: bool = False,
     cull_stats: bool = False,
 ):
-    """``render(arrays, campos, rgt, upp, fwd, t0=None) -> f32[H, W, 3]`` on
-    the device of ``arrays``: the fused kernel on a CUDA device, the plain
-    renderer on the CPU.  The march is exact, or over-relaxed when
+    """``render(arrays, campos, rgt, upp, fwd, t0=None, rows=None) -> f32[H,
+    W, 3]`` on the device of ``arrays``: the fused kernel on a CUDA device,
+    the plain renderer on the CPU.  The march is exact, or over-relaxed when
     ``config.march_overrelax > 1``; ``t0`` f32[H, W] starts each pixel's
-    march there.  With ``config.march_cull`` the kernel culls each warp's
+    march there.  ``rows=(row0, n)`` renders rows ``[row0, row0 + n)`` of the
+    frame alone (``t0`` then f32[n, W]), the sharded renderer's blocks.  With ``config.march_cull`` the kernel culls each warp's
     tape by interval arithmetic (K7), hoisted or ``"dynamic"``, unless the
     tape has nothing to cull.  ``render.plain`` is the plain version.
     ``fmad=True`` takes a build of the kernel with nvcc's default FMA
@@ -87,36 +83,44 @@ def make_cuda_renderer(
         suffix = "_cull_dynamic" if cull_mode(config) == 2 else "_cull"
     libs = {}
 
-    def render(arrays: SceneArrays, campos, rgt, upp, fwd, t0=None) -> torch.Tensor:
+    def library(device):
+        if device not in libs:
+            source = march_kernel_source(scene, config)
+            lib = load("march_fma" if fmad else "march",
+                       ("#define CULL_STATS 1\n" if cull_stats else "") + source, device)
+            lib.launch_render.argtypes = [_P, _I, _I, _I, _I, _P, _P] + _SCENE
+            lib.launch_render.restype = ctypes.c_int
+            if cull_stats:
+                lib.read_cull_stats.argtypes = [_I, ctypes.POINTER(ctypes.c_ulonglong)]
+                lib.read_cull_stats.restype = ctypes.c_int
+            libs[device] = lib
+        return libs[device]
+
+    def render(arrays: SceneArrays, campos, rgt, upp, fwd, t0=None, rows=None) -> torch.Tensor:
         if not on_cuda(arrays.ad):
             if cull_stats:
                 raise ValueError("cull_stats counts the kernel's cull: it needs a CUDA device")
-            return plain(arrays, campos, rgt, upp, fwd, t0=t0)
+            return plain(arrays, campos, rgt, upp, fwd, t0=t0, rows=rows)
         device = arrays.ad.device
+        row0, n_rows = (0, config.height) if rows is None else rows
+        if not 0 <= row0 <= row0 + n_rows <= config.height:
+            raise ValueError(f"rows {rows} are not rows of a {config.height}-row frame")
         if t0 is not None:
             require_cuda_f32("t0", t0, device)
-            if tuple(t0.shape) != (config.height, config.width):
-                raise ValueError(f"t0 must be [{config.height}, {config.width}], got {tuple(t0.shape)}")
-        if "lib" not in libs:
-            source = march_kernel_source(scene, config)
-            lib = load("march_fma" if fmad else "march",
-                       ("#define CULL_STATS 1\n" if cull_stats else "") + source)
-            lib.launch_render.argtypes = [_P, ctypes.c_int, ctypes.c_int] + [_P] * 9
-            lib.launch_render.restype = ctypes.c_int
-            libs["lib"] = lib
+            if tuple(t0.shape) != (n_rows, config.width):
+                raise ValueError(f"t0 must be [{n_rows}, {config.width}], got {tuple(t0.shape)}")
+        lib = library(device)
         cam = np.ascontiguousarray(camera_rows(campos, rgt, upp, fwd), np.float32)
-        out = torch.empty((config.height, config.width, 3), dtype=torch.float32, device=device)
-        rc = libs["lib"].launch_render(
-            ptr(out), config.height, config.width, _P(cam.ctypes.data),
-            *bank_pointers(scene, arrays, device), None if t0 is None else ptr(t0),
-            stream_handle(device, libs["lib"]),
-        )
+        out = torch.empty((n_rows, config.width, 3), dtype=torch.float32, device=device)
+        args, _bank = scene_args(scene, arrays, device, lib)
+        rc = lib.launch_render(ptr(out), config.height, config.width, row0, n_rows,
+                               _P(cam.ctypes.data), None if t0 is None else ptr(t0), *args)
         check_launch((mode if t0 is None else "renderer_t0") + suffix + ("_stats" if cull_stats else ""),
                      rc)
         if not cull_stats:
             return out
         counts = (ctypes.c_ulonglong * 3)()
-        check_call("read_cull_stats", libs["lib"].read_cull_stats(counts))
+        check_call("read_cull_stats", lib.read_cull_stats(device.index, counts))
         return out, dict(zip(("evals", "group_evals", "chains"), counts))
 
     render.plain = plain
@@ -141,17 +145,15 @@ def make_cuda_cone_march(scene: CompiledScene, config: Optional[RenderConfig] = 
         require_cuda_f32("rays", rays, device)
         if rays.shape[-1] != 3:
             raise ValueError(f"rays must be [..., 3], got {tuple(rays.shape)}")
-        if "lib" not in libs:
-            lib = load("cone", cone_kernel_source(scene, config))
-            lib.launch_cone_march.argtypes = [_P, ctypes.c_longlong, _P, _P] + [_P] * 7
+        if device not in libs:
+            lib = load("cone", cone_kernel_source(scene, config), device)
+            lib.launch_cone_march.argtypes = [_P, ctypes.c_longlong, _P, _P] + _SCENE
             lib.launch_cone_march.restype = ctypes.c_int
-            libs["lib"] = lib
+            libs[device] = lib
         o = torch.as_tensor(o_proj, dtype=torch.float32).to(device).reshape(3).contiguous()
         out = torch.empty(rays.shape[:-1], dtype=torch.float32, device=device)
-        rc = libs["lib"].launch_cone_march(
-            ptr(out), out.numel(), ptr(rays), ptr(o),
-            *bank_pointers(scene, arrays, device), stream_handle(device, libs["lib"]),
-        )
+        args, _bank = scene_args(scene, arrays, device, libs[device])
+        rc = libs[device].launch_cone_march(ptr(out), out.numel(), ptr(rays), ptr(o), *args)
         check_launch("cone_march", rc)
         return out
 
@@ -203,18 +205,16 @@ def make_cuda_ray_march(scene: CompiledScene, config: Optional[RenderConfig] = N
         require_cuda_f32("rays", rays, device)
         if rays.shape[-1] != 3:
             raise ValueError(f"rays must be [..., 3], got {tuple(rays.shape)}")
-        if "lib" not in libs:
-            lib = load("ray_march", ray_march_kernel_source(scene, config))
-            lib.launch_ray_march.argtypes = [_P, _P, ctypes.c_longlong, _P, _P] + [_P] * 7
+        if device not in libs:
+            lib = load("ray_march", ray_march_kernel_source(scene, config), device)
+            lib.launch_ray_march.argtypes = [_P, _P, ctypes.c_longlong, _P, _P] + _SCENE
             lib.launch_ray_march.restype = ctypes.c_int
-            libs["lib"] = lib
+            libs[device] = lib
         o = torch.as_tensor(o_proj, dtype=torch.float32).detach().to(device).reshape(3).contiguous()
         d = torch.empty(rays.shape[:-1], dtype=torch.float32, device=device)
         vmin = torch.empty(rays.shape, dtype=torch.float32, device=device)
-        rc = libs["lib"].launch_ray_march(
-            ptr(d), ptr(vmin), d.numel(), ptr(rays), ptr(o), *bank_pointers(scene, arrays, device),
-            stream_handle(device, libs["lib"]),
-        )
+        args, _bank = scene_args(scene, arrays, device, libs[device])
+        rc = libs[device].launch_ray_march(ptr(d), ptr(vmin), d.numel(), ptr(rays), ptr(o), *args)
         check_launch("ray_march", rc)
         return d, vmin
 

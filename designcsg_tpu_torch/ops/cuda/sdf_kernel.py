@@ -24,7 +24,7 @@ import torch
 from ...compiler import CompiledScene, SceneArrays
 from ..cull import array_bank_reader, make_culled_sdf, make_tape_culler, stack_cull
 from ..interpreter import eval_context, make_normal_fn, make_primary_sdf
-from .build import bank_pointers, check_launch, load, on_cuda, ptr, require_cuda_f32, stream_handle
+from .build import check_launch, load, on_cuda, ptr, require_cuda_f32, scene_args
 from .tape import sdf_kernel_source
 
 _P = ctypes.c_void_p
@@ -32,16 +32,25 @@ _F = ctypes.c_float
 _I = ctypes.c_int
 
 
-def _library(scene: CompiledScene, gizmo: bool, fd: bool = False) -> ctypes.CDLL:
-    """The point/grid unit, or with ``fd`` the same source built without FMA
-    contraction for K1's FD form (build.EXTRA_FLAGS)."""
-    lib = load("sdf_fd" if fd else "sdf", sdf_kernel_source(scene, gizmo))
-    lib.launch_point_eval.argtypes = [_P, _P, ctypes.c_longlong] + [_P] * 7
+# The launchers' trailing arguments (csrc/common.cuh SCENE_PARAMS): the bank
+# pointers, the bank buffer, the card and the stream.
+_SCENE = [_P] * 7 + [_I, _P]
+
+
+def _library(scene: CompiledScene, gizmo: bool, device: torch.device, fd: bool = False,
+             cull: bool = False) -> ctypes.CDLL:
+    """The point/grid unit for ``device``, or with ``fd`` the same source
+    built without FMA contraction for K1's FD form (build.EXTRA_FLAGS), or
+    with ``cull`` the unit that also carries the culled grid."""
+    lib = load("sdf_fd" if fd else "sdf", sdf_kernel_source(scene, gizmo, cull=cull), device)
+    lib.launch_point_eval.argtypes = [_P, _P, ctypes.c_longlong] + _SCENE
     lib.launch_point_eval.restype = ctypes.c_int
-    lib.launch_point_eval_fd.argtypes = [_P, _P, _P, ctypes.c_longlong] + [_P] * 7
+    lib.launch_point_eval_fd.argtypes = [_P, _P, _P, ctypes.c_longlong] + _SCENE
     lib.launch_point_eval_fd.restype = ctypes.c_int
-    for fn in (lib.launch_grid_eval, lib.launch_grid_eval_cull):
-        fn.argtypes = [_P, _I, _I, _I, _F, _F, _F, _F, _F] + [_P] * 7
+    lib.grid_eval_z_ranges.argtypes = [_I, _I, _I, _I, _P, _P]
+    lib.grid_eval_z_ranges.restype = ctypes.c_int
+    for fn in (lib.launch_grid_eval,) + ((lib.launch_grid_eval_cull,) if cull else ()):
+        fn.argtypes = [_P, _I, _I, _I, _F, _F, _F, _F, _F] + _SCENE
         fn.restype = ctypes.c_int
     return lib
 
@@ -77,9 +86,9 @@ def make_point_eval(scene: CompiledScene, gizmo: bool = False):
         require_cuda_f32("points", points, device)
         if points.ndim != 2 or points.shape[1] != 3:
             raise ValueError(f"points must be [N, 3], got {tuple(points.shape)}")
-        if fd not in libs:
-            libs[fd] = _library(scene, gizmo, fd)
-        return device, libs[fd]
+        if (fd, device) not in libs:
+            libs[fd, device] = _library(scene, gizmo, device, fd)
+        return device, libs[fd, device]
 
     def point_eval(points: torch.Tensor, arrays: SceneArrays) -> torch.Tensor:
         if not on_cuda(points):
@@ -89,10 +98,8 @@ def make_point_eval(scene: CompiledScene, gizmo: bool = False):
         out = torch.empty((n,), dtype=torch.float32, device=device)
         if n == 0:
             return out
-        rc = lib.launch_point_eval(
-            ptr(points), ptr(out), n, *bank_pointers(scene, arrays, device),
-            stream_handle(device, lib)
-        )
+        args, _bank = scene_args(scene, arrays, device, lib)
+        rc = lib.launch_point_eval(ptr(points), ptr(out), n, *args)
         check_launch(name, rc)
         return out
 
@@ -108,10 +115,8 @@ def make_point_eval(scene: CompiledScene, gizmo: bool = False):
         normal = torch.empty((n, 3), dtype=torch.float32, device=device)
         if n == 0:
             return out, normal
-        rc = lib.launch_point_eval_fd(
-            ptr(points), ptr(out), ptr(normal), n, *bank_pointers(scene, arrays, device),
-            stream_handle(device, lib),
-        )
+        args, _bank = scene_args(scene, arrays, device, lib)
+        rc = lib.launch_point_eval_fd(ptr(points), ptr(out), ptr(normal), n, *args)
         check_launch(fd_name, rc)
         return out, normal
 
@@ -217,18 +222,17 @@ def make_grid_eval(scene: CompiledScene, gizmo: bool = False, cull: Optional[boo
             return plain(arrays, lo, cell, z0, slab, ny, nx)
         nx = ny if nx is None else nx
         device = arrays.ad.device
-        if "lib" not in libs:
-            libs["lib"] = _library(scene, gizmo)
+        if device not in libs:
+            libs[device] = _library(scene, gizmo, device, cull=culler is not None)
+        lib = libs[device]
         out = torch.empty((slab, ny, nx), dtype=torch.float32, device=device)
         if out.numel() == 0:
             return out
         lox, loy, loz = (float(v) for v in np.asarray(lo, np.float32).reshape(3))
-        launch = libs["lib"].launch_grid_eval if culler is None else libs["lib"].launch_grid_eval_cull
-        rc = launch(
-            ptr(out), slab, ny, nx, lox, loy, loz,
-            float(np.float32(cell)), float(np.float32(z0)),
-            *bank_pointers(scene, arrays, device), stream_handle(device, libs["lib"]),
-        )
+        launch = lib.launch_grid_eval if culler is None else lib.launch_grid_eval_cull
+        args, _bank = scene_args(scene, arrays, device, lib)
+        rc = launch(ptr(out), slab, ny, nx, lox, loy, loz, float(np.float32(cell)),
+                    float(np.float32(z0)), *args)
         check_launch(name, rc)
         return out
 

@@ -19,7 +19,7 @@ import numpy as np
 from ...compiler import CompiledScene
 from ...config import RenderConfig
 from ...constants import OP_EXPORT, OP_IDENTITY, OP_IMPORT, OP_MAX, OP_MIN, OP_NEGATE
-from ..cull import BIG, CullPlan, leaf_cost, make_cull_plan
+from ..cull import BIG, CullPlan, leaf_cost, make_cull_plan, post_order, tree_leaves
 from ..raymarch import cone_slope
 from .brushes_kernel import (
     brush_functions,
@@ -97,10 +97,48 @@ def _imports(scene: CompiledScene):
     return [(left, right) for opcode, left, right, _ in _tape(scene) if opcode == OP_IMPORT]
 
 
-def _tape_lines(scene: CompiledScene, slot, gizmo_value: Optional[str]):
+# Runs of at least this many IMPORT-and-combine row pairs that differ only in
+# their object (consecutive objects of one brush, the same registers: a flat
+# union, such as the capacity rings' chain of one min an object) are
+# generated as a loop over the objects: the same operations in the same
+# order, so the same bits, where the unrolled rows would grow the unit by a
+# brush body an object.  The 512-ring's units took nvcc 4.5-5.1 s so,
+# 54-94 s unrolled (ring_nvcc_timing.py on the H100's host, PERF.md).
+TAPE_LOOP_MIN_RUN = 8
+
+
+def _tape_runs(scene: CompiledScene, loopable):
+    """The tape as items ``("row", row)`` and ``("run", first row, count,
+    first slot)``: a run is TAPE_LOOP_MIN_RUN or more pairs (IMPORT brush b
+    of object o + n into register R, then the same MIN or MAX row), every
+    slot k of it ``loopable(first slot, k)``."""
+    tape = _tape(scene)
+    items, i, k = [], 0, 0
+    while i < len(tape):
+        row, n = tape[i], 0
+        if row[0] == OP_IMPORT and i + 1 < len(tape) and tape[i + 1][0] in (OP_MIN, OP_MAX):
+            _, brush, obj, dest = row
+            while (i + 2 * n + 1 < len(tape)
+                   and tape[i + 2 * n] == (OP_IMPORT, brush, obj + n, dest)
+                   and tape[i + 2 * n + 1] == tape[i + 1] and loopable(k, k + n)):
+                n += 1
+        if n >= TAPE_LOOP_MIN_RUN:
+            items.append(("run", i, n, k))
+            i, k = i + 2 * n, k + n
+        else:
+            items.append(("row", row))
+            i, k = i + 1, k + (row[0] == OP_IMPORT)
+    return items
+
+
+def _tape_lines(scene: CompiledScene, slot, gizmo_value: Optional[str], slot_at=None,
+                loopable=lambda k0, k: True):
     """The tape's registers, rows and result as C++ lines: ``slot(k)`` is
     the value of IMPORT slot k, ``gizmo_value`` the gizmo's (min-ed onto the
-    result, tape.py:101-103 of the JAX package) or None."""
+    result, tape.py:101-103 of the JAX package) or None.  With ``slot_at``
+    (``(first slot, brush, object expression, slot expression) -> C++``)
+    the runs of :func:`_tape_runs` over ``loopable`` slots become loops over
+    their objects."""
     tape = _tape(scene)
     registers = sorted({r for row in tape for r in _registers(row)})
     lines = [
@@ -108,7 +146,17 @@ def _tape_lines(scene: CompiledScene, slot, gizmo_value: Optional[str]):
         "    float result = MAX_DISTANCE;",
     ]
     k = 0
-    for opcode, left, right, dest in tape:
+    for item in _tape_runs(scene, loopable if slot_at is not None else lambda k0, k: False):
+        if item[0] == "run":
+            _, first, n, k0 = item
+            _, brush, obj, dest = tape[first]
+            lines += [f"    for (int i = 0; i < {n}; ++i) {{",
+                      f"        r{dest} = {slot_at(k0, brush, f'{obj} + i', f'{k0} + i')};",
+                      "    " + _tape_line(*tape[first + 1]),
+                      "    }"]
+            k = k0 + n
+            continue
+        opcode, left, right, dest = item[1]
         if opcode == OP_IMPORT:
             lines.append(f"    r{dest} = {slot(k)};")
             k += 1
@@ -117,6 +165,25 @@ def _tape_lines(scene: CompiledScene, slot, gizmo_value: Optional[str]):
     if gizmo_value is not None:
         lines.append(f"    result = fminf(result, {gizmo_value});")
     return lines + ["    return result;", "}", ""]
+
+
+# Past this many IMPORT slots outside the tape's loops, the tape's functions
+# (``field_sdf``, its column and culled forms, ``scene_shade``) are called
+# where a kernel would otherwise inline a copy at each call site: the
+# renderer's march, its six FD probes and its shading, K1's seven FD
+# evaluations.  Measured with the 512-ring unrolled (ring_nvcc_timing.py on
+# the H100's host, 8 builds at once; PERF.md): inlined, its K1 took 251 s of
+# nvcc and its K2, K5 and K4 more than 300 s each; called, 54-94 s each.
+TAPE_INLINE_MAX_SLOTS = 256
+
+
+def tape_qualifier(scene: CompiledScene) -> str:
+    """``HD`` (inlined, csrc/common.cuh) or, for a tape of more than
+    TAPE_INLINE_MAX_SLOTS slots outside its loops (:func:`_tape_runs`),
+    ``HD_CALL`` (one body, called)."""
+    unrolled = sum(item[0] == "row" and item[1][0] == OP_IMPORT
+                   for item in _tape_runs(scene, lambda k0, k: True))
+    return "HD" if unrolled <= TAPE_INLINE_MAX_SLOTS else "HD_CALL"
 
 
 # The column form keeps three registers of frame terms per hoisted import
@@ -151,6 +218,12 @@ def _slot_value(imports, k: int, column: Optional[dict] = None) -> str:
     return f"brush_{brush}_at(x, y, z, {o}, ad, ex)"
 
 
+def _slot_at(brush: int, obj: str) -> str:
+    """C++ of brush ``brush`` at (x, y, z) for the object of index ``obj``
+    (a C++ expression: a loop's), in the point form."""
+    return f"brush_{brush}_at(x, y, z, bank + ({obj}) * BANK_STRIDE, ad, ex)"
+
+
 def tape_function(scene: CompiledScene, gizmo: bool, column: bool = False) -> str:
     """``HD float field_sdf(x, y, z, bank, ad, ex)``: the scene tape unrolled into
     straight-line code over register variables, with the k1 gizmo min-ed onto
@@ -162,10 +235,12 @@ def tape_function(scene: CompiledScene, gizmo: bool, column: bool = False) -> st
     imports = _imports(scene)
     name = "field_sdf_column(float x, float y, float z, const float* h," if column else \
         "field_sdf(float x, float y, float z,"
-    lines = [f"HD float {name} const float* bank,",
+    lines = [f"{tape_qualifier(scene)} float {name} const float* bank,",
              "                   const float* ad, const float* ex) {"]
     return "\n".join(lines + _tape_lines(scene, lambda k: _slot_value(imports, k, hoisted),
-                                          GIZMO if gizmo else None))
+                                          GIZMO if gizmo else None,
+                                          slot_at=lambda k0, b, obj, k: _slot_at(b, obj),
+                                          loopable=lambda k0, k: hoisted is None or k not in hoisted))
 
 
 def column_terms_function(scene: CompiledScene, plan: Optional[CullPlan] = None) -> str:
@@ -269,16 +344,10 @@ def _cull_leaves(plan: CullPlan):
     """The plan's leaves (slot nodes: brushes and the gizmo), each slot once,
     in the order the chain computes them."""
     done, out = set(), []
-
-    def walk(node):
-        if node.op not in ("leaf", "gizmo"):
-            for c in node.children:
-                walk(c)
-        elif node.slot not in done:
+    for node in tree_leaves(plan.root):
+        if node.slot not in done:
             done.add(node.slot)
             out.append(node)
-
-    walk(plan.root)
     return out
 
 
@@ -306,13 +375,16 @@ def _cull_relevance(plan: CullPlan, lines) -> None:
         return expr
 
     def emit(node):
-        """C++ name of the node's analysis interval (leaf parity applied)."""
+        """C++ name of the node's analysis interval (leaf parity applied),
+        its subtree's intervals emitted first where not yet."""
         if node.op in ("leaf", "gizmo"):
             return f"iv_neg(b{node.slot})" if node.negated else f"b{node.slot}"
-        if id(node) not in names:
-            expr = fold(node.op, [emit(c) for c in node.children])
-            names[id(node)] = f"n{len(names)}"
-            lines.append(f"    const Iv {names[id(node)]} = {expr};")
+        for n in post_order(node):
+            if id(n) not in names:
+                expr = fold(n.op, [emit(c) if c.op in ("leaf", "gizmo") else names[id(c)]
+                                   for c in n.children])
+                names[id(n)] = f"n{len(names)}"
+                lines.append(f"    const Iv {names[id(n)]} = {expr};")
         return names[id(node)]
 
     lines += [f"    preds.w[{i}] = 0u;" for i in range(cull_words(plan))]
@@ -322,38 +394,45 @@ def _cull_relevance(plan: CullPlan, lines) -> None:
         count[0] += 1
         return f"{prefix}{count[0]}"
 
-    def down(node, rel):
+    # Relevance top-down, depth first: a stack of (node, its relevance, its
+    # units' walk, its units' interval names).
+    stack = [(plan.root, "true", iter(enumerate(plan.units[id(plan.root)])), None)]
+    while stack:
+        node, rel, walk, uivs = stack.pop()
         units = plan.units[id(node)]
-        uivs = []
-        if len(units) > 1:
-            for u in units:
-                expr = fold(node.op, [emit(m) for m in u[2]]) if u[0] == "bucket" else emit(u[1])
-                uivs.append(fresh("u"))
-                lines.append(f"    const Iv {uivs[-1]} = {expr};")
-        for i, u in enumerate(units):
-            rel_u = rel
+        if uivs is None:
+            uivs = []
             if len(units) > 1:
-                others = [iv for j, iv in enumerate(uivs) if j != i]
-                if node.op == "min":
-                    # unit i can win the min somewhere only if its lower bound
-                    # is below the least upper bound of the others
-                    bound = f"{others[0]}.hi"
-                    for iv in others[1:]:
-                        bound = f"fminf({bound}, {iv}.hi)"
-                    cond = f"{uivs[i]}.lo < {bound}"
-                else:
-                    bound = f"{others[0]}.lo"
-                    for iv in others[1:]:
-                        bound = f"fmaxf({bound}, {iv}.lo)"
-                    cond = f"{uivs[i]}.hi > {bound}"
-                rel_u = fresh("q")
-                lines.append(f"    const bool {rel_u} = {cond if rel == 'true' else f'{rel} && {cond}'};")
-            if u[0] == "bucket":
-                lines.append(f"    preds.w[{u[1] >> 5}] |= (unsigned)({rel_u}) << {u[1] & 31};")
-            elif u[0] == "sub":
-                down(u[1], rel_u)
-
-    down(plan.root, "true")
+                for u in units:
+                    expr = fold(node.op, [emit(m) for m in u[2]]) if u[0] == "bucket" else emit(u[1])
+                    uivs.append(fresh("u"))
+                    lines.append(f"    const Iv {uivs[-1]} = {expr};")
+        step = next(walk, None)
+        if step is None:
+            continue
+        stack.append((node, rel, walk, uivs))
+        i, u = step
+        rel_u = rel
+        if len(units) > 1:
+            others = [iv for j, iv in enumerate(uivs) if j != i]
+            if node.op == "min":
+                # unit i can win the min somewhere only if its lower bound
+                # is below the least upper bound of the others
+                bound = f"{others[0]}.hi"
+                for iv in others[1:]:
+                    bound = f"fminf({bound}, {iv}.hi)"
+                cond = f"{uivs[i]}.lo < {bound}"
+            else:
+                bound = f"{others[0]}.lo"
+                for iv in others[1:]:
+                    bound = f"fmaxf({bound}, {iv}.lo)"
+                cond = f"{uivs[i]}.hi > {bound}"
+            rel_u = fresh("q")
+            lines.append(f"    const bool {rel_u} = {cond if rel == 'true' else f'{rel} && {cond}'};")
+        if u[0] == "bucket":
+            lines.append(f"    preds.w[{u[1] >> 5}] |= (unsigned)({rel_u}) << {u[1] & 31};")
+        elif u[0] == "sub":
+            stack.append((u[1], rel_u, iter(enumerate(plan.units[id(u[1])])), None))
 
 
 def cull_tile_function(plan: CullPlan) -> str:
@@ -468,13 +547,26 @@ def culled_tape_function(scene: CompiledScene, plan: CullPlan, column: bool = Fa
     slot ``n_imports`` when the plan has it).  With ``column``, its column
     twin ``field_sdf_culled_column(x, y, z, h, ...)`` over the terms of
     ``column_terms_culled``."""
-    grouped = {k for members in plan.groups for k in members}
+    group_of = {k: g for g, members in enumerate(plan.groups) for k in members}
     hoisted = column_hoisted(scene) if column else None
     imports = _imports(scene)
+
+    def loopable(k0, k):
+        """A run's slots share one group (one predicate) and are not hoisted."""
+        return k in group_of and group_of[k] == group_of.get(k0) and (
+            hoisted is None or k not in hoisted)
+
+    def looped_slot(k0, brush, obj, k):
+        g = group_of[k0]
+        return f"(preds.w[{g >> 5}] & {1 << (g & 31)}u) ? {_slot_at(brush, obj)} : substs[{k}]"
+
+    looped = {k for item in _tape_runs(scene, loopable) if item[0] == "run"
+              for k in range(item[3], item[3] + item[2])}
+    grouped = set(group_of) - looped
     name = "field_sdf_culled_column(float x, float y, float z, const float* h," if column else \
         "field_sdf_culled(float x, float y, float z,"
     lines = [
-        f"HD float {name} const float* bank,",
+        f"{tape_qualifier(scene)} float {name} const float* bank,",
         "                          const float* ad, const float* ex, const Preds& preds,",
         "                          const float* substs) {",
     ]
@@ -484,7 +576,12 @@ def culled_tape_function(scene: CompiledScene, plan: CullPlan, column: bool = Fa
     def slot_value(k):
         return GIZMO if k == plan.n_imports else _slot_value(imports, k, hoisted)
 
+    # Slots in a loop of the tape (_tape_runs) take their group's predicate
+    # there, each slot's value or substitute as the group's block gives it.
     for g, members in enumerate(plan.groups):
+        members = [k for k in members if k not in looped]
+        if not members:
+            continue
         lines.append(f"    if (preds.w[{g >> 5}] & {1 << (g & 31)}u) {{")
         lines += [f"        s{k} = {slot_value(k)};" for k in members]
         lines.append("    } else {")
@@ -494,7 +591,8 @@ def culled_tape_function(scene: CompiledScene, plan: CullPlan, column: bool = Fa
     if plan.gizmo:
         gizmo = f"s{plan.n_imports}" if plan.n_imports in grouped else slot_value(plan.n_imports)
     return "\n".join(lines + _tape_lines(
-        scene, lambda k: f"s{k}" if k in grouped else slot_value(k), gizmo))
+        scene, lambda k: f"s{k}" if k in grouped else slot_value(k), gizmo,
+        slot_at=looped_slot, loopable=loopable))
 
 
 def cull_source(scene: CompiledScene, plan: Optional[CullPlan], mode: int,
@@ -602,25 +700,46 @@ def shade_function(scene: CompiledScene) -> str:
     shape_id = [int(s) for s in scene.arrays.shape_id]
     material_id = [int(m) for m in scene.arrays.material_id]
     lines = [
-        "HD Rgb scene_shade(float px, float py, float pz, float nx, float ny, float nz,",
+        f"{tape_qualifier(scene)} Rgb scene_shade(float px, float py, float pz, float nx, float ny,"
+        " float nz,",
         "                   const Cam& cam, const float* bank, const float* ad, const float* ex) {",
         "    int mat = -1;",
         "    float lx = 0.0f, ly = 0.0f, lz = 0.0f;",
     ]
-    for obj, (brush, material) in enumerate(zip(shape_id, material_id)):
-        lines += [
-            "    {",
-            f"        const float* o = bank + {obj} * BANK_STRIDE;",
-            "        const float dx = px - o[0], dy = py - o[1], dz = pz - o[2];",
-            "        const float a = dx * o[3] + dy * o[4] + dz * o[5];",
-            "        const float b = dx * o[6] + dy * o[7] + dz * o[8];",
-            "        const float c = dx * o[9] + dy * o[10] + dz * o[11];",
-            f"        if (brush_{brush}(a, b, c, ad, ex) < MAT_THRESH) {{",
-            f"            mat = {material};",
-            "            lx = a; ly = b; lz = c;",
-            "        }",
-            "    }",
+
+    def match(brush, material, obj, indent):
+        """The object ``obj``'s (a C++ expression) test, in bank order."""
+        w = [f"bank_word(o, {i})" for i in range(12)]
+        body = [
+            f"const float* o = bank + {obj} * BANK_STRIDE;",
+            f"const float dx = px - {w[0]}, dy = py - {w[1]}, dz = pz - {w[2]};",
+            f"const float a = dx * {w[3]} + dy * {w[4]} + dz * {w[5]};",
+            f"const float b = dx * {w[6]} + dy * {w[7]} + dz * {w[8]};",
+            f"const float c = dx * {w[9]} + dy * {w[10]} + dz * {w[11]};",
+            f"if (brush_{brush}(a, b, c, ad, ex) < MAT_THRESH) {{",
+            f"    mat = {material};",
+            "    lx = a; ly = b; lz = c;",
+            "}",
         ]
+        return [" " * indent + line for line in body]
+
+    # Runs of objects of one brush and material test in a loop (the same
+    # tests in the same order), as the tape's runs do (TAPE_LOOP_MIN_RUN).
+    obj, n_obj = 0, len(shape_id)
+    while obj < n_obj:
+        end = obj + 1
+        while end < n_obj and (shape_id[end], material_id[end]) == (shape_id[obj], material_id[obj]):
+            end += 1
+        if end - obj >= TAPE_LOOP_MIN_RUN:
+            lines.append(f"    for (int obj = {obj}; obj < {end}; ++obj) {{")
+            lines += match(shape_id[obj], material_id[obj], "obj", 8)
+            lines.append("    }")
+        else:
+            for k in range(obj, end):
+                lines.append("    {")
+                lines += match(shape_id[k], material_id[k], str(k), 8)
+                lines.append("    }")
+        obj = end
     for m in used_materials(scene):
         lines.append(
             f"    if (mat == {m}) return material_{m}(px, py, pz, lx, ly, lz, nx, ny, nz, cam, ad);"
@@ -675,10 +794,39 @@ BANK_STRIDE = 12
 # Objects a __constant__ bank holds: 64 KB of constant memory over
 # BANK_STRIDE floats an object.
 BANK_CONSTANT_MAX_OBJECTS = 65536 // (BANK_STRIDE * 4)
+# Static shared memory a kernel may declare (48 KB on every CUDA card).
+STATIC_SHARED_BYTES = 48 * 1024
+# The bank's placements (csrc/common.cuh SCENE_BANK).
+BANK_PLACEMENTS = ("shared", "constant", "global")
+
+
+def bank_placement(scene: CompiledScene, constant: bool = False, other_shared: int = 0) -> str:
+    """Where a unit keeps the object bank, from the bytes each placement
+    needs: "constant" where the unit's rule asks for it (``constant``) and
+    the 64 KB of constant memory hold it (BANK_CONSTANT_MAX_OBJECTS);
+    "shared" where the bank (48 B an object) and the kernel's other static
+    shared buffers (``other_shared`` bytes) fit the 48 KB a block may
+    declare; else "global", a buffer passed with each launch, which has no
+    limit (csrc/common.cuh BANK_GLOBAL).  Hopper's opt-in dynamic shared
+    memory (227 KB a block) would only move the shared limit to about 4,700
+    objects, and the JAX package has none: global memory is the rule above
+    the static limits."""
+    if constant and scene.num_objects <= BANK_CONSTANT_MAX_OBJECTS:
+        return "constant"
+    if 4 * BANK_STRIDE * scene.num_objects + other_shared <= STATIC_SHARED_BYTES:
+        return "shared"
+    return "global"
+
+
+def unit_bank(source: str) -> str:
+    """The bank placement a generated unit was made with."""
+    if "#define BANK_CONSTANT 1" in source:
+        return "constant"
+    return "global" if "#define BANK_GLOBAL 1" in source else "shared"
 
 
 def scene_source(scene: CompiledScene, render_config: Optional[RenderConfig] = None,
-                 cull: int = 0, gizmo: bool = False, bank_constant: bool = False) -> str:
+                 cull: int = 0, gizmo: bool = False, bank: str = "shared") -> str:
     """The generated scene code: constants (the extras' offsets among them),
     common.cuh, table.cuh (K6), brush functions and the unrolled tape (the k2
     field, with the k1 gizmo when ``gizmo``; without ``render_config`` also
@@ -688,17 +836,20 @@ def scene_source(scene: CompiledScene, render_config: Optional[RenderConfig] = N
     ``march_ray_closest``.  With ``cull`` (a ``CULL_MODE``) and a scene
     whose tape can be culled: the interval twins, ``cull_tile`` and
     ``field_sdf_culled`` of the same field (:func:`cull_source`).
-    ``bank_constant`` puts the kernels' object bank in constant memory
-    (``BANK_CONSTANT``, csrc/common.cuh), for at most
-    BANK_CONSTANT_MAX_OBJECTS objects."""
-    if bank_constant and scene.num_objects > BANK_CONSTANT_MAX_OBJECTS:
+    ``bank`` is the kernels' object bank placement (:func:`bank_placement`;
+    ``BANK_CONSTANT`` and ``BANK_GLOBAL``, csrc/common.cuh): "constant"
+    holds at most BANK_CONSTANT_MAX_OBJECTS objects."""
+    if bank not in BANK_PLACEMENTS:
+        raise ValueError(f"bank must be one of {BANK_PLACEMENTS}, got {bank!r}")
+    if bank == "constant" and scene.num_objects > BANK_CONSTANT_MAX_OBJECTS:
         raise ValueError(
             f"the scene has {scene.num_objects} objects; a kernel's __constant__ object bank "
             f"holds at most {BANK_CONSTANT_MAX_OBJECTS} (64 KB)")
     parts = [
         "// Generated from the scene tape by designcsg_tpu_torch/ops/cuda/tape.py.\n"
         f"constexpr int N_OBJ = {scene.num_objects};\n"
-        f"#define BANK_CONSTANT {int(bank_constant)}\n" + extras_constants(scene)
+        f"#define BANK_CONSTANT {int(bank == 'constant')}\n"
+        f"#define BANK_GLOBAL {int(bank == 'global')}\n" + extras_constants(scene)
     ]
     if render_config is not None:
         gizmo = render_config.gizmo
@@ -761,18 +912,25 @@ def grid_cull_column(scene: CompiledScene, gizmo: bool) -> bool:
     return len(column_hoisted(scene)) >= GRID_CULL_COLUMN_MIN_HOISTED
 
 
-def sdf_kernel_source(scene: CompiledScene, gizmo: bool = False) -> str:
+def sdf_kernel_source(scene: CompiledScene, gizmo: bool = False, cull: bool = False) -> str:
     """Translation unit of the point and grid eval kernels (the k2 field, or
-    with ``gizmo`` the k1 field: the tape min-ed with the axis gizmo), the
-    culled grid kernel among them when the tape can be culled (the gizmo
-    then has its own cull slot; its chain on the lanes by
+    with ``gizmo`` the k1 field: the tape min-ed with the axis gizmo); with
+    ``cull`` and a tape that can be culled, the culled grid kernel too (the
+    gizmo then has its own cull slot; its chain on the lanes by
     :func:`grid_cull_lanes`, its z loop's form by :func:`grid_cull_column`).
-    Its bank stays in shared memory: the A/B timed it in constant memory too
-    (PERF.md)."""
-    return (scene_source(scene, cull=1, gizmo=gizmo)
-            + f"\n#define GRID_CULL_LANES {int(grid_cull_lanes(scene, gizmo))}\n"
-            + f"#define GRID_CULL_COLUMN {int(grid_cull_column(scene, gizmo))}\n"
-            + csrc("sdf_kernels.cu"))
+    Without ``cull`` no cull plan is made, as the JAX package's point kernel
+    builds no culler unless asked (sdf_kernel.py:211 there).  Its bank stays
+    in shared memory where it fits (the A/B timed it in constant memory too,
+    PERF.md), with the culled grid's predicate and substitute buffers beside
+    it; else in global memory (:func:`bank_placement`)."""
+    plan = make_cull_plan(scene, gizmo) if cull else None
+    other = 0 if plan is None else 4 * (cull_words(plan) + plan.n_slots)
+    source = scene_source(scene, cull=int(plan is not None), gizmo=gizmo,
+                          bank=bank_placement(scene, other_shared=other))
+    if plan is not None:
+        source += (f"\n#define GRID_CULL_LANES {int(grid_cull_lanes(scene, gizmo))}\n"
+                   f"#define GRID_CULL_COLUMN {int(grid_cull_column(scene, gizmo))}\n")
+    return source + "\n" + csrc("sdf_kernels.cu")
 
 
 # Where each sphere-trace unit keeps the object bank: rules from the A/B on
@@ -786,7 +944,9 @@ def sdf_kernel_source(scene: CompiledScene, gizmo: bool = False) -> str:
 # reloaded its bank each step; Design2's 3 objects sit in registers at 80
 # and its frames ran slower with constant operands.  Design1's hoisted
 # frames, whose every lane runs the one-thread chain once, ran slower with
-# the constant bank than with the shared one.
+# the constant bank than with the shared one.  Past 64 KB of constant memory
+# or 48 KB of shared memory the bank lies in global memory
+# (:func:`bank_placement`).
 RENDER_CONSTANT_BANK_MIN_OBJECTS = 5
 
 
@@ -801,10 +961,12 @@ def ray_march_bank_constant(scene: CompiledScene) -> bool:
 def march_kernel_source(scene: CompiledScene, config: RenderConfig) -> str:
     """Translation unit of the fused renderer kernel (march mode, cone
     constants and cull mode from ``config``); its bank in constant memory
-    by the rule above RENDER_CONSTANT_BANK_MIN_OBJECTS."""
+    by the rule above RENDER_CONSTANT_BANK_MIN_OBJECTS, where it fits
+    (:func:`bank_placement`)."""
     cull = cull_mode(config)
     constant = scene.num_objects >= RENDER_CONSTANT_BANK_MIN_OBJECTS and cull != 1
-    return scene_source(scene, render_config=config, cull=cull, bank_constant=constant) + (
+    return scene_source(scene, render_config=config, cull=cull,
+                        bank=bank_placement(scene, constant=constant)) + (
         "\n" + csrc("march_kernel.cu"))
 
 
@@ -848,23 +1010,25 @@ def cone_deal(scene: CompiledScene, gizmo: bool, warps: int):
 # two left half of Design1's and Logo's field on one warp, and one warp (a
 # barrier a step on one thread's tape) lost to one thread a ray.
 CONE_WARPS = 4
-# Static shared memory a kernel may declare (48 KB on every CUDA card).
-STATIC_SHARED_BYTES = 48 * 1024
+def cone_split_bytes(scene: CompiledScene, gizmo: bool, warps: int) -> int:
+    """Shared memory of the cone kernel's split at ``warps`` warps a block:
+    the two buffers of each slot's value for the block's 32 rays."""
+    return 4 * 2 * 32 * len(cone_slot_costs(scene, gizmo)) if warps else 0
 
 
 def cone_shared_bytes(scene: CompiledScene, gizmo: bool, warps: int) -> int:
-    """Shared memory of the cone kernel at ``warps`` warps a block: the
-    object bank (csrc/common.cuh SCENE_BANK), and with a split the two
-    buffers of each slot's value for the block's 32 rays."""
-    split = 2 * 32 * len(cone_slot_costs(scene, gizmo)) if warps else 0
-    return 4 * (BANK_STRIDE * scene.num_objects + split)
+    """Shared memory of the cone kernel at ``warps`` warps a block with its
+    bank in shared memory (csrc/common.cuh SCENE_BANK): the bank and the
+    split's buffers."""
+    return 4 * BANK_STRIDE * scene.num_objects + cone_split_bytes(scene, gizmo, warps)
 
 
 def cone_warps(scene: CompiledScene, gizmo: bool) -> int:
     """The cone kernel's S (``CONE_WARPS``) for a scene: CONE_WARPS where
     its shared memory fits the 48 KB a kernel may declare (every shipped
     design; a scene of up to about 160 imports), else 0, one thread a ray,
-    whose bank alone fits any scene the compiler accepts (MAX_OBJECTS)."""
+    whose bank stays in shared memory while it fits there alone and lies in
+    global memory above (:func:`bank_placement`)."""
     fits = cone_shared_bytes(scene, gizmo, CONE_WARPS) <= STATIC_SHARED_BYTES
     return CONE_WARPS if fits else 0
 
@@ -902,11 +1066,12 @@ def cone_split_function(scene: CompiledScene, gizmo: bool, warps) -> str:
 def cone_kernel_source(scene: CompiledScene, config: RenderConfig,
                        warps: Optional[int] = None) -> str:
     """Translation unit of the cone prepass kernel (its bank in shared
-    memory, as the point/grid unit's): :func:`cone_warps` warps a block of
+    memory where it fits, as the point/grid unit's): :func:`cone_warps` warps a block of
     32 rays (``CONE_WARPS``; 0: one thread a ray), or ``warps`` (the A/B's
     levers)."""
     s = cone_warps(scene, config.gizmo) if warps is None else warps
-    return (scene_source(scene, render_config=config) + "\n"
+    bank = bank_placement(scene, other_shared=cone_split_bytes(scene, config.gizmo, s))
+    return (scene_source(scene, render_config=config, bank=bank) + "\n"
             + cone_split_function(scene, config.gizmo, (s,) if s else ())
             + f"\n#define CONE_WARPS {s}\n" + csrc("cone_kernel.cu"))
 
@@ -914,7 +1079,7 @@ def cone_kernel_source(scene: CompiledScene, config: RenderConfig,
 def ray_march_kernel_source(scene: CompiledScene, config: RenderConfig) -> str:
     """Translation unit of the fit's ray-march kernel (march mode, step
     budget and gizmo from ``config``; the bank's placement by
-    :func:`ray_march_bank_constant`)."""
-    return scene_source(scene, render_config=config,
-                        bank_constant=ray_march_bank_constant(scene)) + "\n" + csrc(
+    :func:`ray_march_bank_constant` where it fits, :func:`bank_placement`)."""
+    bank = bank_placement(scene, constant=ray_march_bank_constant(scene))
+    return scene_source(scene, render_config=config, bank=bank) + "\n" + csrc(
         "ray_march_kernel.cu")

@@ -405,17 +405,60 @@ def build_tape_tree(tape) -> Tuple[Optional[Node], int]:
 
 def push_neg(node: Node, neg: bool = False) -> Node:
     """De Morgan pushdown and flattening: an equivalent tree of n-ary min/max
-    nodes with every NEGATE absorbed into leaf parity."""
-    if node.op in ("leaf", "gizmo"):
-        return dataclasses.replace(node, negated=neg != node.negated)
-    if node.op == "neg":
-        return push_neg(node.children[0], not neg)
-    op = node.op if not neg else ("max" if node.op == "min" else "min")
-    flat = []
-    for c in node.children:
-        k = push_neg(c, neg)
-        flat.extend(k.children if k.op == op else (k,))
-    return Node(op, tuple(flat))
+    nodes with every NEGATE absorbed into leaf parity.  A walk with a stack
+    of its own, not Python's: a flat scene's tape chains one min an object,
+    a tree as deep as the scene is long (a 1,500-object ring)."""
+    done: List[Node] = []  # each finished subtree, in the order its walk ends
+    stack = [(node, neg, False)]
+    while stack:
+        n, ng, expanded = stack.pop()
+        if n.op in ("leaf", "gizmo"):
+            done.append(dataclasses.replace(n, negated=ng != n.negated))
+        elif n.op == "neg":
+            stack.append((n.children[0], not ng, False))
+        elif not expanded:
+            stack.append((n, ng, True))
+            stack.extend((c, ng, False) for c in reversed(n.children))
+        else:
+            op = n.op if not ng else ("max" if n.op == "min" else "min")
+            kids = done[len(done) - len(n.children):]
+            del done[len(done) - len(n.children):]
+            flat = []
+            for k in kids:
+                flat.extend(k.children if k.op == op else (k,))
+            done.append(Node(op, tuple(flat)))
+    return done[0]
+
+
+def tree_leaves(node: Node) -> List[Node]:
+    """The leaves (brush and gizmo slots) under ``node``, left to right, each
+    time it is reached; a walk with its own stack, as :func:`push_neg`'s."""
+    out, stack = [], [node]
+    while stack:
+        n = stack.pop()
+        if n.op in ("leaf", "gizmo"):
+            out.append(n)
+        else:
+            stack.extend(reversed(n.children))
+    return out
+
+
+def post_order(root: Node) -> List[Node]:
+    """The interior nodes under ``root`` (itself included), each once, every
+    node after its children, children left to right: the order a recursive
+    walk with a memo visits them in."""
+    out, seen, stack = [], set(), [(root, False)]
+    while stack:
+        n, expanded = stack.pop()
+        if n.op in ("leaf", "gizmo") or id(n) in seen:
+            continue
+        if expanded:
+            seen.add(id(n))
+            out.append(n)
+        else:
+            stack.append((n, True))
+            stack.extend((c, False) for c in reversed(n.children))
+    return out
 
 
 #: A leaf of at least this cost (FP32 operations of one evaluation: the
@@ -480,26 +523,28 @@ def make_cull_plan(scene: CompiledScene, gizmo: bool = False) -> Optional[CullPl
     def cost(node):
         return GIZMO_COST if node.op == "gizmo" else leaf_cost(scene, node.brush)
 
-    def partition(node):
-        node_units, bucket = [], []
-        for c in node.children:
-            if c.op in ("leaf", "gizmo"):
-                if not (c.op == "gizmo" or twinned[c.brush]):
-                    node_units.append(("always", c))
-                elif cost(c) >= SOLO_COST:
-                    node_units.append(("bucket", len(groups), [c]))
-                    groups.append((c.slot,))
-                else:
-                    bucket.append(c)
-            else:
-                node_units.append(("sub", c))
-                partition(c)
-        if bucket:
-            node_units.append(("bucket", len(groups), bucket))
-            groups.append(tuple(b.slot for b in bucket))
-        units[id(node)] = node_units
-
-    partition(root)
+    # Each n-ary node's units, depth first: a subtree's groups are numbered
+    # where it stands among its siblings, a node's bucket after them all.
+    stack = [(root, iter(root.children), [], [])]
+    while stack:
+        node, children, node_units, bucket = stack[-1]
+        c = next(children, None)
+        if c is None:
+            stack.pop()
+            if bucket:
+                node_units.append(("bucket", len(groups), bucket))
+                groups.append(tuple(b.slot for b in bucket))
+            units[id(node)] = node_units
+        elif c.op not in ("leaf", "gizmo"):
+            node_units.append(("sub", c))
+            stack.append((c, iter(c.children), [], []))
+        elif not (c.op == "gizmo" or twinned[c.brush]):
+            node_units.append(("always", c))
+        elif cost(c) >= SOLO_COST:
+            node_units.append(("bucket", len(groups), [c]))
+            groups.append((c.slot,))
+        else:
+            bucket.append(c)
     if not groups:
         return None
     return CullPlan(root, units, tuple(groups), n_imports, gizmo, twinned)
@@ -537,28 +582,28 @@ class TapeCuller:
         memo: Dict[int, tuple] = {}
 
         def node_iv(node):
+            """A leaf's interval (made at its first use), or an interior
+            node's, which the fold below made before any parent reads it."""
             if id(node) in memo:
                 return memo[id(node)]
             if node.op == "gizmo":
                 brush_iv = iv_pad(gizmo_interval(*box))
-            elif node.op == "leaf":
+            else:
                 twin = self._intervals[node.brush]
                 if twin is None:
                     brush_iv = (-BIG, BIG)
                 else:
                     brush_iv = iv_pad(twin(*iv_local(box, *bank(node.obj)), ctx))
-            if node.op in ("leaf", "gizmo"):
-                substs[node.slot] = brush_iv[0]
-                iv = iv_neg(brush_iv) if node.negated else brush_iv
-            else:
-                fold = iv_min if node.op == "min" else iv_max
-                iv = node_iv(node.children[0])
-                for c in node.children[1:]:
-                    iv = fold(iv, node_iv(c))
-            memo[id(node)] = iv
-            return iv
+            substs[node.slot] = brush_iv[0]
+            memo[id(node)] = iv_neg(brush_iv) if node.negated else brush_iv
+            return memo[id(node)]
 
-        node_iv(plan.root)
+        for node in post_order(plan.root):
+            fold = iv_min if node.op == "min" else iv_max
+            iv = node_iv(node.children[0])
+            for c in node.children[1:]:
+                iv = fold(iv, node_iv(c))
+            memo[id(node)] = iv
         preds: List = [None] * len(self.groups)
 
         def unit_iv(node, u):
@@ -570,7 +615,10 @@ class TapeCuller:
                 iv = fold(iv, node_iv(m))
             return iv
 
-        def down(node, rel):
+        # Relevance flows top-down; a stack of (node, its relevance).
+        stack = [(plan.root, True)]
+        while stack:
+            node, rel = stack.pop()
             units = plan.units[id(node)]
             uivs = [unit_iv(node, u) for u in units]
             for i, u in enumerate(units):
@@ -593,9 +641,7 @@ class TapeCuller:
                 if u[0] == "bucket":
                     preds[u[1]] = rel_u
                 elif u[0] == "sub":
-                    down(u[1], rel_u)
-
-        down(plan.root, True)
+                    stack.append((u[1], rel_u))
         return preds, substs
 
 

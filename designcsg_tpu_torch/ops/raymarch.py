@@ -68,6 +68,7 @@ from .cull import (
     push_neg,
     ray_box,
     stack_cull,
+    tree_leaves,
 )
 from .interpreter import (
     axes_cylinder_sdf,
@@ -198,13 +199,7 @@ def _has_safe_proxies(scene: CompiledScene) -> bool:
     if root is None:
         return False
 
-    def leaves(node):
-        if node.op == "leaf":
-            yield node
-        for child in node.children:
-            yield from leaves(child)
-
-    return not any(proxied[leaf.brush] and leaf.negated for leaf in leaves(push_neg(root)))
+    return not any(proxied[leaf.brush] and leaf.negated for leaf in tree_leaves(push_neg(root)))
 
 
 def make_proxy_prepass(scene: CompiledScene, config: RenderConfig):
@@ -503,11 +498,13 @@ def make_shade(scene: CompiledScene, config: RenderConfig, field: str = "exact")
 
 def make_renderer(scene: CompiledScene, config: Optional[RenderConfig] = None,
                   field: str = "twin"):
-    """``render(arrays, campos, rgt, upp, fwd, t0=None, cull_counts=None) ->
-    f32[H, W, 3]`` linear RGB on the device of ``arrays``; wrap with
-    :func:`to_u8` for the reference's byte pixels.  ``t0`` f32[H, W] is a
-    per-pixel start parameter (see :func:`make_march`); a ray that stops at
-    its ``t0 > 0`` is shaded.  March, normals and shading ride ``field``:
+    """``render(arrays, campos, rgt, upp, fwd, t0=None, cull_counts=None,
+    rows=None) -> f32[H, W, 3]`` linear RGB on the device of ``arrays``;
+    wrap with :func:`to_u8` for the reference's byte pixels.  ``t0``
+    f32[H, W] is a per-pixel start parameter (see :func:`make_march`); a ray
+    that stops at its ``t0 > 0`` is shaded.  ``rows=(row0, n)`` renders
+    rows ``[row0, row0 + n)`` of the frame alone (``t0`` then f32[n, W]),
+    as the renderer kernel does for a sharded frame.  March, normals and shading ride ``field``:
     the twin (the default) makes it the plain version of the fused renderer
     kernel, whose normals are FD whatever ``config.normal_mode`` says, as
     the JAX package's Pallas renderer's are; "exact" makes it the JAX
@@ -532,8 +529,10 @@ def make_renderer(scene: CompiledScene, config: Optional[RenderConfig] = None,
     culled_sdf = None if culler is None else make_culled_sdf(scene, culler, field=field)
 
     def cull_for(o_proj, r_proj, t0, arrays, counts):
-        """The frame's :class:`MarchCull` and the FD normal's culled field."""
-        box, tiles, n_tiles = hoisted_boxes(config, o_proj, r_proj, t0)
+        """The frame's :class:`MarchCull` and the FD normal's culled field
+        (the kernel's warp tiles of the rows ``r_proj`` holds)."""
+        frame = dataclasses.replace(config, height=r_proj.shape[0])
+        box, tiles, n_tiles = hoisted_boxes(frame, o_proj, r_proj, t0)
         bank, ctx = array_bank_reader(arrays), eval_context(scene, arrays)
         hoisted = stack_cull(*culler(box, bank, ctx), (n_tiles,))
         if counts is not None:
@@ -550,10 +549,12 @@ def make_renderer(scene: CompiledScene, config: Optional[RenderConfig] = None,
 
         return mc, normal_field, preds
 
-    def render(arrays: SceneArrays, campos, rgt, upp, fwd, t0=None, cull_counts=None):
+    def render(arrays: SceneArrays, campos, rgt, upp, fwd, t0=None, cull_counts=None, rows=None):
         device = arrays.ad.device
         o_proj, rgt, upp, fwd = torch.as_tensor(camera_rows(campos, rgt, upp, fwd), device=device)
         r_proj = project(ray_directions(config, device), rgt, upp, fwd)
+        if rows is not None:
+            r_proj = r_proj[rows[0] : rows[0] + rows[1]]
         if culler is None:
             d = march(o_proj, r_proj, arrays, t0=t0)
             normals = normal_fn
@@ -690,20 +691,28 @@ def compose_hierarchical(config: RenderConfig, cone, fine):
     """Two-pass render (march_kernel.py:782-860 of the JAX package): ``cone``
     (``(arrays, o_proj, rays) -> t_safe``) marches the block-centre rays,
     each block's ``t_safe`` is repeated over its FxF pixels, and ``fine``
-    (``(arrays, campos, rgt, upp, fwd, t0) -> image``) marches every pixel
-    from there.  The coarse rays are projected as the fine rays are,
-    ``(uvx*a0 + uvy*a1) + IFOV*a2`` per frame axis ``a``."""
+    (``(arrays, campos, rgt, upp, fwd, t0, rows=None) -> image``) marches
+    every pixel from there.  The coarse rays are projected as the fine rays
+    are, ``(uvx*a0 + uvy*a1) + IFOV*a2`` per frame axis ``a``.
+    ``render(..., rows=(row0, n))`` renders rows ``[row0, row0 + n)`` alone,
+    from the block rows that cover them: each ray gives the bits it gives in
+    the whole frame."""
     f = config.hierarchical_factor
     uv = {"cpu": torch.from_numpy(coarse_ray_uv(config))}  # per device, copied once
 
-    def render(arrays: SceneArrays, campos, rgt, upp, fwd):
+    def render(arrays: SceneArrays, campos, rgt, upp, fwd, rows=None):
         device = arrays.ad.device
         if str(device) not in uv:
             uv[str(device)] = uv["cpu"].to(device)
-        rows = upload(camera_rows(campos, rgt, upp, fwd), device)
-        t_safe = cone(arrays, rows[0], project(uv[str(device)], *rows[1:]))
-        t0 = t_safe.repeat_interleave(f, dim=0).repeat_interleave(f, dim=1).contiguous()
-        return fine(arrays, campos, rgt, upp, fwd, t0)
+        cam = upload(camera_rows(campos, rgt, upp, fwd), device)
+        row0, n = (0, config.height) if rows is None else rows
+        c0, c1 = row0 // f, -(-(row0 + n) // f)
+        t_safe = cone(arrays, cam[0], project(uv[str(device)][c0:c1], *cam[1:]))
+        t0 = t_safe.repeat_interleave(f, dim=0).repeat_interleave(f, dim=1)
+        t0 = t0[row0 - c0 * f : row0 - c0 * f + n].contiguous()
+        if rows is None:
+            return fine(arrays, campos, rgt, upp, fwd, t0)
+        return fine(arrays, campos, rgt, upp, fwd, t0, rows=rows)
 
     return render
 
@@ -747,9 +756,10 @@ INERT_RAY = (0.0, 0.0, 1e-6)
 
 
 def make_compacted_renderer(scene: CompiledScene, config: Optional[RenderConfig] = None):
-    """``render(arrays, campos, rgt, upp, fwd) -> f32[H, W, 3]`` for a scene
-    with safe brush proxies (:func:`_has_safe_proxies`), on the exact field
-    (raymarch.py:739-844 of the JAX package):
+    """``render(arrays, campos, rgt, upp, fwd, rows=None) -> f32[H, W, 3]``
+    for a scene with safe brush proxies (:func:`_has_safe_proxies`), on the
+    exact field (raymarch.py:739-844 of the JAX package; ``rows=(row0, n)``:
+    those rows alone, each ray's bits the same):
 
     1. :func:`make_proxy_prepass` marches every ray on the proxy scene; a
        proxy miss is a pixel of ``miss_color`` and never touches the exact
@@ -776,10 +786,12 @@ def make_compacted_renderer(scene: CompiledScene, config: Optional[RenderConfig]
                                mode=config.normal_mode, epsilon=config.normal_epsilon)
     shade = make_shade(scene, config)
 
-    def render(arrays: SceneArrays, campos, rgt, upp, fwd):
+    def render(arrays: SceneArrays, campos, rgt, upp, fwd, rows=None):
         device = arrays.ad.device
+        row0, n_rows = (0, config.height) if rows is None else rows
         o_proj, rgt, upp, fwd = torch.as_tensor(camera_rows(campos, rgt, upp, fwd), device=device)
-        r_proj = project(ray_directions(config, device), rgt, upp, fwd).reshape(-1, 3)
+        r_proj = project(ray_directions(config, device)[row0 : row0 + n_rows], rgt, upp, fwd)
+        r_proj = r_proj.reshape(-1, 3)
         miss_color = torch.tensor(config.miss_color, dtype=r_proj.dtype, device=device)
         t0, miss = prepass(o_proj, r_proj, arrays)
         t0 = torch.clamp(t0 - 2.0 * config.sdf_epsilon, min=0.0)
@@ -805,7 +817,7 @@ def make_compacted_renderer(scene: CompiledScene, config: Optional[RenderConfig]
             ctx = eval_context(scene, arrays, rgt=rgt, upp=upp, fwd=fwd)
             color = shade(p, normal_fn(p, arrays), arrays, ctx)
             img[idx] = torch.where(shaded[:, None], color, miss_color)
-        return img.reshape(config.height, config.width, 3)
+        return img.reshape(n_rows, config.width, 3)
 
     render.survivors = 0
     return render
@@ -825,7 +837,10 @@ def make_scene_renderer(scene: CompiledScene, config: RenderConfig, device: torc
     off-TPU route on the exact field: :func:`make_compacted_renderer` for a
     scene with safe proxies (:func:`_compaction_eligible`), else
     :func:`make_renderer` with ``field="exact"``.  ``render.engine`` names
-    the route: "cuda" or "tape"."""
+    the route: "cuda" or "tape".  Every route's ``render`` also takes
+    ``rows=(row0, n)``: rows ``[row0, row0 + n)`` of the frame alone, each
+    ray's bits those of the whole frame (the sharded renderer's blocks,
+    parallel/render.py)."""
     from .cuda.brushes_kernel import supports_scene
     from .cuda.march_kernel import make_cuda_hierarchical_renderer, make_cuda_renderer
 

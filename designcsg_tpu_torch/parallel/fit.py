@@ -6,10 +6,19 @@ config 5).  The march runs detached, in the fit's ray-march kernel on the
 card, and gradients are reattached at the points it returns
 (ops/raymarch.py), so the backward is O(1) in march steps.
 
-One device.  The JAX package's sharded layout (pixels over a mesh,
-parameters replicated, gradients ``psum``-ed) is ROADMAP.md queue 1, item 12:
-a ``mesh`` raises, and ``use_mesh=True`` is the single-device harness, which
-is what a one-device mesh computes.
+With a ``mesh`` (parallel/mesh.py) the JAX package's sharded layout
+(fit.py:182-258 there): each rank marches its own block of pixel rows (the
+ray-march kernel on the card) with a rank-local early exit, and no
+collective runs inside the march (fit.py:202-209 there says why).  The
+collectives run on the loss terms and the gradients only.  The geometric
+loss is ``sum(num_k) / max(sum(den_k), 1) + w * sum(asq_k) / n_pixels`` over
+the ranks k, where ``den`` counts the pixels both frames hit, which carries
+no gradient: so ``den`` is all-reduced first, each rank back-propagates its
+own ``num_k / den + w * asq_k / n_pixels``, and the gradients are
+all-reduced with SUM, which is the gradient of the global loss (the mean of
+the per-rank ratios' gradients would not be).  Parameters and the Adam
+state stay replicated and identical on every rank: each applies the same
+reduced gradient.
 
 The harness keeps JAX's functional signatures, ``step_fn(state, target,
 campos, rgt, upp, fwd) -> (state, loss)``, but a ``torch.optim`` optimizer
@@ -24,6 +33,8 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from .. import resolve_device
 from ..compiler import CompiledScene, SceneArrays
@@ -35,6 +46,31 @@ from ..ops.raymarch import (
     project,
     ray_directions,
 )
+
+
+class _SumOverRanks(torch.autograd.Function):
+    """The sum of a rank's loss share over the world's ranks; the backward
+    passes the gradient to the rank's own share unchanged, and the harness
+    all-reduces the parameters' gradients afterwards (:func:`_reduce_grads`)."""
+
+    @staticmethod
+    def forward(ctx, value):
+        total = value.detach().clone()
+        dist.all_reduce(total)
+        return total
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad
+
+
+def _reduce_grads(params) -> None:
+    """All-reduce (SUM) every parameter's gradient over the world's ranks;
+    a rank whose share gave a parameter no gradient contributes zeros."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        dist.all_reduce(p.grad)
 
 
 class FitState(NamedTuple):
@@ -77,7 +113,8 @@ def _leaf(value, device) -> torch.Tensor:
 
 @dataclasses.dataclass
 class FitHarness:
-    """Single-device pixel-loss fit (the JAX package's ``FitHarness``)."""
+    """Pixel-loss fit (the JAX package's ``FitHarness``), on one device or,
+    with a ``mesh``, with pixel rows sharded over its ranks."""
 
     scene: CompiledScene
     config: RenderConfig
@@ -93,17 +130,22 @@ class FitHarness:
     #: leading view axis (targets and camera vectors stacked [V, ...]).
     multi_step_fn: Optional[Callable] = None
     device: torch.device = torch.device("cpu")
+    #: The frame rows ``(row0, row1)`` this rank renders: all of them
+    #: without a mesh.
+    rows: Optional[tuple] = None
 
     def stack_views(self, views):
         """Stack per-view ``(target, campos, rgt, upp, fwd)`` tuples along a
-        leading axis for :attr:`multi_step_fn`."""
+        leading axis for :attr:`multi_step_fn` (each target's rows placed
+        by :meth:`shard_target`)."""
         first = views[0][0]
         if isinstance(first, tuple):
-            targets = tuple(torch.stack([v[0][i] for v in views]) for i in range(len(first)))
+            targets = tuple(torch.stack([torch.as_tensor(v[0][i]) for v in views])
+                            for i in range(len(first)))
         else:
-            targets = torch.stack([v[0] for v in views])
+            targets = torch.stack([torch.as_tensor(v[0]) for v in views])
         cams = [np.stack([_host(v[i]) for v in views]) for i in range(1, 5)]
-        return (self.shard_target(targets),) + tuple(cams)
+        return (self.shard_target(targets, axis=1),) + tuple(cams)
 
     def init(self, params) -> FitState:
         params = {k: _leaf(v, self.device) for k, v in params.items()}
@@ -117,12 +159,20 @@ class FitHarness:
             arrays = arrays.to_torch(self.device)
         return self.shard_target(self.target_fn(arrays, campos, rgt, upp, fwd))
 
-    def shard_target(self, target):
-        """Place a target on the harness's device (one device: nothing to
-        shard)."""
+    def shard_target(self, target, axis: int = 0):
+        """Place a target on the harness's device: with a mesh, the rank's
+        rows of a whole frame (rows along ``axis``; a target that already
+        holds only the rank's rows stays as it is)."""
         if isinstance(target, tuple):
-            return tuple(self.shard_target(t) for t in target)
-        return torch.as_tensor(target, device=self.device).detach()
+            return tuple(self.shard_target(t, axis) for t in target)
+        target = torch.as_tensor(target, device=self.device).detach()
+        if self.mesh is None or target.shape[axis] == self.rows[1] - self.rows[0]:
+            return target
+        if target.shape[axis] != self.config.height:
+            raise ValueError(f"a target of {target.shape[axis]} rows on axis {axis}: the frame "
+                             f"has {self.config.height}, this rank renders "
+                             f"{self.rows[1] - self.rows[0]}")
+        return target.narrow(axis, self.rows[0], self.rows[1] - self.rows[0])
 
 
 def make_fit_harness(
@@ -142,16 +192,25 @@ def make_fit_harness(
     gradients are correct to first order; ``loss="rgb"`` fits raw pixels
     (shading has crease and material discontinuities that autodiff cannot
     see).  ``optimizer`` is a factory ``(params) -> torch.optim.Optimizer``,
-    by default :func:`adam` at 1e-2.  ``mesh`` is not ported (ROADMAP.md
-    queue 1, item 12); ``use_mesh`` is accepted and changes nothing on one
-    device.  Targets come from :meth:`FitHarness.render_target`."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_fit_harness(mesh=...): the sharded fit is not ported yet "
-            "(ROADMAP.md queue 1, item 12)"
-        )
+    by default :func:`adam` at 1e-2.  Targets come from
+    :meth:`FitHarness.render_target`.
+
+    ``mesh`` (a :class:`~torch.distributed.device_mesh.DeviceMesh` of
+    parallel/mesh.py) shards the pixel rows over its ranks, all axes
+    jointly, in blocks of ``ceil(H / n)`` rows (the last may be shorter),
+    on the rank's device (``device`` is then ignored); ``loss_fn`` returns
+    the global loss on every rank, and the steps all-reduce the gradients.
+    ``use_mesh`` is accepted for the JAX package's signature; without a
+    mesh it changes nothing."""
+    if mesh is not None and not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh (parallel/mesh.py "
+                        f"make_mesh), got {type(mesh).__name__}")
     if loss not in ("rgb", "geometric"):
         raise ValueError(f"unknown loss {loss!r}")
+    if mesh is not None:
+        from .mesh import mesh_device, mesh_rank
+
+        device = mesh_device(mesh)
     device = resolve_device(device)
     if config is None:
         config = RenderConfig(differentiable=True, soft_silhouette_bandwidth=0.02, gizmo=False)
@@ -162,7 +221,13 @@ def make_fit_harness(
 
     render_rays = make_ray_renderer(scene, config)
     render_geom = make_geometry_renderer(scene, config)
-    dirs = ray_directions(config, device)
+    rows = (0, config.height)
+    if mesh is not None:
+        k, n = mesh_rank(mesh)
+        per = -(-config.height // n)
+        rows = (min(k * per, config.height), min((k + 1) * per, config.height))
+    dirs = ray_directions(config, device)[rows[0] : rows[1]]
+    n_pixels = float(config.width * config.height)
 
     def frame(campos, rgt, upp, fwd):
         """(o_proj, r_proj, rgt, upp, fwd) on the device, from host vectors."""
@@ -178,6 +243,8 @@ def make_fit_harness(
 
     def loss_fn(params, target, campos, rgt, upp, fwd):
         out = forward(param_to_arrays(params), campos, rgt, upp, fwd)
+        if mesh is not None:
+            return _SumOverRanks.apply(sharded_share(out, target))
         if loss == "rgb":
             return torch.mean((out - target) ** 2)
         (d, alpha), (target_d, target_alpha) = out, target
@@ -186,11 +253,35 @@ def make_fit_harness(
         alpha_term = torch.mean((alpha - target_alpha) ** 2)
         return depth_term + silhouette_weight * alpha_term
 
+    def sharded_share(out, target):
+        """This rank's share of the global loss (fit.py:216-235 of the JAX
+        package), the pixel count ``den`` reduced over the ranks first."""
+        if loss == "rgb":
+            return torch.sum((out - target) ** 2) / (n_pixels * 3.0)
+        (d, alpha), (target_d, target_alpha) = out, target
+        both = ((d > 0) & (target_d > 0)).to(d.dtype)
+        den = torch.sum(both).detach().clone()
+        dist.all_reduce(den)
+        num = torch.sum(both * (d - target_d) ** 2)
+        asq = torch.sum((alpha - target_alpha) ** 2)
+        return num / torch.clamp(den, min=1.0) + silhouette_weight * asq / n_pixels
+
+    def backward(value) -> None:
+        """Back-propagate a loss: with a mesh, the rank's share (a rank whose
+        rows give it no graph has none; :meth:`reduce` then sums)."""
+        if mesh is None or value.requires_grad:
+            value.backward()
+
+    def reduce(params) -> None:
+        if mesh is not None:
+            _reduce_grads(params)
+
     def step_fn(state: FitState, target, campos, rgt, upp, fwd):
         opt = state.opt_state
         opt.zero_grad(set_to_none=True)
         value = loss_fn(state.params, target, campos, rgt, upp, fwd)
-        value.backward()
+        backward(value)
+        reduce(state.params.values())
         opt.step()
         return FitState(state.params, opt, state.step + 1), value.detach()
 
@@ -204,8 +295,9 @@ def make_fit_harness(
         for v in range(len(camposes)):
             target = tuple(t[v] for t in targets) if isinstance(targets, tuple) else targets[v]
             value = loss_fn(state.params, target, camposes[v], rgts[v], upps[v], fwds[v])
-            value.backward()
+            backward(value)
             total = total + value.detach()
+        reduce(state.params.values())
         opt.step()
         return FitState(state.params, opt, state.step + 1), total
 
@@ -218,12 +310,13 @@ def make_fit_harness(
         config=config,
         optimizer=optimizer,
         param_to_arrays=param_to_arrays,
-        mesh=None,
+        mesh=mesh,
         step_fn=step_fn,
         loss_fn=loss_fn,
         target_fn=target_fn,
         multi_step_fn=multi_step_fn,
         device=device,
+        rows=rows,
     )
 
 

@@ -304,7 +304,7 @@ def test_column_form_counts_and_hoist_rule():
         assert (ops["hoisted"], ops["point_form"], ops["column_form"], ops["per_column"]) == (
             hoisted, point, column, per_column)
         assert column_frame_ops(scene, gizmo=True) == ops
-        src = sdf_kernel_source(scene)
+        src = sdf_kernel_source(scene, cull=True)
         assert "HD float field_sdf_column(" in src and "HD float field_sdf_culled_column(" in src
         assert "field_sdf_column(" not in scene_source(scene, FAST)
     many = column_frame_ops(many_groups_scene())
@@ -368,7 +368,8 @@ def test_grid_cull_chain_rule():
         scene = get_design(name)
         for gizmo in (False, True):
             assert grid_cull_lanes(scene, gizmo) is want
-            assert f"#define GRID_CULL_LANES {int(want)}" in sdf_kernel_source(scene, gizmo=gizmo)
+            assert f"#define GRID_CULL_LANES {int(want)}" in sdf_kernel_source(scene, gizmo=gizmo,
+                                                                              cull=True)
     assert grid_cull_lanes(many_groups_scene(), False)
 
 
@@ -382,6 +383,6 @@ def test_grid_cull_column_rule():
         assert (len(column_hoisted(scene)) >= GRID_CULL_COLUMN_MIN_HOISTED) is want
         for gizmo in (False, True):
             assert grid_cull_column(scene, gizmo) is want
-            src = sdf_kernel_source(scene, gizmo=gizmo)
+            src = sdf_kernel_source(scene, gizmo=gizmo, cull=True)
             assert f"#define GRID_CULL_COLUMN {int(want)}" in src
             assert "HD float field_sdf_culled(" in src and "HD float field_sdf_culled_column(" in src

@@ -319,7 +319,7 @@ def test_bank_placement_rules_and_object_limit():
         assert "HD Iv cull_lane(" in src and "HD void cull_tree(" in src
     assert BANK_CONSTANT_MAX_OBJECTS == 1365
     with pytest.raises(ValueError, match="1365"):
-        scene_source(types.SimpleNamespace(num_objects=1366), bank_constant=True)
+        scene_source(types.SimpleNamespace(num_objects=1366), bank="constant")
     assert many_groups_scene().num_objects < BANK_CONSTANT_MAX_OBJECTS
 
 

@@ -295,7 +295,7 @@ def test_checkpoint_round_trip(scenes, tmp_path):
 
 def test_harness_refuses_a_mesh_and_bad_arguments(scenes):
     _, tscene = scenes
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_fit_harness(tscene, RenderConfig(**FIT), mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="loss"):
         make_fit_harness(tscene, RenderConfig(**FIT), loss="l1", device="cpu")

@@ -39,3 +39,23 @@ def custom_brush_scene():
                                                           pitch=0, roll=0, scale=np.ones(3)),
              compiler=c)
     return c.commit()
+
+
+def ring_scene(n_objects: int):
+    """``n_objects`` spheres on a ring: a flat additive scene of n + 1
+    objects (the root's empty brush first) and 2n + 2 tape commands, the
+    JAX package's capacity scene (tests/test_capacity.py _ring_scene) on the
+    port's API."""
+    c = api.new_design()
+    brush = api.sphere_brush(compiler=c)
+    for k in range(n_objects):
+        angle = 2 * np.pi * k / n_objects
+        api.draw(
+            brush,
+            Transform.initial(
+                position=[1.5 * np.cos(angle), 0.0, 1.5 * np.sin(angle)],
+                yaw=0.0, pitch=0.0, roll=0.0, scale=[0.2, 0.2, 0.2],
+            ),
+            compiler=c,
+        )
+    return c.commit()
