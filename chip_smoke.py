@@ -14,7 +14,7 @@ version at the main paths' shapes (the culled kernels also against the
 unculled ones, phase 5d, the culled grids bit for bit; the cone kernel's
 t_safe bit for bit; a scene without CUDA bodies runs on the plain tape,
 phase 5e; the export strategies agree at 256^3, phase 6).  Then it drives
-nine main paths through the user entry points, with launch counts set to 0
+the main paths through the user entry points, with launch counts set to 0
 before each and read after:
 
 * A: Design1's viewport, a k2 query, k1-field queries (the gizmo kernels)
@@ -73,7 +73,16 @@ before each and read after:
   query and the sharded corner provider bit-equal to K1 and K3, Design1's
   256^3 ``active`` export with ``sharded=True`` giving the same triangles,
   and a fit step with ``mesh=make_mesh()`` against the same step without;
-  it prints a ``parallel`` JSON line.
+  it prints a ``parallel`` JSON line;
+* ``cli bench`` (phase 8J) in this process, its output captured: the root
+  bench.py's cells at its sizes through the port's entry points (Design1's
+  over-relaxed, hierarchical and exact frames, Design2's and Logo's, the
+  exports of paths A, C and E, the fit steps of paths D and F, the 512^3
+  grid), each label of bench.py once on stderr and bench.py's JSON object
+  last on stdout; each frame and fit step launches its kernels once, no
+  nvcc runs, and the exports give the main paths' triangles.  It prints a
+  ``bench`` JSON line (the payload, each cell's seconds and its warm
+  call's, the phase's wall seconds, the card).
 
 Phase 6b (``capacity`` line) builds the capacity rings' units (the JAX
 package's 512-object gate and rings of 1,100 and 1,500 objects, whose banks
@@ -287,6 +296,34 @@ JAX_DESIGN2_LEVELS = {6: 6878, 7: 33273, 8: 159137}
 EARLIER_TRIANGLES = {"design1_active_512": 2180120, "cli_export_design1": 21992,
                      "design2_adaptive": 230648, "logo_adaptive_exact": 48134,
                      "logo_adaptive_baked": 40936}
+
+# Each main path's export triangles in this run (check_triangles), which
+# the bench's exports of the same configurations must give (phase 8J).
+PATH_TRIANGLES = {}
+# `cli bench`'s exports and the main paths' exports of the same configuration.
+BENCH_EXPORTS = {"design1_export_active": "design1_active_512",
+                 "design2_export_adaptive": "design2_adaptive",
+                 "logo_export_cuda-baked": "logo_adaptive_baked",
+                 "logo_export_tape-exact": "logo_adaptive_exact"}
+# The root bench.py's stderr labels (bench.py:39-366), in its order, with the
+# port's values where bench.py formats one in (the engine, the export field).
+BENCH_LABELS = (
+    "devices:", "march (overrelax 1.6):", "march (hierarchical + overrelax):",
+    "march (exact k1 semantics):", "design2 (hierarchical + overrelax):",
+    "design2 viewport (exact k1, cuda):", "logo viewport (exact k1, cuda):",
+    "logo (hierarchical + overrelax):", "design1 export 512^3 (active, 50 refine):",
+    "design2 adaptive export (own config, octree 6->8 grid 2^9):",
+    "logo export (adaptive 5->7 grid 2^7, sdf_field=cuda-baked):",
+    "logo export (adaptive 5->7 grid 2^7, sdf_field=tape-exact):",
+    "design1 fit step [exact] (640x480 geometric, fwd+bwd+adam):",
+    "logo fit step [exact] (640x480 geometric, fwd+bwd+adam):",
+    "logo fit step [twin] (640x480 geometric, fwd+bwd+adam):",
+    "grid 512^3:",
+)
+# bench.py's JSON keys (bench.py:369-384) and its two headline names.
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "baseline_note", "exact_k1_rays_per_s"]
+BENCH_METRICS = tuple(f"design1_sphere_trace_rays_per_s_chip[{mode}]"
+                      for mode in ("overrelax1.6", "hierarchical+overrelax1.6"))
 
 MARCH_PY = "designcsg_tpu/ops/pallas/march_kernel.py"
 SOURCES = {
@@ -690,6 +727,7 @@ def counting_refine(evaluator, sink: dict):
 
 
 def check_triangles(label: str, n: int) -> None:
+    PATH_TRIANGLES[label] = n
     check(n == EARLIER_TRIANGLES[label],
           f"{label}: {n} triangles, as before the grid kernel's redesign ({EARLIER_TRIANGLES[label]})")
 
@@ -1194,6 +1232,58 @@ def parallel_phase(dev) -> dict:
     out.update(launches=launches, fit_loss=dict(mesh=l_mesh, single=l_single), fit_grad_max_abs=grad_err,
                triangles=m_sharded.num_faces, phase_seconds=time.time() - start)
     return out
+
+
+def bench_phase(smi: str) -> dict:
+    """`cli bench` in this process (phase 8J), its stdout and stderr captured
+    and the launch counts set to 0 before it: the last stdout line is
+    bench.py's JSON object with a positive value, every bench.py label
+    appears once on stderr, in order; each frame cell launches its kernels
+    once a frame (a warm frame, then TRIALS trials of FRAME_REPS), each fit
+    step K4 once (its target too), the grid cell and the exports K3 and K1's
+    FD form; no nvcc runs (the units are phase 2's, keyed by their source);
+    the exports give the main paths' triangles.  Returns the ``bench``
+    line."""
+    from designcsg_tpu_torch import bench
+
+    units = sorted(kbuild.BUILD_DIR.glob("*.so"))
+    builds = dict(kbuild.BUILD_SECONDS)
+    out, err = io.StringIO(), io.StringIO()
+    kbuild.LAUNCHES.clear()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        record = cli.main(["bench"])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counted = dict(kbuild.LAUNCHES)
+    print("  " + err.getvalue().strip().replace("\n", "\n  "))
+    print("  " + out.getvalue().strip().replace("\n", "\n  "))
+    print(f"  bench {wall:.2f} s; launches {counted}")
+    payload = json.loads(out.getvalue().strip().splitlines()[-1])
+    check(list(payload) == BENCH_KEYS and payload["metric"] in BENCH_METRICS
+          and payload["value"] > 0 and payload == record["payload"],
+          f"bench JSON line: bench.py's keys, {payload['metric']} = {payload['value']}")
+    lines = err.getvalue().strip().splitlines()
+    found = [label for line in lines for label in BENCH_LABELS if line.startswith(label)]
+    check(found == list(BENCH_LABELS) and len(lines) == len(BENCH_LABELS),
+          f"bench stderr: each of bench.py's {len(BENCH_LABELS)} labels once, in order")
+    frames = 1 + bench.TRIALS * bench.FRAME_REPS
+    steps = sum(2 + bench.TRIALS * reps for _, _, reps in bench.FIT_CELLS)
+    for kernel, expect in (("renderer", 3 * frames), ("renderer_overrelax", frames),
+                           ("renderer_t0", 3 * frames), ("cone_march", 3 * frames),
+                           ("ray_march", steps)):
+        check(counted.get(kernel) == expect, f"bench: {kernel} launched {counted.get(kernel)} "
+                                             f"times == {expect}")
+    for kernel in ("grid_eval", "point_eval_fd"):
+        check(counted.get(kernel, 0) > 0, f"bench: {kernel} launched {counted.get(kernel, 0)} times")
+    check(sorted(kbuild.BUILD_DIR.glob("*.so")) == units and kbuild.BUILD_SECONDS == builds,
+          f"bench: no nvcc run ({len(units)} units on disk, all built before)")
+    for key, path in BENCH_EXPORTS.items():
+        check(record["triangles"][key] == PATH_TRIANGLES[path],
+              f"bench {key}: {record['triangles'][key]} triangles, path {path}'s "
+              f"{PATH_TRIANGLES[path]}")
+    return dict(payload=payload, seconds=record["seconds"], warm_seconds=record["warm_seconds"],
+                triangles=record["triangles"], wall_seconds=wall, launches=counted, card=smi)
 
 
 def main() -> int:
@@ -2034,6 +2124,10 @@ def main() -> int:
     phase("8I. item 12: a world of one over NCCL, the sharded frames, points, corners, export "
           "and fit step against the unsharded calls (launches counted)")
     print(json.dumps({"parallel": parallel_phase(dev)}))
+
+    phase("8J. `cli bench`: the root bench.py's cells through the port's entry points "
+          "(launches counted)")
+    print(json.dumps({"bench": bench_phase(smi)}))
 
     phase("9. timing (CUDA events, after warm-up)")
     # Each plain version is timed by one run (it was a warm-up and two or

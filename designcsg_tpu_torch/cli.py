@@ -1,7 +1,6 @@
 """Command-line interface of the PyTorch/CUDA port.
 
-Mirrors the JAX package's ``designcsg_tpu.cli`` for the commands the port
-has::
+Mirrors the JAX package's ``designcsg_tpu.cli``, every command of it::
 
     python -m designcsg_tpu_torch.cli render design1 -o out.png
     python -m designcsg_tpu_torch.cli render design2 --fast
@@ -14,6 +13,7 @@ has::
     python -m designcsg_tpu_torch.cli fit design1 --steps 150       # shape fit demo
     python -m designcsg_tpu_torch.cli watch mydesign.py -o live.png  # edit-run loop
     python -m designcsg_tpu_torch.cli studio workspace/              # browser shell
+    python -m designcsg_tpu_torch.cli bench                          # bench.py's cells
 
 Every command runs on the card; ``--device cpu`` takes the plain PyTorch
 path (the JAX CLI's ``--backend`` choice).  A design is a builtin name
@@ -40,14 +40,6 @@ BUILTIN = ("design1", "design2", "logo")
 # ``export --sdf-field``: the evaluator's engine (cli.py:172-177 of the JAX
 # package): its own rule, the kernels' (baked) field, or the exact tape.
 SDF_FIELDS = {"auto": None, "baked": True, "exact": False}
-
-# Commands of the JAX CLI not ported yet, with the ROADMAP.md item that
-# brings each: ``bench``, the last module of the port, with the benchmark
-# that will measure it.
-UNPORTED = {
-    "bench": "queue 1, item 11's rest (no benchmark of the port yet)",
-}
-
 
 def load_design(spec: str):
     """Resolve a design spec (builtin name or script path) to a CompiledScene."""
@@ -313,13 +305,13 @@ def cmd_studio(args):
           device=args.device)
 
 
-def _unported(name):
-    def cmd(args):
-        raise SystemExit(
-            f"designcsg_tpu_torch: '{name}' is not ported yet (ROADMAP.md {UNPORTED[name]})"
-        )
+def cmd_bench(args):
+    """The cells of the JAX package's root ``bench.py`` through the port's
+    entry points (bench.py here; cli.py:294-297 of the JAX package); returns
+    :func:`bench.main`'s record."""
+    from . import bench
 
-    return cmd
+    return bench.main(args.device)
 
 
 def main(argv=None):
@@ -418,13 +410,12 @@ def main(argv=None):
     device_arg(p)
     p.set_defaults(fn=cmd_studio)
 
-    for name in UNPORTED:
-        p = sub.add_parser(name, help=f"not ported yet (ROADMAP.md {UNPORTED[name]})")
-        p.add_argument("rest", nargs=argparse.REMAINDER)
-        p.set_defaults(fn=_unported(name))
+    p = sub.add_parser("bench", help="headline benchmark: bench.py's cells on the port")
+    device_arg(p)
+    p.set_defaults(fn=cmd_bench)
 
     args = parser.parse_args(argv)
-    args.fn(args)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

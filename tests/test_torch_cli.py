@@ -1,8 +1,8 @@
 """The port's CLI (``python -m designcsg_tpu_torch.cli``) in process on the
 CPU, mirroring tests/test_cli.py: render (also ``--fast``), render by script
 path, export at its default strategy against the JAX CLI's, preview against
-the JAX package's rasterizer, artifacts against its ``write_artifacts``, fit,
-and the commands that are not ported yet."""
+the JAX package's rasterizer, artifacts against its ``write_artifacts``, and
+fit (``bench``: tests/test_torch_bench.py)."""
 
 import os
 
@@ -130,10 +130,3 @@ def test_png_round_trip(tmp_path):
     rgb = np.random.default_rng(0).integers(0, 256, (7, 5, 3), dtype=np.uint8)
     cli.write_png(str(tmp_path / "a.png"), rgb)
     np.testing.assert_array_equal(cli.read_png(str(tmp_path / "a.png")), rgb)
-
-
-@pytest.mark.parametrize("command", sorted(cli.UNPORTED))
-def test_unported_commands_exit_naming_roadmap(command):
-    with pytest.raises(SystemExit, match="ROADMAP.md") as exc:
-        cli.main([command, "design1"])
-    assert exc.value.code != 0

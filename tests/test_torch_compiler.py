@@ -115,12 +115,13 @@ def test_intersection_and_subtraction_tape_equal():
 
 def test_port_stands_alone_without_jax():
     """Importing and running the port's CPU path, its shells (observability,
-    viewer, studio, cli) and one studio render of the new-design template,
-    with jax, designcsg_tpu and designs unimportable."""
+    viewer, studio, cli, bench), one studio render of the new-design template
+    and one bench cell, with jax, designcsg_tpu, designs and the root
+    bench.py unimportable."""
     code = textwrap.dedent(
         """
         import sys
-        for name in ("jax", "jaxlib", "designcsg_tpu", "designs"):
+        for name in ("jax", "jaxlib", "designcsg_tpu", "designs", "bench"):
             sys.modules[name] = None
         import dataclasses
         import numpy as np, torch
@@ -139,12 +140,13 @@ def test_port_stands_alone_without_jax():
                                    strategy="dense", device="cpu")
         assert report.num_triangles > 0
         import tempfile
-        from designcsg_tpu_torch import cli, observability, studio, viewer
+        from designcsg_tpu_torch import bench, cli, observability, studio, viewer
         with tempfile.TemporaryDirectory() as tmp:
             session = studio.StudioSession(studio.Workspace(tmp), width=32, height=24, device="cpu")
             assert session.run_text(studio.NEW_DESIGN_TEMPLATE)
             assert session.render_png()[1:4] == b"PNG"
-        assert not any(m.split(".")[0] in ("jax", "designcsg_tpu", "designs")
+        assert bench.grid_cell(scene, 8, 2, "cpu")["slab"].shape == (4, 8, 8)
+        assert not any(m.split(".")[0] in ("jax", "designcsg_tpu", "designs", "bench")
                        for m, v in sys.modules.items() if v is not None)
         print("standalone ok")
         """

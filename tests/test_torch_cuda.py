@@ -32,6 +32,7 @@ from designcsg_tpu_torch.ops.raymarch import (
     coarse_ray_uv,
     compose_hierarchical,
     make_cone_march,
+    make_hierarchical_renderer,
     make_renderer,
     make_scene_renderer,
     project,
@@ -801,3 +802,32 @@ def test_analytic_normals_and_dynamic_tape_on_the_card(design1, cuda_device):
         sc = get_design(name)
         a = sc.arrays.to_torch(cuda_device)
         assert torch.equal(make_dynamic_primary_sdf(sc)(t, a), make_primary_sdf(sc)(t, a))
+
+
+def test_bench_headline_cells_on_the_card(design1, cuda_device):
+    """``cli bench``'s Design1 headline cells at 640x480 on the card: the
+    over-relaxed frame (K2) and the hierarchical frame (K5, then K2 from its
+    t0 plane) each launched once a frame, the warm frames against their
+    plain versions, and the payload's form."""
+    from designcsg_tpu_torch import bench
+
+    scene, arrays = design1
+    kbuild.LAUNCHES.clear()
+    fast = bench.render_cell(scene, bench.OVERRELAX, 2, "cuda")
+    hier = bench.render_cell(scene, bench.HIERARCHICAL, 2, "cuda")
+    counted = dict(kbuild.LAUNCHES)
+    frames = 1 + bench.TRIALS * 2
+    assert fast["engine"] == hier["engine"] == "cuda"
+    assert counted == {"renderer_overrelax": frames, "cone_march": frames, "renderer_t0": frames}
+    cam = Camera.initial().as_arrays()
+    for cell, config in ((fast, bench.OVERRELAX), (hier, bench.HIERARCHICAL)):
+        assert cell["frame"].shape == (480, 640, 3) and cell["seconds"] > 0
+        plain = (make_hierarchical_renderer if config.march_hierarchical else make_renderer)(
+            scene, config)(arrays, *cam)
+        diff = (cell["frame"] - plain).abs()
+        assert diff.max() < 1e-3 and (diff > 1e-4).float().mean() < 0.01
+    mode = "hierarchical+overrelax1.6" if hier["rays_per_s"] > fast["rays_per_s"] else "overrelax1.6"
+    out = bench.payload(max(fast["rays_per_s"], hier["rays_per_s"]), mode, fast["rays_per_s"])
+    assert list(out) == ["metric", "value", "unit", "vs_baseline", "baseline_note",
+                         "exact_k1_rays_per_s"]
+    assert out["metric"] == f"design1_sphere_trace_rays_per_s_chip[{mode}]" and out["value"] > 0
