@@ -28,6 +28,7 @@ import torch
 
 from . import resolve_device
 from .compiler import CompiledScene, SceneArrays
+from .observability import span, to_device, to_host
 from .ops.cuda.brushes_kernel import supports_scene
 from .ops.cuda.sdf_kernel import make_grid_eval, make_point_eval
 from .ops.interpreter import make_normal_fn, make_primary_sdf
@@ -155,26 +156,28 @@ class BatchEvaluator:
         """Swap scene parameters (the reference's setArbitraryData path,
         Evaluator.cpp:213-225, generalized to all banks)."""
         self.arrays = arrays
-        self.device_arrays = arrays.to_torch(self.device)
+        self.device_arrays = SceneArrays(*(to_device(a, self.device) for a in arrays.fields()))
 
     def _run_chunked(self, fn, points, out_dim: int) -> np.ndarray:
         pts = np.asarray(points, dtype=np.float32).reshape(-1, 3)
         n = pts.shape[0]
         out = np.empty((n,) if out_dim == 1 else (n, out_dim), dtype=np.float32)
         for start in range(0, n, self.chunk_size):
-            chunk = torch.from_numpy(pts[start : start + self.chunk_size]).to(self.device)
-            out[start : start + chunk.shape[0]] = fn(chunk, self.device_arrays).cpu().numpy()
+            chunk = to_device(pts[start : start + self.chunk_size], self.device)
+            out[start : start + chunk.shape[0]] = to_host(fn(chunk, self.device_arrays))
         return out
 
     def eval_sdf_at_points(self, points) -> np.ndarray:
         """f32[N, 3] -> f32[N] (Evaluator.cpp:117-162 semantics)."""
-        self.sdf_eval_count += len(points)
-        return self._run_chunked(self.point_eval, points, 1)
+        with span("evaluator.eval_sdf_at_points"):
+            self.sdf_eval_count += len(points)
+            return self._run_chunked(self.point_eval, points, 1)
 
     def eval_normal_at_points(self, points) -> np.ndarray:
         """f32[N, 3] -> f32[N, 3] (Evaluator.cpp:167-211 semantics)."""
-        self.sdf_eval_count += self.normal_eval_cost * len(points)
-        return self._run_chunked(self._normal, points, 3)
+        with span("evaluator.eval_normal_at_points"):
+            self.sdf_eval_count += self.normal_eval_cost * len(points)
+            return self._run_chunked(self._normal, points, 3)
 
     # -- lattice and cell-corner entry points ------------------------------
 
@@ -184,14 +187,14 @@ class BatchEvaluator:
         chunk (K = 1 without offsets), ``chunk_size`` points at most."""
         cells = np.asarray(cells).reshape(-1, 3)
         k = 1 if offsets is None else len(offsets)
-        lo32 = torch.as_tensor(np.asarray(lo, np.float32).reshape(1, 3), device=self.device)
-        cell32 = torch.tensor(np.float32(cellsize), device=self.device)
+        lo32 = to_device(np.asarray(lo, np.float32).reshape(1, 3), self.device)
+        cell32 = to_device(np.float32(cellsize), self.device)
         offs = None
         if offsets is not None:
-            offs = torch.as_tensor(np.asarray(offsets, np.float32).reshape(1, k, 3), device=self.device)
+            offs = to_device(np.asarray(offsets, np.float32).reshape(1, k, 3), self.device)
         per = max(1, self.chunk_size // k)
         for start in range(0, cells.shape[0], per):
-            idx = torch.as_tensor(cells[start : start + per].astype(np.int32), device=self.device)
+            idx = to_device(cells[start : start + per].astype(np.int32), self.device)
             f = idx.to(torch.float32)
             if offs is not None:
                 f = (f[:, None, :] + offs).reshape(-1, 3)
@@ -204,29 +207,33 @@ class BatchEvaluator:
         out = np.empty(shape + ((out_dim,) if out_dim > 1 else ()), dtype=np.float32)
         flat = out.reshape((n * k,) + out.shape[len(shape):])
         for start, take, pts in self._lattice_chunks(cells, offsets, lo, cellsize):
-            flat[start * k : (start + take) * k] = fn(pts, self.device_arrays).cpu().numpy()
+            flat[start * k : (start + take) * k] = to_host(fn(pts, self.device_arrays))
         return out
 
     def eval_sdf_at_lattice(self, idx, lo, cellsize) -> np.ndarray:
         """f32[N]: SDF at ``lo + cellsize * idx`` for integer lattice
         ``idx[N, 3]``."""
-        self.sdf_eval_count += len(idx)
-        return self._run_lattice(self.point_eval, idx, None, lo, cellsize, 1)
+        with span("evaluator.eval_sdf_at_lattice"):
+            self.sdf_eval_count += len(idx)
+            return self._run_lattice(self.point_eval, idx, None, lo, cellsize, 1)
 
     def eval_normal_at_lattice(self, idx, lo, cellsize) -> np.ndarray:
         """f32[N, 3]: normals at ``lo + cellsize * idx``."""
-        self.sdf_eval_count += self.normal_eval_cost * len(idx)
-        return self._run_lattice(self._normal, idx, None, lo, cellsize, 3)
+        with span("evaluator.eval_normal_at_lattice"):
+            self.sdf_eval_count += self.normal_eval_cost * len(idx)
+            return self._run_lattice(self._normal, idx, None, lo, cellsize, 3)
 
     def eval_sdf_at_cell_corners(self, cells, lo, cellsize, offsets) -> np.ndarray:
         """f32[N, K]: SDF at ``lo + cellsize * (cells[n] + offsets[k])``."""
-        self.sdf_eval_count += len(offsets) * len(cells)
-        return self._run_lattice(self.point_eval, cells, offsets, lo, cellsize, 1)
+        with span("evaluator.eval_sdf_at_cell_corners"):
+            self.sdf_eval_count += len(offsets) * len(cells)
+            return self._run_lattice(self.point_eval, cells, offsets, lo, cellsize, 1)
 
     def eval_normal_at_cell_corners(self, cells, lo, cellsize, offsets) -> np.ndarray:
         """f32[N, K, 3]: normals at the cells' ``offsets``."""
-        self.sdf_eval_count += self.normal_eval_cost * len(offsets) * len(cells)
-        return self._run_lattice(self._normal, cells, offsets, lo, cellsize, 3)
+        with span("evaluator.eval_normal_at_cell_corners"):
+            self.sdf_eval_count += self.normal_eval_cost * len(offsets) * len(cells)
+            return self._run_lattice(self._normal, cells, offsets, lo, cellsize, 3)
 
     def eval_corner_signs_near(self, cells, lo, cellsize, offsets, near_bound: float):
         """(signs u8[N], near bool[N]) for the K <= 8 corner offsets: bit k of
@@ -240,18 +247,19 @@ class BatchEvaluator:
         k = len(offsets)
         if k > 8:
             raise ValueError(f"sign packing needs K <= 8, got {k}")
-        n = np.asarray(cells).reshape(-1, 3).shape[0]
-        self.sdf_eval_count += k * n
-        out = np.empty((n, 2), np.uint8)
-        bound = torch.tensor(np.float32(near_bound), device=self.device)
-        weights = torch.tensor([1 << i for i in range(k)], dtype=torch.int32, device=self.device)
-        for start, take, pts in self._lattice_chunks(cells, offsets, lo, cellsize):
-            v = self.point_eval(pts, self.device_arrays).reshape(take, k)
-            signs = ((v < 0.0).to(torch.int32) * weights).sum(1)
-            near = v.abs().amin(1) <= bound
-            packed = torch.stack([signs, near.to(torch.int32)], 1).to(torch.uint8)
-            out[start : start + take] = packed.cpu().numpy()
-        return out[:, 0].copy(), out[:, 1].astype(bool)
+        with span("evaluator.eval_corner_signs_near"):
+            n = np.asarray(cells).reshape(-1, 3).shape[0]
+            self.sdf_eval_count += k * n
+            out = np.empty((n, 2), np.uint8)
+            bound = to_device(np.float32(near_bound), self.device)
+            weights = to_device(np.array([1 << i for i in range(k)], np.int32), self.device)
+            for start, take, pts in self._lattice_chunks(cells, offsets, lo, cellsize):
+                v = self.point_eval(pts, self.device_arrays).reshape(take, k)
+                signs = ((v < 0.0).to(torch.int32) * weights).sum(1)
+                near = v.abs().amin(1) <= bound
+                packed = torch.stack([signs, near.to(torch.int32)], 1).to(torch.uint8)
+                out[start : start + take] = to_host(packed)
+            return out[:, 0].copy(), out[:, 1].astype(bool)
 
     def refine_on_device(
         self, vertices: np.ndarray, steps: int, step_scale: float = 1.0
@@ -261,14 +269,15 @@ class BatchEvaluator:
         device across steps: each step is one SDF evaluation and one normal
         (7 point evaluations with FD normals; on the kernels' field one
         launch of K1's FD form), chunk by chunk."""
-        v = np.asarray(vertices, dtype=np.float32)
-        n = v.shape[0]
-        self.sdf_eval_count += int(steps) * n * (1 + self.normal_eval_cost)
-        out = np.empty_like(v)
-        for start in range(0, n, self.chunk_size):
-            p = torch.from_numpy(v[start : start + self.chunk_size]).to(self.device)
-            for _ in range(int(steps)):
-                s, nrm = self._sdf_normal(p, self.device_arrays)
-                p = p - step_scale * nrm * s[:, None]
-            out[start : start + p.shape[0]] = p.cpu().numpy()
-        return out
+        with span("evaluator.refine_on_device"):
+            v = np.asarray(vertices, dtype=np.float32)
+            n = v.shape[0]
+            self.sdf_eval_count += int(steps) * n * (1 + self.normal_eval_cost)
+            out = np.empty_like(v)
+            for start in range(0, n, self.chunk_size):
+                p = to_device(v[start : start + self.chunk_size], self.device)
+                for _ in range(int(steps)):
+                    s, nrm = self._sdf_normal(p, self.device_arrays)
+                    p = p - step_scale * nrm * s[:, None]
+                out[start : start + p.shape[0]] = to_host(p)
+            return out

@@ -43,13 +43,13 @@ triangulation (export/retopo.py:stitch_boundary_loops).
 
 from __future__ import annotations
 
-import time
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 
 from ..compiler import ExportConfig
 from ..evaluator import BatchEvaluator
+from ..observability import span
 from ..ops.marching_cubes import (
     CORNERS,
     EDGE_AXIS,
@@ -266,85 +266,81 @@ def extract_surface_adaptive(
                     progress("extract", (L - min_l + 1) / n_levels)
                 continue
         res = 1 << L
-        r1 = res + 1
         scale = 1 << (max_l - L)
         cellsize = 2.0 * half_diameter / res
-        lt = level_seconds[L] = {}
-        t0 = time.time()
-
-        # 1. corner evaluation: the cell indices go up, and packed per-cell
-        # (signs, near) bytes come down -- the 8-corner expansion and the
-        # classification reduction happen on the device.  Classification
-        # and emission consume only corner SIGNS, and the descend test only
-        # the near-band bit, so no float32 corner value leaves the device.
-        signs, near = evaluator.eval_corner_signs_near(
-            cells, lo, cellsize, CORNERS,
-            np.sqrt(3.0) * cellsize * _CULL_FACTOR,
-        )
-        # Synthetic +-1 corner values: every downstream consumer
-        # (_canonical_offsets, _ambiguous_edges, _emit_cells) reads only
-        # `vals < 0`, which the sign bits reproduce exactly.
-        inside_bits = (signs[:, None] >> np.arange(8, dtype=np.uint8)[None, :]) & 1
-        vals = np.where(inside_bits.astype(bool), np.float32(-1.0), np.float32(1.0))
-        lt["corners"] = round(time.time() - t0, 3)
-        t0 = time.time()
-
-        # 2. classification: mixed corner signs <=> straddles the surface.
-        surface = (signs != 0) & (signs != 255)
-
-        if L == max_l:
-            emit = surface
-            refine = np.zeros_like(surface)
-        else:
-            if surface.any():
-                # Normals (6 SDF evals each) only at corners of SURFACE
-                # cells — the complexity test reads nothing else, and
-                # surface cells are a small fraction of the near-cull wave.
-                scells = np.nonzero(surface)[0]
-                norms = evaluator.eval_normal_at_cell_corners(
-                    cells[scells], lo, cellsize, CORNERS
+        with span("extract.level"):
+            steps = {}
+            with span("extract.corners") as steps["corners"]:
+                # 1. corner evaluation: the cell indices go up, and packed
+                # per-cell (signs, near) bytes come down -- the 8-corner
+                # expansion and the classification reduction happen on the
+                # device.  Classification and emission consume only corner
+                # SIGNS, and the descend test only the near-band bit, so no
+                # float32 corner value leaves the device.
+                signs, near = evaluator.eval_corner_signs_near(
+                    cells, lo, cellsize, CORNERS,
+                    np.sqrt(3.0) * cellsize * _CULL_FACTOR,
                 )
-                complex_cell = np.zeros_like(surface)
-                complex_cell[scells] = _edge_angles(norms) > threshold
+                # Synthetic +-1 corner values: every downstream consumer
+                # (_canonical_offsets, _ambiguous_edges, _emit_cells) reads
+                # only `vals < 0`, which the sign bits reproduce exactly.
+                inside_bits = (signs[:, None] >> np.arange(8, dtype=np.uint8)[None, :]) & 1
+                vals = np.where(inside_bits.astype(bool), np.float32(-1.0), np.float32(1.0))
+                # 2. classification: mixed corner signs <=> straddles the
+                # surface.
+                surface = (signs != 0) & (signs != 255)
+
+            if L == max_l:
+                emit = surface
+                refine = np.zeros_like(surface)
             else:
-                complex_cell = np.zeros_like(surface)
-            lt["normals"] = round(time.time() - t0, 3)
-            t0 = time.time()
-            emit = surface & ~complex_cell
-            if emit.any():
-                n_samples = min((1 << (grid_l - L)) - 1, _MAX_EDGE_SAMPLES)
-                cand = np.nonzero(emit)[0]
-                amb = _ambiguous_edges(
-                    evaluator, cells[cand], vals[cand], lo, cellsize, n_samples
-                )
-                emit[cand[amb]] = False
-            lt["ambiguity"] = round(time.time() - t0, 3)
-            t0 = time.time()
-            refine = near & ~emit
+                with span("extract.normals") as steps["normals"]:
+                    complex_cell = np.zeros_like(surface)
+                    if surface.any():
+                        # Normals (6 SDF evals each) only at corners of
+                        # SURFACE cells — the complexity test reads nothing
+                        # else, and surface cells are a small fraction of
+                        # the near-cull wave.
+                        scells = np.nonzero(surface)[0]
+                        norms = evaluator.eval_normal_at_cell_corners(
+                            cells[scells], lo, cellsize, CORNERS
+                        )
+                        complex_cell[scells] = _edge_angles(norms) > threshold
+                with span("extract.ambiguity") as steps["ambiguity"]:
+                    emit = surface & ~complex_cell
+                    if emit.any():
+                        n_samples = min((1 << (grid_l - L)) - 1, _MAX_EDGE_SAMPLES)
+                        cand = np.nonzero(emit)[0]
+                        amb = _ambiguous_edges(
+                            evaluator, cells[cand], vals[cand], lo, cellsize, n_samples
+                        )
+                        emit[cand[amb]] = False
+                    refine = near & ~emit
 
-        # 3. emission at this level, vertices canonical on the fine lattice.
-        t0 = time.time()
-        lvl_keys = np.zeros((0,), np.int64)
-        lvl_pos = np.zeros((0, 3), np.float32)
-        if emit.any():
-            ecells, evals_ = cells[emit], vals[emit]
-            offs = _canonical_offsets(
-                evaluator, ecells, evals_, scale, lo, fine_cell
-            )
-            keys, pos = _emit_cells(ecells, evals_, offs, scale, fine_res)
-            if keys.shape[0]:
-                lvl_keys = keys.reshape(-1)
-                lvl_pos = pos.reshape(-1, 3)
-                all_keys.append(lvl_keys)
-                all_pos.append(lvl_pos)
-                level_tris[L] = int(keys.shape[0])
-                levels_emitted += 1
-        lt["emit"] = round(time.time() - t0, 3)
+            # 3. emission at this level, vertices canonical on the fine
+            # lattice; then the next wave's cells.
+            with span("extract.emit") as steps["emit"]:
+                lvl_keys = np.zeros((0,), np.int64)
+                lvl_pos = np.zeros((0, 3), np.float32)
+                if emit.any():
+                    ecells, evals_ = cells[emit], vals[emit]
+                    offs = _canonical_offsets(
+                        evaluator, ecells, evals_, scale, lo, fine_cell
+                    )
+                    keys, pos = _emit_cells(ecells, evals_, offs, scale, fine_res)
+                    if keys.shape[0]:
+                        lvl_keys = keys.reshape(-1)
+                        lvl_pos = pos.reshape(-1, 3)
+                        all_keys.append(lvl_keys)
+                        all_pos.append(lvl_pos)
+                        level_tris[L] = int(keys.shape[0])
+                        levels_emitted += 1
 
-        rc = cells[refine]
-        cells = (rc[:, None, :] * 2 + CORNERS[None, :, :]).reshape(-1, 3)
-        if slab_store is not None:
-            slab_store.save(L, keys=lvl_keys, pos=lvl_pos, next_cells=cells)
+                rc = cells[refine]
+                cells = (rc[:, None, :] * 2 + CORNERS[None, :, :]).reshape(-1, 3)
+                if slab_store is not None:
+                    slab_store.save(L, keys=lvl_keys, pos=lvl_pos, next_cells=cells)
+        level_seconds[L] = {step: timed.seconds for step, timed in steps.items()}
         if progress is not None:
             progress("extract", (L - min_l + 1) / n_levels)
 
@@ -353,19 +349,21 @@ def extract_surface_adaptive(
     # One weld across every level: canonical keys make coincident vertices
     # from different levels identical, so the cross-level seams that CAN
     # match do match exactly.
-    mesh = assemble_mesh(all_keys, all_pos, lo, fine_cell)
-    if heal and levels_emitted > 1 and mesh.num_faces:
-        # Two-stage crack healing.  (1) All vertices lie on the fine
-        # half-lattice; walking triangle edges on it heals collinear
-        # T-junctions — the reference's whole retopology pass.  (2) The
-        # chord-vs-polyline sliver loops the reference leaves behind are
-        # then closed exactly by capping the remaining boundary loops.
-        mesh = retopologize(mesh, lo, fine_cell / 2.0)
-        mesh = stitch_boundary_loops(
-            mesh,
-            domain_lo=lo,
-            domain_hi=lo + 2.0 * half_diameter,
-            eps=fine_cell * 1e-3,
-            stats=stats,
-        )
+    with span("extract.mesh_ops"):
+        mesh = assemble_mesh(all_keys, all_pos, lo, fine_cell)
+        if heal and levels_emitted > 1 and mesh.num_faces:
+            # Two-stage crack healing.  (1) All vertices lie on the fine
+            # half-lattice; walking triangle edges on it heals collinear
+            # T-junctions — the reference's whole retopology pass.  (2) The
+            # chord-vs-polyline sliver loops the reference leaves behind
+            # are then closed exactly by capping the remaining boundary
+            # loops.
+            mesh = retopologize(mesh, lo, fine_cell / 2.0)
+            mesh = stitch_boundary_loops(
+                mesh,
+                domain_lo=lo,
+                domain_hi=lo + 2.0 * half_diameter,
+                eps=fine_cell * 1e-3,
+                stats=stats,
+            )
     return mesh

@@ -30,7 +30,6 @@ import dataclasses
 import enum
 import hashlib
 import os
-import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -39,6 +38,7 @@ import torch
 from .. import native
 from ..compiler import CompiledScene, ExportConfig
 from ..evaluator import BatchEvaluator
+from ..observability import StageTimer, span, to_device, to_host
 from ..ops.marching_cubes import Mesh, extract_surface
 from . import writers
 
@@ -153,20 +153,22 @@ def autodetect_bounding_box_device(
     lo32, cell32 = float(np.float32(lo)), float(np.float32(cell))
     arrays = evaluator.device_arrays
     device = arrays.ad.device
-    axis = lo32 + cell32 * torch.arange(res, dtype=torch.float32, device=device)
-    big = torch.tensor(1e9, dtype=torch.float32, device=device)
-    mins = np.zeros(3)
-    maxs = np.zeros(3)
-    for z0 in range(0, res, slab):
-        sz = min(slab, res - z0)
-        vals = evaluator.grid_eval(arrays, [lo32] * 3, cell32, float(z0), sz, res)
-        zaxis = lo32 + cell32 * (torch.arange(sz, dtype=torch.float32, device=device) + float(z0))
-        mask = vals < eps
-        coords = (axis[None, None, :], axis[None, :, None], zaxis[:, None, None])
-        m = torch.stack([torch.where(mask, c, big).amin() for c in coords])
-        M = torch.stack([torch.where(mask, c, -big).amax() for c in coords])
-        mins = np.minimum(mins, m.cpu().numpy().astype(np.float64))
-        maxs = np.maximum(maxs, M.cpu().numpy().astype(np.float64))
+    with span("evaluator.autodetect_bounding_box_device"):
+        axis = lo32 + cell32 * torch.arange(res, dtype=torch.float32, device=device)
+        big = to_device(np.float32(1e9), device)
+        mins = np.zeros(3)
+        maxs = np.zeros(3)
+        for z0 in range(0, res, slab):
+            sz = min(slab, res - z0)
+            vals = evaluator.grid_eval(arrays, [lo32] * 3, cell32, float(z0), sz, res)
+            zaxis = lo32 + cell32 * (torch.arange(sz, dtype=torch.float32, device=device)
+                                     + float(z0))
+            mask = vals < eps
+            coords = (axis[None, None, :], axis[None, :, None], zaxis[:, None, None])
+            m = torch.stack([torch.where(mask, c, big).amin() for c in coords])
+            M = torch.stack([torch.where(mask, c, -big).amax() for c in coords])
+            mins = np.minimum(mins, to_host(m).astype(np.float64))
+            maxs = np.maximum(maxs, to_host(M).astype(np.float64))
     center = (mins + maxs) / 2.0
     return center, float((maxs - mins).max()) / 2.0
 
@@ -228,7 +230,7 @@ def _extract_dense(evaluator, center, half, resolution, slab_cells, progress, sl
             vals = evaluator.grid_eval(
                 evaluator.device_arrays, lo, cell, np.float32(z0), sz + 1, resolution + 1
             )
-            return vals.cpu().numpy()
+            return to_host(vals)
 
     return extract_surface(evaluator.eval_sdf_at_points, center, half, resolution, midpoint=False,
                            slab_cells=slab_cells, progress=progress,
@@ -268,47 +270,93 @@ def export_mesh(
     each slab's z-rows.  Every rank computes the same mesh; only rank 0
     reads and writes ``resume_dir`` (broadcasting what it read) and writes
     the files.
+
+    The export is an ``export.mesh`` span (observability.py) whose
+    children are its stages (``export.bounding_box``, ``export.extract``,
+    ``export.refine``, ``export.write``); the report's ``stage_seconds``
+    holds their seconds.
     """
-    config = export_config or scene.export_config or ExportConfig()
-    resolution = 1 << config.grid_level
-    slab = min(slab_cells, resolution)
-    strategy = resolve_strategy(strategy, config, resolution, slab)
-    evaluator = evaluator or BatchEvaluator(scene, device=device, sharded=sharded)
-    device_mesh, first = None, True
-    if sharded:
-        from ..parallel.mesh import broadcast_from_first, make_mesh, mesh_rank
+    with span("export.mesh"):
+        config = export_config or scene.export_config or ExportConfig()
+        resolution = 1 << config.grid_level
+        slab = min(slab_cells, resolution)
+        strategy = resolve_strategy(strategy, config, resolution, slab)
+        evaluator = evaluator or BatchEvaluator(scene, device=device, sharded=sharded)
+        device_mesh, first = None, True
+        if sharded:
+            from ..parallel.mesh import make_mesh, mesh_rank
 
-        device_mesh = evaluator.mesh or make_mesh(device=evaluator.device)
-        first = mesh_rank(device_mesh)[0] == 0
-    stage_seconds: dict = {}
-    stats: dict = {"sdf_field": evaluator.sdf_field, "strategy": strategy,
-                   "native": native.available()}
-    if evaluator.twin_tolerance:
-        stats["twin_tolerance"] = evaluator.twin_tolerance
-    evals = 0
+            device_mesh = evaluator.mesh or make_mesh(device=evaluator.device)
+            first = mesh_rank(device_mesh)[0] == 0
+        timer = StageTimer()
+        stats: dict = {"sdf_field": evaluator.sdf_field, "strategy": strategy,
+                       "native": native.available()}
+        if evaluator.twin_tolerance:
+            stats["twin_tolerance"] = evaluator.twin_tolerance
+        evals = 0
 
-    def _tick(stage, frac):
-        if progress is not None:
-            progress(stage, frac)
+        def _tick(stage, frac):
+            if progress is not None:
+                progress(stage, frac)
 
-    # A monitor (observability.ExportMonitor) reads the live telemetry.
-    if hasattr(progress, "attach_stats"):
-        progress.attach_stats(stats)
+        # A monitor (observability.ExportMonitor) reads the live telemetry.
+        if hasattr(progress, "attach_stats"):
+            progress.attach_stats(stats)
 
-    t0 = time.time()
-    if autodetect:
-        _tick(ExportStage.ESTIMATING_BOUNDING_BOX.name, 0.0)
-        detect = (
-            autodetect_bounding_box_device if evaluator.use_kernels else autodetect_bounding_box
+        with timer.stage("export.bounding_box"):
+            if autodetect:
+                _tick(ExportStage.ESTIMATING_BOUNDING_BOX.name, 0.0)
+                detect = (autodetect_bounding_box_device if evaluator.use_kernels
+                          else autodetect_bounding_box)
+                center, half = detect(evaluator, config.bounding_box_half_diameter,
+                                      autodetect_resolution)
+                evals += autodetect_resolution**3
+            else:
+                center, half = np.zeros(3), config.bounding_box_half_diameter
+
+        with timer.stage("export.extract"):
+            _tick(ExportStage.EXTRACTING_SURFACE.name, 0.0)
+            mesh, extract_evals = _extract(scene, config, evaluator, center, half, resolution,
+                                           slab, slab_cells, strategy, resume_dir, device_mesh,
+                                           first, _tick, stats)
+            evals += extract_evals
+
+        with timer.stage("export.refine"):
+            _tick(ExportStage.REFINING_VERTICES.name, 0.0)
+            evals_before = evaluator.sdf_eval_count
+            refined = evaluator.refine_on_device(mesh.vertices,
+                                                 steps=config.gradient_descent_steps)
+            _tick(ExportStage.REFINING_VERTICES.name, 1.0)
+            mesh = Mesh(vertices=refined, faces=mesh.faces)
+            evals += evaluator.sdf_eval_count - evals_before
+
+        with timer.stage("export.write"):
+            _tick(ExportStage.WRITING_TRIANGLES.name, 0.0)
+            if stl_path is not None and first:
+                writers.write_stl(stl_path, mesh)
+            if ply_path is not None and first:
+                writers.write_ply(ply_path, mesh)
+        _tick(ExportStage.FINISHED.name, 1.0)
+
+        report = ExportReport(
+            stage_seconds=timer.stages,
+            bounding_box_center=center,
+            bounding_box_half_diameter=half,
+            num_vertices=mesh.num_vertices,
+            num_triangles=mesh.num_faces,
+            sdf_evals=evals,
+            stl_path=stl_path,
+            ply_path=ply_path,
+            stats=stats,
         )
-        center, half = detect(evaluator, config.bounding_box_half_diameter, autodetect_resolution)
-        evals += autodetect_resolution**3
-    else:
-        center, half = np.zeros(3), config.bounding_box_half_diameter
-    stage_seconds["bounding_box"] = time.time() - t0
+        return mesh, report
 
-    t0 = time.time()
-    _tick(ExportStage.EXTRACTING_SURFACE.name, 0.0)
+
+def _extract(scene, config, evaluator, center, half, resolution, slab, slab_cells, strategy,
+             resume_dir, device_mesh, first, tick, stats):
+    """The extract stage: the mesh before refinement, from the resume
+    files where they hold it, and the field evaluations it ran."""
+    evals = 0
     cache_path = None
     slab_store = None
     mesh = None
@@ -334,6 +382,8 @@ def export_mesh(
             with np.load(cache_path) as data:
                 cached = (data["vertices"], data["faces"])
         if device_mesh is not None:
+            from ..parallel.mesh import broadcast_from_first
+
             cached = broadcast_from_first(cached, device_mesh)
         if cached is not None:
             mesh = Mesh(vertices=cached[0], faces=cached[1])
@@ -345,7 +395,7 @@ def export_mesh(
             cache_path = None
 
     if mesh is None:
-        extract_progress = lambda s, f: _tick(ExportStage.EXTRACTING_SURFACE.name, f)  # noqa: E731
+        extract_progress = lambda s, f: tick(ExportStage.EXTRACTING_SURFACE.name, f)  # noqa: E731
         evals_before = evaluator.sdf_eval_count
         if strategy == "adaptive":
             from .adaptive import extract_surface_adaptive
@@ -373,35 +423,4 @@ def export_mesh(
             evals += (resolution + 1) ** 2 * (resolution + -(-resolution // slab))
         if cache_path is not None:
             np.savez(cache_path, vertices=mesh.vertices, faces=mesh.faces)
-    stage_seconds["extract"] = time.time() - t0
-
-    t0 = time.time()
-    _tick(ExportStage.REFINING_VERTICES.name, 0.0)
-    evals_before = evaluator.sdf_eval_count
-    refined = evaluator.refine_on_device(mesh.vertices, steps=config.gradient_descent_steps)
-    _tick(ExportStage.REFINING_VERTICES.name, 1.0)
-    mesh = Mesh(vertices=refined, faces=mesh.faces)
-    evals += evaluator.sdf_eval_count - evals_before
-    stage_seconds["refine"] = time.time() - t0
-
-    t0 = time.time()
-    _tick(ExportStage.WRITING_TRIANGLES.name, 0.0)
-    if stl_path is not None and first:
-        writers.write_stl(stl_path, mesh)
-    if ply_path is not None and first:
-        writers.write_ply(ply_path, mesh)
-    stage_seconds["write"] = time.time() - t0
-    _tick(ExportStage.FINISHED.name, 1.0)
-
-    report = ExportReport(
-        stage_seconds=stage_seconds,
-        bounding_box_center=center,
-        bounding_box_half_diameter=half,
-        num_vertices=mesh.num_vertices,
-        num_triangles=mesh.num_faces,
-        sdf_evals=evals,
-        stl_path=stl_path,
-        ply_path=ply_path,
-        stats=stats,
-    )
-    return mesh, report
+    return mesh, evals

@@ -3,9 +3,19 @@
 The reference's observability is a mutexed GUI console, redirected stdout
 and a 100 ms monitor thread rendering export state, elapsed time and memory
 (DesignCSG.cpp:300-310,575-601,839-1025).  Library equivalents: the
-package's logger, a stage-timing registry, a ``torch.profiler`` trace
-context writing a Chrome trace, and :class:`ExportMonitor`, a progress
-renderer for terminals.
+package's logger, the span recorder (:class:`span`, :class:`StageTimer`,
+:func:`to_device`, :func:`to_host`), a ``torch.profiler`` trace context
+writing a Chrome trace, and :class:`ExportMonitor`, a progress renderer for
+terminals.
+
+Spans time the program's layers on ``time.perf_counter_ns``, the clock the
+benchmark's harness puts on the profiler's (benchmark/program.py).  Every
+span is timed, and it is kept in :func:`spans` only while a torch profiler
+runs: the viewer's ``viewer.frame`` (``viewer.render``, ``copy.d2h``), the
+export's ``export.mesh`` (its stages, the adaptive extract's
+``extract.level`` and ``extract.mesh_ops``), the evaluator's
+``evaluator.<entry>`` calls and every ``copy.h2d``/``copy.d2h`` with the
+bytes it moved.
 """
 
 from __future__ import annotations
@@ -14,9 +24,14 @@ import contextlib
 import logging
 import os
 import sys
+import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.autograd import profiler as _profiler
 
 logger = logging.getLogger("designcsg_tpu_torch")
 
@@ -44,20 +59,133 @@ def configure_logging(level=logging.INFO, path: Optional[str] = None):
     return logger
 
 
+#: ``(name, start_ns, end_ns, parent, value)``: ``parent`` is the index of
+#: the enclosing recorded span on the same thread (-1 for a root), ``value``
+#: a count (a copy's bytes) or None; ``end_ns`` is None while it is open.
+Span = Tuple[str, int, Optional[int], int, Optional[int]]
+
+_SPANS: List[Span] = []
+_LOCK = threading.Lock()
+_OPEN = threading.local()
+_generation = 0  # bumped by clear_spans, so spans open across it drop out
+
+
+def _open_stack() -> list:
+    """This thread's open recorded spans, ``(generation, index)``."""
+    try:
+        return _OPEN.stack
+    except AttributeError:
+        _OPEN.stack = []
+        return _OPEN.stack
+
+
+def spans() -> List[Span]:
+    """The spans recorded while a torch profiler ran, in the order they
+    opened (a parent before its children)."""
+    return _SPANS
+
+
+def clear_spans():
+    global _generation
+    with _LOCK:
+        _SPANS.clear()
+        _generation += 1
+
+
+class span:
+    """``with span(name, value=None) as s:`` times the block on
+    ``time.perf_counter_ns`` (``s.seconds``) and, when a torch profiler is
+    running as it opens, records it in :func:`spans`.  ``value`` (settable
+    inside the block) is a count, such as a copy's bytes."""
+
+    __slots__ = ("name", "value", "start_ns", "end_ns", "_index", "_generation")
+
+    def __init__(self, name: str, value: Optional[int] = None):
+        self.name, self.value = name, value
+
+    def __enter__(self) -> "span":
+        self._index = -1
+        if _profiler._is_profiler_enabled:
+            stack = _open_stack()
+            with _LOCK:
+                while stack and stack[-1][0] != _generation:
+                    stack.pop()
+                parent = stack[-1][1] if stack else -1
+                self._index, self._generation = len(_SPANS), _generation
+                _SPANS.append((self.name, 0, None, parent, None))
+            stack.append((self._generation, self._index))
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.end_ns = time.perf_counter_ns()
+        if self._index >= 0:
+            stack = _open_stack()
+            if stack and stack[-1] == (self._generation, self._index):
+                stack.pop()
+            with _LOCK:
+                if self._generation == _generation:
+                    parent = _SPANS[self._index][3]
+                    _SPANS[self._index] = (self.name, self.start_ns, self.end_ns, parent,
+                                           self.value)
+        return False
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) * 1e-9
+
+
+def _nbytes(x) -> int:
+    return x.nelement() * x.element_size() if isinstance(x, torch.Tensor) else np.asarray(x).nbytes
+
+
+def _device_of(x) -> torch.device:
+    return x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
+
+
+def to_device(array, device) -> torch.Tensor:
+    """``torch.as_tensor(array, device=device)`` inside a ``copy.h2d`` span
+    whose value is the bytes that cross to another device (0 when the
+    array is already there, as on the CPU)."""
+    device = torch.device(device)
+    moved = _nbytes(array) if _device_of(array).type != device.type else 0
+    with span("copy.h2d", moved):
+        return torch.as_tensor(array, device=device)
+
+
+def to_host(tensor: torch.Tensor) -> np.ndarray:
+    """``tensor.cpu().numpy()`` inside a ``copy.d2h`` span whose value is
+    the bytes that leave the device (0 for a tensor on the CPU)."""
+    moved = _nbytes(tensor) if tensor.device.type != "cpu" else 0
+    with span("copy.d2h", moved):
+        return tensor.cpu().numpy()
+
+
+class _Stage(span):
+    __slots__ = ("_stages",)
+
+    def __init__(self, name: str, stages: Dict[str, float]):
+        super().__init__(name)
+        self._stages = stages
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        key = self.name.rpartition(".")[2]
+        self._stages[key] = self._stages.get(key, 0.0) + self.seconds
+        return False
+
+
 @dataclass
 class StageTimer:
-    """Accumulates wall-clock seconds per named stage; renders a report
-    table."""
+    """Accumulates seconds per named stage; renders a report table.  Each
+    stage is a :class:`span` of its name, and its seconds add to
+    ``stages`` under the name's last dotted part (``export.extract`` adds
+    to ``stages["extract"]``)."""
 
     stages: Dict[str, float] = field(default_factory=dict)
 
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.time()
-        try:
-            yield
-        finally:
-            self.stages[name] = self.stages.get(name, 0.0) + time.time() - t0
+    def stage(self, name: str) -> span:
+        return _Stage(name, self.stages)
 
     def report(self) -> str:
         total = sum(self.stages.values())
@@ -76,13 +204,14 @@ def profile_trace(log_dir: str):
     ``<log_dir>/trace.json`` (open it in Perfetto or chrome://tracing).
     On the card the window opens ``TRACE_MARGIN_S`` before the block, on
     an idle card, and closes that long after the block's work has
-    finished.  Yields the profiler."""
-    import torch
+    finished.  The recorded :func:`spans` are emptied as it opens.  Yields
+    the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(log_dir, exist_ok=True)
+    clear_spans()
     if cuda:
         torch.cuda.synchronize()
     with profile(activities=activities) as prof:

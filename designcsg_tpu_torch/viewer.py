@@ -26,12 +26,15 @@ from . import resolve_device
 from .camera import Camera
 from .compiler import CompiledScene
 from .config import RenderConfig
+from .observability import span, to_host
 
 
 def _make_render_fn(scene: CompiledScene, config: RenderConfig, device=None):
     """``run(camera) -> f32[H, W, 3]`` (numpy) on ``device`` (default
     ``cuda``); ``run.engine`` names the renderer's route.  The renderer
-    and the scene's banks are built and uploaded once."""
+    and the scene's banks are built and uploaded once.  A frame is a
+    ``viewer.frame`` span: ``viewer.render`` from the camera to the
+    renderer's launch, then the read-back's ``copy.d2h``."""
     from .ops.raymarch import make_scene_renderer
 
     device = resolve_device(device)
@@ -39,7 +42,10 @@ def _make_render_fn(scene: CompiledScene, config: RenderConfig, device=None):
     render = make_scene_renderer(scene, config, device)
 
     def run(camera: Camera) -> np.ndarray:
-        return render(arrays, *camera.as_arrays()).cpu().numpy()
+        with span("viewer.frame"):
+            with span("viewer.render"):
+                image = render(arrays, *camera.as_arrays())
+            return to_host(image)
 
     run.engine = render.engine
     return run

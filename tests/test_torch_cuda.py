@@ -771,6 +771,62 @@ def test_orbit_frames_and_trace_on_the_card(design1, cuda_device, tmp_path):
         assert any("render_kernel" in e.get("name", "") for e in json.load(f)["traceEvents"])
 
 
+def test_frame_spans_share_the_device_trace_clock(design1, cuda_device):
+    """Under the benchmark's profiler (its CUDA activity alone) 640x480
+    Design1 frames record ``viewer.frame``, ``viewer.render`` and
+    ``copy.d2h`` (so torch's private profiler flag that observability.py
+    reads holds on this torch).  Moved onto the profiler's clock
+    (benchmark/program.py), the spans hold what the profiler saw, within
+    20 us: every device-to-host copy on the card and the runtime's
+    ``cudaMemcpyAsync`` that issued it lie inside a ``copy.d2h`` span, and
+    each ``viewer.render`` holds the frame's two launches (the bank's fill
+    and K2)."""
+    import time
+    import types
+
+    from benchmark import program
+    from benchmark import trace as tracing
+    from designcsg_tpu_torch import observability
+    from designcsg_tpu_torch.viewer import _make_render_fn
+
+    scene, _ = design1
+    run = _make_render_fn(scene, RenderConfig(width=640, height=480), cuda_device)
+    cam = Camera.initial()
+    run(cam)
+    observability.clear_spans()
+    raw = []
+    with tracing.traced(cuda_device) as capture:
+        for _ in range(20):
+            a = time.perf_counter()
+            run(cam)
+            b = time.perf_counter()
+            raw.append(("benchmark.frame", int(a * 1e9), int(b * 1e9)))
+            cam.orbit(0.01, 0.0)
+    ctx = types.SimpleNamespace(window={"spans": raw}, trace=tracing.reduce(capture, raw))
+    spans = program.spans(ctx)
+    assert program.roots(spans, "viewer.frame") == 20
+    renders = [s for _, s in program.named(spans, "viewer.render")]
+    copies = [s for i, s in program.named(spans, "copy.d2h")
+              if program.under(spans, i, "viewer.frame")]
+    assert len(renders) == 20 and len(copies) == 20
+    assert all(s.value == 640 * 480 * 3 * 4 for s in copies)
+    lo, hi = ctx.trace.window
+
+    def misfit(records, within):
+        return max(min(max(0, s.start - a, b - s.end) for s in within) for a, b in records)
+
+    dtoh = [(a, b) for _, a, b in ctx.trace.device_ops("Memcpy DtoH")]
+    memcpy = [(a, b) for n, a, b in ctx.trace.host if n == "cudaMemcpyAsync" and lo <= a < hi]
+    launches = [(a, b) for n, a, b in ctx.trace.host if n == "cudaLaunchKernel"]
+    inside = [sum(1 for a, b in launches if r.start - 20_000 <= a and b <= r.end + 20_000)
+              for r in renders]
+    assert len(dtoh) == 20 and len(memcpy) == 20 and inside == [2] * 20
+    worst = {"Memcpy DtoH": misfit(dtoh, copies), "cudaMemcpyAsync": misfit(memcpy, copies)}
+    print(f"largest misfit outside copy.d2h, ns: {worst}; shift {program.shift(ctx)} ns, "
+          f"the clocks' offset {program.host_offset()} ns")
+    assert max(worst.values()) <= 20_000
+
+
 def test_compacted_renderer_on_the_card(cuda_device):
     """Logo's compacted frame on the card against make_renderer on the exact
     field by the JAX package's rule (tests/test_raymarch.py:202-207)."""
