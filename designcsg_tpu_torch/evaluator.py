@@ -14,8 +14,10 @@ package) take integer lattice indices and make the points on the device as
 ``lo + cell * idx``: one float32 product, then one float32 sum, as the grid
 kernel rounds its lattice.  Index tensors go up once per chunk; corner signs
 and the near-band flag are packed on the device, so two bytes per cell come
-back.  The JAX package's i16 up-link, chunk-tail buckets and asynchronous
-copy windows exist for its TPU host link and are not carried over.
+back.  ``eval_surface_cells`` takes a cell list that already lies on the
+device and brings back only the cells that straddle the surface.  The JAX
+package's i16 up-link, chunk-tail buckets and asynchronous copy windows
+exist for its TPU host link and are not carried over.
 """
 
 from __future__ import annotations
@@ -184,8 +186,11 @@ class BatchEvaluator:
     def _lattice_chunks(self, cells, offsets, lo, cellsize):
         """Yield ``(start, take, points f32[take * K, 3])`` on the device:
         ``lo + cellsize * (cells[n] + offsets[k])`` for the cells of each
-        chunk (K = 1 without offsets), ``chunk_size`` points at most."""
-        cells = np.asarray(cells).reshape(-1, 3)
+        chunk (K = 1 without offsets), ``chunk_size`` points at most.
+        ``cells`` is a host array, whose chunks go up as int32, or an int32
+        tensor on the device, which is sliced in place."""
+        if not isinstance(cells, torch.Tensor):
+            cells = np.asarray(cells).reshape(-1, 3)
         k = 1 if offsets is None else len(offsets)
         lo32 = to_device(np.asarray(lo, np.float32).reshape(1, 3), self.device)
         cell32 = to_device(np.float32(cellsize), self.device)
@@ -194,7 +199,9 @@ class BatchEvaluator:
             offs = to_device(np.asarray(offsets, np.float32).reshape(1, k, 3), self.device)
         per = max(1, self.chunk_size // k)
         for start in range(0, cells.shape[0], per):
-            idx = to_device(cells[start : start + per].astype(np.int32), self.device)
+            idx = cells[start : start + per]
+            if not isinstance(idx, torch.Tensor):
+                idx = to_device(idx.astype(np.int32), self.device)
             f = idx.to(torch.float32)
             if offs is not None:
                 f = (f[:, None, :] + offs).reshape(-1, 3)
@@ -235,6 +242,20 @@ class BatchEvaluator:
             self.sdf_eval_count += self.normal_eval_cost * len(offsets) * len(cells)
             return self._run_lattice(self._normal, cells, offsets, lo, cellsize, 3)
 
+    def _corner_signs_near(self, cells, lo, cellsize, offsets, near_bound, n: int):
+        """Yield ``(start, take, signs i32[take], near bool[take])`` on the
+        device, chunk by chunk, for :meth:`eval_corner_signs_near` and
+        :meth:`eval_surface_cells`; counts the ``K * n`` evaluations."""
+        k = len(offsets)
+        if k > 8:
+            raise ValueError(f"sign packing needs K <= 8, got {k}")
+        self.sdf_eval_count += k * n
+        bound = to_device(np.float32(near_bound), self.device)
+        weights = to_device(np.array([1 << i for i in range(k)], np.int32), self.device)
+        for start, take, pts in self._lattice_chunks(cells, offsets, lo, cellsize):
+            v = self.point_eval(pts, self.device_arrays).reshape(take, k)
+            yield start, take, ((v < 0.0).to(torch.int32) * weights).sum(1), v.abs().amin(1) <= bound
+
     def eval_corner_signs_near(self, cells, lo, cellsize, offsets, near_bound: float):
         """(signs u8[N], near bool[N]) for the K <= 8 corner offsets: bit k of
         ``signs[n]`` is set iff the SDF at ``lo + cellsize * (cells[n] +
@@ -244,22 +265,34 @@ class BatchEvaluator:
         ROADMAP F3).  Marching cubes consumes exactly this (corner signs pick
         the table case, the near band drives the octree descent,
         mesh.hpp:176-183); both are packed on the device."""
-        k = len(offsets)
-        if k > 8:
-            raise ValueError(f"sign packing needs K <= 8, got {k}")
         with span("evaluator.eval_corner_signs_near"):
             n = np.asarray(cells).reshape(-1, 3).shape[0]
-            self.sdf_eval_count += k * n
             out = np.empty((n, 2), np.uint8)
-            bound = to_device(np.float32(near_bound), self.device)
-            weights = to_device(np.array([1 << i for i in range(k)], np.int32), self.device)
-            for start, take, pts in self._lattice_chunks(cells, offsets, lo, cellsize):
-                v = self.point_eval(pts, self.device_arrays).reshape(take, k)
-                signs = ((v < 0.0).to(torch.int32) * weights).sum(1)
-                near = v.abs().amin(1) <= bound
+            for start, take, signs, near in self._corner_signs_near(
+                    cells, lo, cellsize, offsets, near_bound, n):
                 packed = torch.stack([signs, near.to(torch.int32)], 1).to(torch.uint8)
                 out[start : start + take] = to_host(packed)
             return out[:, 0].copy(), out[:, 1].astype(bool)
+
+    def eval_surface_cells(self, cells: torch.Tensor, lo, cellsize, offsets, near_bound: float):
+        """:meth:`eval_corner_signs_near` for int32 ``cells[N, 3]`` on the
+        device, with only the cells whose corner signs straddle the surface
+        (some but not all of the K bits set) brought to the host, in one
+        read-back: ``(rows i64[S], surface cells i64[S, 3], signs u8[S],
+        near)``, ``rows`` their ascending positions in ``cells`` and
+        ``near`` bool[N] left on the device."""
+        with span("evaluator.eval_surface_cells"):
+            n = cells.shape[0]
+            signs = torch.empty((n,), dtype=torch.int32, device=self.device)
+            near = torch.empty((n,), dtype=torch.bool, device=self.device)
+            for start, take, s, m in self._corner_signs_near(
+                    cells, lo, cellsize, offsets, near_bound, n):
+                signs[start : start + take] = s
+                near[start : start + take] = m
+            rows = torch.nonzero((signs != 0) & (signs != (1 << len(offsets)) - 1)).reshape(-1)
+            packed = to_host(torch.cat([rows.to(torch.int32)[:, None], cells[rows],
+                                        signs[rows, None]], 1)).astype(np.int64)
+            return packed[:, 0], packed[:, 1:4], packed[:, 4].astype(np.uint8), near
 
     def refine_on_device(
         self, vertices: np.ndarray, steps: int, step_scale: float = 1.0

@@ -15,10 +15,12 @@ over active cell sets -- each level is one batched wave of device
 evaluations instead of a pointer chase:
 
   level L = min_level .. max_level:
-    1. the corner signs and the near-band flag of the active cells, packed
-       on the device (BatchEvaluator.eval_corner_signs_near);
-    2. classify every cell in one vectorized pass:
-         - *surface cell*  : corner signs straddle zero;
+    1. the corner signs and the near-band flag of the active cells, whose
+       list lives on the evaluator's device from level to level
+       (BatchEvaluator.eval_surface_cells): only the surface cells come to
+       the host;
+    2. classify the cells:
+         - *surface cell*  : corner signs straddle zero (on the device);
          - *near cell*     : min |corner| <= sqrt(3)*cell*1.1 -- the Lipschitz
            bound replacing the reference's center-sample sphere cull
            (mesh.hpp:167-170, same 1.1 fudge factor);
@@ -29,8 +31,8 @@ evaluations instead of a pointer chase:
            any edge add sign transitions beyond what the endpoints imply
            (the wiggle the corner signs cannot see, mesh.hpp:221-238);
     3. emit simple surface cells at this level; refine complex/ambiguous/
-       near cells into their 8 children for the next wave; at max_level emit
-       every surface cell.
+       near cells into their 8 children for the next wave, on the device;
+       at max_level emit every surface cell.
 
 Vertices are *canonical* across levels: a cut cube edge's vertex sits at the
 midpoint of the *max_level* sub-edge containing the sign crossing, computed
@@ -46,10 +48,11 @@ from __future__ import annotations
 from typing import Callable, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..compiler import ExportConfig
 from ..evaluator import BatchEvaluator
-from ..observability import span
+from ..observability import span, to_device, to_host
 from ..ops.marching_cubes import (
     CORNERS,
     EDGE_AXIS,
@@ -236,15 +239,19 @@ def extract_surface_adaptive(
 
     level_tris: dict = {}
     level_seconds: dict = {}
+    level_cells: dict = {}
     if stats is not None:
         stats["level_triangles"] = level_tris
+        stats["level_cells"] = level_cells
         stats["level_seconds"] = level_seconds
 
+    # Each level's cell list lives on the evaluator's device as int32
+    # (x, y, z), x fastest: only the surface cells come to the host.
+    device = evaluator.device
     n0 = 1 << min_l
-    gz, gy, gx = np.meshgrid(
-        np.arange(n0), np.arange(n0), np.arange(n0), indexing="ij"
-    )
-    cells = np.stack([gx, gy, gz], axis=-1).reshape(-1, 3).astype(np.int64)
+    r = torch.arange(n0, dtype=torch.int32, device=device)
+    gz, gy, gx = torch.meshgrid(r, r, r, indexing="ij")
+    cells = torch.stack([gx, gy, gz], dim=-1).reshape(-1, 3)
 
     all_keys = []
     all_pos = []
@@ -261,7 +268,7 @@ def extract_surface_adaptive(
                     all_pos.append(shard["pos"])
                     level_tris[L] = int(shard["keys"].size // 3)
                     levels_emitted += 1
-                cells = shard["next_cells"].reshape(-1, 3)
+                cells = to_device(shard["next_cells"].reshape(-1, 3).astype(np.int32), device)
                 if progress is not None:
                     progress("extract", (L - min_l + 1) / n_levels)
                 continue
@@ -271,59 +278,56 @@ def extract_surface_adaptive(
         with span("extract.level"):
             steps = {}
             with span("extract.corners") as steps["corners"]:
-                # 1. corner evaluation: the cell indices go up, and packed
-                # per-cell (signs, near) bytes come down -- the 8-corner
-                # expansion and the classification reduction happen on the
-                # device.  Classification and emission consume only corner
-                # SIGNS, and the descend test only the near-band bit, so no
-                # float32 corner value leaves the device.
-                signs, near = evaluator.eval_corner_signs_near(
+                # 1. corner evaluation and classification on the device:
+                # mixed corner signs <=> straddles the surface.  Only the
+                # surface cells' rows, coordinates and sign bytes come
+                # down; the near-band flags stay for the descent.
+                # Classification and emission consume only corner SIGNS,
+                # so no float32 corner value leaves the device.
+                rows, scells, signs, near = evaluator.eval_surface_cells(
                     cells, lo, cellsize, CORNERS,
                     np.sqrt(3.0) * cellsize * _CULL_FACTOR,
                 )
-                # Synthetic +-1 corner values: every downstream consumer
-                # (_canonical_offsets, _ambiguous_edges, _emit_cells) reads
-                # only `vals < 0`, which the sign bits reproduce exactly.
+                steps["corners"].value = rows.shape[0]
+                level_cells[L] = (int(cells.shape[0]), int(rows.shape[0]))
+                # Synthetic +-1 corner values of the surface cells: every
+                # downstream consumer (_canonical_offsets, _ambiguous_edges,
+                # _emit_cells) reads only `vals < 0`, which the sign bits
+                # reproduce exactly.
                 inside_bits = (signs[:, None] >> np.arange(8, dtype=np.uint8)[None, :]) & 1
                 vals = np.where(inside_bits.astype(bool), np.float32(-1.0), np.float32(1.0))
-                # 2. classification: mixed corner signs <=> straddles the
-                # surface.
-                surface = (signs != 0) & (signs != 255)
 
-            if L == max_l:
-                emit = surface
-                refine = np.zeros_like(surface)
-            else:
+            # 2. which surface cells emit at this level (all of them at
+            # max_level); the others of the near band refine.
+            emit = np.ones(rows.shape, bool)
+            if L < max_l:
                 with span("extract.normals") as steps["normals"]:
-                    complex_cell = np.zeros_like(surface)
-                    if surface.any():
+                    if rows.size:
                         # Normals (6 SDF evals each) only at corners of
                         # SURFACE cells — the complexity test reads nothing
                         # else, and surface cells are a small fraction of
                         # the near-cull wave.
-                        scells = np.nonzero(surface)[0]
                         norms = evaluator.eval_normal_at_cell_corners(
-                            cells[scells], lo, cellsize, CORNERS
+                            scells, lo, cellsize, CORNERS
                         )
-                        complex_cell[scells] = _edge_angles(norms) > threshold
+                        emit = ~(_edge_angles(norms) > threshold)  # complex cells refine
                 with span("extract.ambiguity") as steps["ambiguity"]:
-                    emit = surface & ~complex_cell
                     if emit.any():
                         n_samples = min((1 << (grid_l - L)) - 1, _MAX_EDGE_SAMPLES)
                         cand = np.nonzero(emit)[0]
                         amb = _ambiguous_edges(
-                            evaluator, cells[cand], vals[cand], lo, cellsize, n_samples
+                            evaluator, scells[cand], vals[cand], lo, cellsize, n_samples
                         )
                         emit[cand[amb]] = False
-                    refine = near & ~emit
 
             # 3. emission at this level, vertices canonical on the fine
-            # lattice; then the next wave's cells.
+            # lattice; then the next wave's cells, made on the device from
+            # the near cells that do not emit.
             with span("extract.emit") as steps["emit"]:
                 lvl_keys = np.zeros((0,), np.int64)
                 lvl_pos = np.zeros((0, 3), np.float32)
                 if emit.any():
-                    ecells, evals_ = cells[emit], vals[emit]
+                    ecells, evals_ = scells[emit], vals[emit]
                     offs = _canonical_offsets(
                         evaluator, ecells, evals_, scale, lo, fine_cell
                     )
@@ -336,10 +340,17 @@ def extract_surface_adaptive(
                         level_tris[L] = int(keys.shape[0])
                         levels_emitted += 1
 
-                rc = cells[refine]
-                cells = (rc[:, None, :] * 2 + CORNERS[None, :, :]).reshape(-1, 3)
+                if L < max_l:
+                    refine = near  # near & ~emit, in place
+                    refine[to_device(rows[emit], device)] = False
+                    rc = cells[refine]
+                    children = to_device(CORNERS.astype(np.int32), device)
+                    cells = (rc[:, None, :] * 2 + children[None, :, :]).reshape(-1, 3)
+                else:
+                    cells = cells[:0]
                 if slab_store is not None:
-                    slab_store.save(L, keys=lvl_keys, pos=lvl_pos, next_cells=cells)
+                    slab_store.save(L, keys=lvl_keys, pos=lvl_pos,
+                                    next_cells=to_host(cells).astype(np.int64))
         level_seconds[L] = {step: timed.seconds for step, timed in steps.items()}
         if progress is not None:
             progress("extract", (L - min_l + 1) / n_levels)
