@@ -1,0 +1,15 @@
+"""Seconds of the adaptive extract's boundary stitching, an export: the
+program's ``extract.stitch`` spans (``stitch_boundary_loops``, inside
+``extract.mesh_ops``) over the ``export.mesh`` spans in the traced window.
+None where the program records no such span."""
+
+from benchmark import program
+
+
+def read(ctx):
+    spans = program.spans(ctx)
+    exports = program.roots(spans, "export.mesh")
+    ops = [s for _, s in program.named(spans, "extract.stitch")] if exports else []
+    if not ops:
+        return None
+    return 1e-9 * sum(s.ns for s in ops) / exports

@@ -359,9 +359,10 @@ def extract_surface_adaptive(
         return Mesh(np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int64))
     # One weld across every level: canonical keys make coincident vertices
     # from different levels identical, so the cross-level seams that CAN
-    # match do match exactly.
+    # match do match exactly.  Each op's span holds the faces it receives.
     with span("extract.mesh_ops"):
-        mesh = assemble_mesh(all_keys, all_pos, lo, fine_cell)
+        with span("extract.weld", sum(k.size for k in all_keys) // 3):
+            mesh = assemble_mesh(all_keys, all_pos, lo, fine_cell)
         if heal and levels_emitted > 1 and mesh.num_faces:
             # Two-stage crack healing.  (1) All vertices lie on the fine
             # half-lattice; walking triangle edges on it heals collinear
@@ -369,12 +370,14 @@ def extract_surface_adaptive(
             # chord-vs-polyline sliver loops the reference leaves behind
             # are then closed exactly by capping the remaining boundary
             # loops.
-            mesh = retopologize(mesh, lo, fine_cell / 2.0)
-            mesh = stitch_boundary_loops(
-                mesh,
-                domain_lo=lo,
-                domain_hi=lo + 2.0 * half_diameter,
-                eps=fine_cell * 1e-3,
-                stats=stats,
-            )
+            with span("extract.retopologize", mesh.num_faces):
+                mesh = retopologize(mesh, lo, fine_cell / 2.0)
+            with span("extract.stitch", mesh.num_faces):
+                mesh = stitch_boundary_loops(
+                    mesh,
+                    domain_lo=lo,
+                    domain_hi=lo + 2.0 * half_diameter,
+                    eps=fine_cell * 1e-3,
+                    stats=stats,
+                )
     return mesh

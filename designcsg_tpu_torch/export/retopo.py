@@ -33,65 +33,68 @@ def boundary_edges(mesh: Mesh) -> np.ndarray:
     so a hole's boundary traverses it consistently."""
     f = mesh.faces
     e = np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]])
-    key = np.sort(e, axis=1)
-    _, inverse, counts = np.unique(
-        key, axis=0, return_inverse=True, return_counts=True
-    )
+    # One int64 key an undirected edge: a 1-D sort, not a row-wise one.
+    stride = int(e.max(initial=0)) + 1
+    key = np.minimum(e[:, 0], e[:, 1]) * stride + np.maximum(e[:, 0], e[:, 1])
+    _, inverse, counts = np.unique(key, return_inverse=True, return_counts=True)
     return e[counts[inverse] == 1]
 
 
-def _min_area_triangulation(
-    loop: List[int], verts: np.ndarray
-) -> List[Tuple[int, int, int]]:
-    """Dynamic-programming minimal-total-area triangulation of a polygon's
-    vertex ids (the crack slivers this caps are near-degenerate — area is
-    the right cost to keep new triangles inside the sliver)."""
-    m = len(loop)
-    if m < 3:
-        return []
-    if m == 3:
-        return [(loop[0], loop[1], loop[2])]
-    p = verts[loop].astype(np.float64)
+def _min_area_caps(flat: np.ndarray, lengths: np.ndarray, verts: np.ndarray) -> np.ndarray:
+    """i64[sum(lengths - 2), 3]: the loops' caps, loop after loop; the
+    loops' vertex ids lie one after another in ``flat``.  A loop's cap is
+    its dynamic-programming minimal-total-area triangulation (the crack
+    slivers this caps are near-degenerate — area is the right cost to keep
+    new triangles inside the sliver), as :func:`_cap_block` solves it for
+    all loops of one length together."""
+    start = np.cumsum(lengths) - lengths
+    out_start = np.cumsum(lengths - 2) - (lengths - 2)
+    out = np.zeros((int((lengths - 2).sum()), 3), dtype=np.int64)
+    for m in np.unique(lengths):
+        sel = lengths == m
+        ids = flat[start[sel][:, None] + np.arange(m)]  # [B, m]
+        out[out_start[sel][:, None] + np.arange(m - 2)] = _cap_block(ids, verts)
+    return out
 
-    # Edge-vector table E[a, b] = p[b] - p[a]; triangle areas come from one
-    # broadcast cross product per loop instead of a python call per (i,k,j)
-    # candidate (r4: the per-call np.cross dominated the whole healing
-    # stage — ~285k calls over ~9k crack loops).  Loops are sliver-sized
-    # (mostly 4-8 vertices), so the O(m^3) area tensor is tiny; very large
-    # loops fall back to one vectorized row per (i, j).
-    E = p[None, :, :] - p[:, None, :]
-    A = None
-    if m <= 48:
-        C = np.cross(E[:, :, None, :], E[:, None, :, :])
-        A = 0.5 * np.linalg.norm(C, axis=-1)  # A[i, k, j] = area(p_i,p_k,p_j)
 
-    cost = np.zeros((m, m))
-    split = np.zeros((m, m), dtype=np.int64)
+def _cap_block(ids: np.ndarray, verts: np.ndarray) -> np.ndarray:
+    """i64[B, m - 2, 3]: the minimal-area triangulations of B loops of
+    length m.  For each span j - i, the best split k of every (loop, i),
+    the first of equal costs, costing the triangle (p_i, p_k, p_j) by half
+    the norm of (p_k - p_i) x (p_j - p_i); the triangles come out in the
+    order of the recursion from (0, m - 1): the split's triangle, then the
+    part below it, then the part above."""
+    B, m = ids.shape
+    p = verts[ids].astype(np.float64)
+    cost = np.zeros((B, m, m))
+    split = np.zeros((B, m, m), dtype=np.int64)
     for span in range(2, m):
-        for i in range(m - span):
-            j = i + span
-            ks = np.arange(i + 1, j)
-            if A is not None:
-                tri_areas = A[i, ks, j]
-            else:
-                tri_areas = 0.5 * np.linalg.norm(
-                    np.cross(E[i, ks], E[i, j][None]), axis=-1
-                )
-            c = cost[i, ks] + cost[ks, j] + tri_areas
-            t = int(np.argmin(c))
-            cost[i, j] = c[t]
-            split[i, j] = i + 1 + t
-    tris: List[Tuple[int, int, int]] = []
-
-    def emit(i, j):
-        if j - i < 2:
-            return
-        k = int(split[i, j])
-        tris.append((loop[i], loop[k], loop[j]))
-        emit(i, k)
-        emit(k, j)
-
-    emit(0, m - 1)
+        i = np.arange(m - span)
+        j = i + span
+        k = i[:, None] + 1 + np.arange(span - 1)  # [I, K]
+        origin = p[:, i, None, :]
+        area = 0.5 * np.linalg.norm(
+            np.cross(p[:, k, :] - origin, (p[:, j, :] - p[:, i, :])[:, :, None, :]), axis=-1)
+        c = cost[:, i[:, None], k] + cost[:, k, j[:, None]] + area  # [B, I, K]
+        t = np.argmin(c, axis=2)  # [B, I]
+        cost[:, i, j] = np.take_along_axis(c, t[..., None], 2)[..., 0]
+        split[:, i, j] = i + 1 + t
+    # The recursion's order, for all B loops in step: a stack of (i, j).
+    rows = np.arange(B)
+    stack = np.zeros((B, m, 2), dtype=np.int64)
+    stack[:, 0] = (0, m - 1)
+    top = np.zeros(B, dtype=np.int64)
+    tris = np.zeros((B, m - 2, 3), dtype=np.int64)
+    for n in range(m - 2):
+        i, j = stack[rows, top, 0], stack[rows, top, 1]
+        k = split[rows, i, j]
+        tris[:, n] = np.stack([ids[rows, i], ids[rows, k], ids[rows, j]], axis=1)
+        # Pop (i, j); push (k, j), then (i, k) on top of it.
+        above, below = j - k >= 2, k - i >= 2
+        top = top - 1 + above
+        stack[rows[above], top[above]] = np.stack([k, j], axis=1)[above]
+        top = top + below
+        stack[rows[below], top[below]] = np.stack([i, k], axis=1)[below]
     return tris
 
 
@@ -133,46 +136,54 @@ def stitch_boundary_loops(
         hi = np.asarray(domain_hi, dtype=np.float64)
         on_domain = ((np.abs(v - lo) < eps) | (np.abs(v - hi) < eps)).any(axis=1)
 
-    # next_edge[v] = unused boundary edges leaving v.
-    out_edges: dict = {}
-    for idx, (a, b) in enumerate(bedges):
-        out_edges.setdefault(int(a), []).append(idx)
-    used = np.zeros(bedges.shape[0], dtype=bool)
+    # The boundary edges leaving each vertex, in index order: positions
+    # head[v] .. tail[v] - 1 of ``by_start``; ``head`` moves past used ones.
+    # Flat lists of ints keep the garbage collector out of the walk.
+    by_start = np.argsort(bedges[:, 0], kind="stable")
+    verts_out, first, count = np.unique(bedges[by_start, 0], return_index=True,
+                                        return_counts=True)
+    head = np.zeros(mesh.num_vertices, dtype=np.int64)
+    tail = np.zeros(mesh.num_vertices, dtype=np.int64)
+    head[verts_out], tail[verts_out] = first, first + count
+    head, tail, by_start = head.tolist(), tail.tolist(), by_start.tolist()
+    src, dst = bedges[:, 0].tolist(), bedges[:, 1].tolist()
+    used = [False] * len(src)
+    on_domain = None if on_domain is None else on_domain.tolist()
 
-    new_faces: List[Tuple[int, int, int]] = []
+    flat: List[int] = []  # the loops to cap, reversed, one after another
+    lengths: List[int] = []
     open_loops = 0
-    closed_loops = 0
-    for start_idx in range(bedges.shape[0]):
+    for start_idx in range(len(src)):
         if used[start_idx]:
             continue
-        loop = [int(bedges[start_idx, 0])]
+        loop = [src[start_idx]]
         used[start_idx] = True
-        cur = int(bedges[start_idx, 1])
+        cur = dst[start_idx]
         ok = True
         while cur != loop[0]:
             loop.append(cur)
-            nxt = None
-            for e in out_edges.get(cur, ()):
-                if not used[e]:
-                    nxt = e
-                    break
-            if nxt is None or len(loop) > max_loop:
+            h = head[cur]
+            while h < tail[cur] and used[by_start[h]]:
+                h += 1
+            head[cur] = h
+            if h == tail[cur] or len(loop) > max_loop:
                 ok = False
                 break
+            nxt = by_start[h]
             used[nxt] = True
-            cur = int(bedges[nxt, 1])
+            cur = dst[nxt]
         if not ok or len(loop) < 3:
             if len(loop) > max_loop:
                 open_loops += 1
             continue
-        if on_domain is not None and on_domain[np.asarray(loop)].all():
+        if on_domain is not None and all(on_domain[v] for v in loop):
             continue  # clip boundary, not a crack
         # Cap with winding opposite the boundary traversal: boundary edges
         # run as their triangles wind them, so the cap must run reversed to
         # present the matching orientation.
-        cap = _min_area_triangulation(loop[::-1], mesh.vertices)
-        new_faces.extend(cap)
-        closed_loops += 1
+        flat.extend(reversed(loop))
+        lengths.append(len(loop))
+    closed_loops = len(lengths)
 
     if stats is not None:
         stats["open_loops"] = stats.get("open_loops", 0) + open_loops
@@ -184,11 +195,10 @@ def stitch_boundary_loops(
             open_loops,
             max_loop,
         )
-    if not new_faces:
+    if not lengths:
         return mesh
-    faces = np.concatenate(
-        [mesh.faces, np.asarray(new_faces, dtype=np.int64).reshape(-1, 3)]
-    )
+    caps = _min_area_caps(np.asarray(flat, dtype=np.int64), np.asarray(lengths), mesh.vertices)
+    faces = np.concatenate([mesh.faces, caps])
     ok_tri = (
         (faces[:, 0] != faces[:, 1])
         & (faces[:, 1] != faces[:, 2])
@@ -266,6 +276,39 @@ def _lattice_keys(idx: np.ndarray) -> np.ndarray:
     )
 
 
+def _split_touched(faces, touched, hit_t, hit_e, hit_k, hit_v) -> np.ndarray:
+    """i64[N, 3]: each touched triangle's n-gon triangulated as
+    :func:`strip_triangulate` does, in triangle order.  The n-gon walks the corners a, b, c, each followed by
+    the occupied lattice points inside its edge (``hit_*``: triangle, edge
+    0-2, step along the edge, vertex), with every vertex equal to the one
+    before it (cyclically) dropped; n-gons under 3 vertices give nothing."""
+    tt = np.nonzero(touched)[0]
+    tri = np.concatenate([np.repeat(tt, 3), hit_t])
+    edge = np.concatenate([np.tile(np.arange(3), tt.size), hit_e])
+    step = np.concatenate([np.zeros(3 * tt.size, np.int64), hit_k])  # corners first
+    vert = np.concatenate([faces[tt].reshape(-1), hit_v])
+    order = np.lexsort((step, edge, tri))
+    tri, vert = tri[order], vert[order]
+    head = np.flatnonzero(np.r_[True, tri[1:] != tri[:-1]])
+    size = np.diff(np.r_[head, tri.size])
+    before = np.arange(tri.size) - 1
+    before[head] = head + size - 1  # the first vertex follows the last
+    keep = vert != vert[before]
+    tri, vert = tri[keep], vert[keep]
+    _, start, n = np.unique(tri, return_index=True, return_counts=True)
+    out_start = np.cumsum(np.maximum(n - 2, 0)) - np.maximum(n - 2, 0)
+    out = np.zeros((int(np.maximum(n - 2, 0).sum()), 3), dtype=np.int64)
+    for m in np.unique(n[n >= 3]):
+        sel = n == m
+        polys = vert[start[sel][:, None] + np.arange(m)]  # [B, m]
+        q = np.arange(m)
+        seq = np.where(q % 2 == 0, q // 2, m - 1 - q // 2)  # front, back, ...
+        i = np.arange(m - 2)[:, None]
+        corner = seq[i + np.where(i % 2 == 0, [0, 2, 1], [0, 1, 2])]  # [m - 2, 3]
+        out[out_start[sel][:, None] + np.arange(m - 2)] = polys[:, corner]
+    return out
+
+
 def retopologize(
     mesh: Mesh,
     grid_origin: np.ndarray,
@@ -285,9 +328,9 @@ def retopologize(
     Vectorized for reference-scale meshes (the reference runs this per
     triangle in C++, mesh.hpp:432-529): welding, degenerate-face removal,
     per-edge interior-lattice-point discovery and occupancy lookups are all
-    batched numpy (sorted-key searchsorted instead of a hash map); only the
-    triangles that actually gain vertices — the level-transition seams, a
-    tiny fraction — take the per-triangle re-triangulation path."""
+    batched numpy (sorted-key searchsorted instead of a hash map), and so is
+    the re-triangulation of the triangles that gain vertices (the
+    level-transition seams, a tiny fraction), n-gons of one size together."""
     lo = np.asarray(grid_origin, dtype=np.float64)
     v = mesh.vertices.astype(np.float64)
     idx = np.round((v - lo[None, :]) / cell).astype(np.int64)
@@ -315,7 +358,7 @@ def retopologize(
     g = np.gcd.reduce(np.abs(delta), axis=-1)  # [T, 3]
     cand = g >= 2
     touched = np.zeros(faces.shape[0], dtype=bool)
-    hits_per_edge: dict = {}
+    extra = np.zeros((0, 3), dtype=np.int64)
     if cand.any():
         ti, ei = np.nonzero(cand)
         gs = g[ti, ei]  # [E]
@@ -338,27 +381,10 @@ def retopologize(
         q_vid = eb[ti, ei][owner]
         use = found & (hit_vid != p_vid) & (hit_vid != q_vid)
         if use.any():
-            for j in np.nonzero(use)[0]:
-                e = int(owner[j])
-                hits_per_edge.setdefault(
-                    (int(ti[e]), int(ei[e])), []
-                ).append(int(hit_vid[j]))
-            touched[np.unique(ti[owner[use]])] = True
-
-    new_faces_arrays = [faces[~touched]]
-    extra: List[Tuple[int, int, int]] = []
-    for t in np.nonzero(touched)[0]:
-        a, b, c = (int(x) for x in faces[t])
-        ngon: List[int] = []
-        for ei_, p in enumerate((a, b, c)):
-            ngon.append(p)
-            ngon.extend(hits_per_edge.get((int(t), ei_), ()))
-        dedup = [x for i, x in enumerate(ngon) if x != ngon[i - 1]]
-        if len(dedup) >= 3:
-            extra.extend(strip_triangulate(dedup))
-    if extra:
-        new_faces_arrays.append(np.asarray(extra, dtype=np.int64))
-    faces = np.concatenate(new_faces_arrays) if new_faces_arrays else faces
+            touched[ti[owner[use]]] = True
+            extra = _split_touched(faces, touched, ti[owner[use]], ei[owner[use]],
+                                   k_in_edge[use], hit_vid[use])
+    faces = np.concatenate([faces[~touched], extra])
 
     # Compact unused vertices.
     used = np.unique(faces) if faces.size else np.zeros(0, np.int64)
