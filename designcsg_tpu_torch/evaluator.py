@@ -15,7 +15,10 @@ package) take integer lattice indices and make the points on the device as
 kernel rounds its lattice.  Index tensors go up once per chunk; corner signs
 and the near-band flag are packed on the device, so two bytes per cell come
 back.  ``eval_surface_cells`` takes a cell list that already lies on the
-device and brings back only the cells that straddle the surface.  The JAX
+device and keeps the cells that straddle the surface there, and
+``eval_sdf_at_lattice_on_device`` and
+``eval_normal_at_cell_corners_on_device`` evaluate a lattice that lies on
+the device and leave their values there.  The JAX
 package's i16 up-link, chunk-tail buckets and asynchronous copy windows
 exist for its TPU host link and are not carried over.
 """
@@ -224,6 +227,25 @@ class BatchEvaluator:
             self.sdf_eval_count += len(idx)
             return self._run_lattice(self.point_eval, idx, None, lo, cellsize, 1)
 
+    def _run_lattice_on_device(self, fn, cells: torch.Tensor, offsets, lo, cellsize,
+                               out_dim: int) -> torch.Tensor:
+        """:meth:`_run_lattice` for int32 ``cells`` on the device, the
+        values left there."""
+        out = [fn(pts, self.device_arrays)
+               for _, _, pts in self._lattice_chunks(cells, offsets, lo, cellsize)]
+        if not out:
+            out = [torch.empty((0, out_dim), device=self.device)]
+        out = out[0] if len(out) == 1 else torch.cat(out)
+        shape = (cells.shape[0],) + ((len(offsets),) if offsets is not None else ())
+        return out.reshape(shape + ((out_dim,) if out_dim > 1 else ()))
+
+    def eval_sdf_at_lattice_on_device(self, idx: torch.Tensor, lo, cellsize) -> torch.Tensor:
+        """:meth:`eval_sdf_at_lattice` for an int32 ``idx[N, 3]`` on the
+        device, its f32[N] left there: the same points, chunks and count."""
+        with span("evaluator.eval_sdf_at_lattice_on_device"):
+            self.sdf_eval_count += idx.shape[0]
+            return self._run_lattice_on_device(self.point_eval, idx, None, lo, cellsize, 1)
+
     def eval_normal_at_lattice(self, idx, lo, cellsize) -> np.ndarray:
         """f32[N, 3]: normals at ``lo + cellsize * idx``."""
         with span("evaluator.eval_normal_at_lattice"):
@@ -241,6 +263,14 @@ class BatchEvaluator:
         with span("evaluator.eval_normal_at_cell_corners"):
             self.sdf_eval_count += self.normal_eval_cost * len(offsets) * len(cells)
             return self._run_lattice(self._normal, cells, offsets, lo, cellsize, 3)
+
+    def eval_normal_at_cell_corners_on_device(self, cells: torch.Tensor, lo, cellsize,
+                                              offsets) -> torch.Tensor:
+        """:meth:`eval_normal_at_cell_corners` for int32 ``cells[N, 3]`` on
+        the device, its f32[N, K, 3] left there."""
+        with span("evaluator.eval_normal_at_cell_corners_on_device"):
+            self.sdf_eval_count += self.normal_eval_cost * len(offsets) * cells.shape[0]
+            return self._run_lattice_on_device(self._normal, cells, offsets, lo, cellsize, 3)
 
     def _corner_signs_near(self, cells, lo, cellsize, offsets, near_bound, n: int):
         """Yield ``(start, take, signs i32[take], near bool[take])`` on the
@@ -276,11 +306,10 @@ class BatchEvaluator:
 
     def eval_surface_cells(self, cells: torch.Tensor, lo, cellsize, offsets, near_bound: float):
         """:meth:`eval_corner_signs_near` for int32 ``cells[N, 3]`` on the
-        device, with only the cells whose corner signs straddle the surface
-        (some but not all of the K bits set) brought to the host, in one
-        read-back: ``(rows i64[S], surface cells i64[S, 3], signs u8[S],
-        near)``, ``rows`` their ascending positions in ``cells`` and
-        ``near`` bool[N] left on the device."""
+        device, keeping there only the cells whose corner signs straddle the
+        surface (some but not all of the K bits set): ``(rows i64[S],
+        surface cells i32[S, 3], signs u8[S], near bool[N])``, all on the
+        device, ``rows`` their ascending positions in ``cells``."""
         with span("evaluator.eval_surface_cells"):
             n = cells.shape[0]
             signs = torch.empty((n,), dtype=torch.int32, device=self.device)
@@ -290,9 +319,7 @@ class BatchEvaluator:
                 signs[start : start + take] = s
                 near[start : start + take] = m
             rows = torch.nonzero((signs != 0) & (signs != (1 << len(offsets)) - 1)).reshape(-1)
-            packed = to_host(torch.cat([rows.to(torch.int32)[:, None], cells[rows],
-                                        signs[rows, None]], 1)).astype(np.int64)
-            return packed[:, 0], packed[:, 1:4], packed[:, 4].astype(np.uint8), near
+            return rows, cells[rows], signs[rows].to(torch.uint8), near
 
     def refine_on_device(
         self, vertices: np.ndarray, steps: int, step_scale: float = 1.0

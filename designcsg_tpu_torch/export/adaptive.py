@@ -17,9 +17,9 @@ evaluations instead of a pointer chase:
   level L = min_level .. max_level:
     1. the corner signs and the near-band flag of the active cells, whose
        list lives on the evaluator's device from level to level
-       (BatchEvaluator.eval_surface_cells): only the surface cells come to
-       the host;
-    2. classify the cells:
+       (BatchEvaluator.eval_surface_cells), which keeps the surface cells
+       there;
+    2. classify the cells, on the device but for the normals' angles:
          - *surface cell*  : corner signs straddle zero (on the device);
          - *near cell*     : min |corner| <= sqrt(3)*cell*1.1 -- the Lipschitz
            bound replacing the reference's center-sample sphere cull
@@ -30,9 +30,10 @@ evaluations instead of a pointer chase:
          - *ambiguous cell*: interior points at grid_level resolution along
            any edge add sign transitions beyond what the endpoints imply
            (the wiggle the corner signs cannot see, mesh.hpp:221-238);
-    3. emit simple surface cells at this level; refine complex/ambiguous/
-       near cells into their 8 children for the next wave, on the device;
-       at max_level emit every surface cell.
+    3. emit simple surface cells at this level, on the device, and bring
+       only their triangles to the host; refine complex/ambiguous/near
+       cells into their 8 children for the next wave, on the device; at
+       max_level emit every surface cell.
 
 Vertices are *canonical* across levels: a cut cube edge's vertex sits at the
 midpoint of the *max_level* sub-edge containing the sign crossing, computed
@@ -71,139 +72,218 @@ _CULL_FACTOR = 1.1
 _MAX_EDGE_SAMPLES = 7
 
 
+# The cube's tables on each device the sweep has run on, uploaded once.
+_TABLES: dict = {}
+
+
+def _tables(device: torch.device) -> dict:
+    """The cube's tables on ``device``: the corners (int32, the children's
+    offsets), each edge's two corners, lower corner, unit step and axis,
+    and the triangle table."""
+    key = str(device)
+    if key not in _TABLES:
+        tri_edges, n_tris = triangle_table()
+        _TABLES[key] = {name: to_device(table, device) for name, table in (
+            ("corners", CORNERS.astype(np.int32)), ("edge_lo", EDGES[:, 0]),
+            ("edge_hi", EDGES[:, 1]), ("edge_origin", EDGE_ORIGIN),
+            ("edge_step", CORNERS[EDGES[:, 1]] - CORNERS[EDGES[:, 0]]),
+            ("edge_axis", EDGE_AXIS), ("tri_edges", tri_edges), ("n_tris", n_tris))}
+    return _TABLES[key]
+
+
+def _edge_bits(tables: dict, signs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """i64[M, 12] twice: 1 where each edge's lower or upper corner lies
+    inside (SDF < 0), from the sign bytes (bit k: corner k)."""
+    signs = signs[:, None]
+    return (signs >> tables["edge_lo"]) & 1, (signs >> tables["edge_hi"]) & 1
+
+
 def _canonical_offsets(
     evaluator: BatchEvaluator,
-    cells: np.ndarray,  # i64[M, 3] emitted cells at level L
-    vals: np.ndarray,  # f32[M, 8] their corner values
+    tables: dict,
+    cells: torch.Tensor,  # i32[M, 3] emitted cells at level L
+    signs: torch.Tensor,  # u8[M] their corners' signs, bit k set iff corner k < 0
     scale: int,  # 2**(max_level - L): fine sub-edges per cell edge
     lo: np.ndarray,
     fine_cell: float,  # world size of one max_level cell
-) -> np.ndarray:
+) -> torch.Tensor:
     """f32[M, 12] — for each cut cube edge, the vertex offset along the edge
     in *fine* (max_level) lattice units: the midpoint of the fine sub-edge
     containing the first sign crossing.  Uncut edges hold the plain midpoint
     (never read).  All levels compute this on the same integer fine lattice,
     so coincident edges yield bit-identical vertices regardless of level."""
     M = cells.shape[0]
-    offs = np.full((M, 12), 0.5 * scale, dtype=np.float32)
+    device = cells.device
+    offs = torch.full((M, 12), 0.5 * scale, dtype=torch.float32, device=device)
     if M == 0 or scale == 1:
-        if scale == 1:
-            offs[:] = 0.5
         return offs
-    inside = vals < 0.0
-    cut = inside[:, EDGES[:, 0]] != inside[:, EDGES[:, 1]]  # [M, 12]
-    if not cut.any():
+    bit_lo, bit_hi = _edge_bits(tables, signs)
+    ci, ei = torch.nonzero(bit_lo != bit_hi, as_tuple=True)  # the cut edges
+    if ci.shape[0] == 0:
         return offs
-    sel = np.nonzero(cut)
     # Unique geometric edges (several cells share each): fine-lattice key.
-    orig_fine = (cells[:, None, :] + EDGE_ORIGIN[None, :, :]) * scale  # [M,12,3]
-    axis = np.broadcast_to(EDGE_AXIS[None, :], (M, 12))
+    orig_fine = (cells[ci].long() + tables["edge_origin"][ei]) * scale  # [K, 3]
     nf = 1 << 20  # coordinate stride; far above any resolution in use
     # (axis*nf^3 tops out near 2^61 — still inside int64)
     key = (
-        (axis.astype(np.int64) * nf + orig_fine[..., 2]) * nf + orig_fine[..., 1]
-    ) * nf + orig_fine[..., 0]
-    keys_cut = key[sel]
-    ukeys, inv = np.unique(keys_cut, return_inverse=True)
+        (tables["edge_axis"][ei] * nf + orig_fine[:, 2]) * nf + orig_fine[:, 1]
+    ) * nf + orig_fine[:, 0]
+    ukeys, inv = torch.unique(key, sorted=True, return_inverse=True)
     uaxis = ukeys // (nf * nf * nf)
     rem = ukeys % (nf * nf * nf)
-    uorig = np.stack([rem % nf, (rem // nf) % nf, rem // (nf * nf)], axis=-1)
+    uorig = torch.stack([rem % nf, (rem // nf) % nf, rem // (nf * nf)], dim=-1)
 
     # Sample the whole edge on the fine lattice: endpoints + interior points,
     # all from integer fine coordinates (bit-identical across levels).
-    steps = np.arange(scale + 1, dtype=np.int64)
-    unit = np.eye(3, dtype=np.int64)[uaxis]  # [U, 3]
+    steps = torch.arange(scale + 1, device=device)
+    unit = torch.eye(3, dtype=torch.int64, device=device)[uaxis]  # [U, 3]
     pts_fine = uorig[:, None, :] + steps[None, :, None] * unit[:, None, :]
-    v = evaluator.eval_sdf_at_lattice(
-        pts_fine.reshape(-1, 3), lo, fine_cell
+    v = evaluator.eval_sdf_at_lattice_on_device(
+        pts_fine.reshape(-1, 3).to(torch.int32), lo, fine_cell
     ).reshape(-1, scale + 1)
     s = v < 0.0
     trans = s[:, 1:] != s[:, :-1]  # [U, scale]
-    any_t = trans.any(axis=1)
-    first = np.where(any_t, trans.argmax(axis=1), scale // 2)
-    offs[sel] = (first[inv] + 0.5).astype(np.float32)
+    # The first transition's index; the midpoint where there is none.
+    first = torch.where(trans, steps[:-1], scale).amin(dim=1)
+    first = torch.where(first == scale, scale // 2, first)
+    offs[ci, ei] = first[inv].to(torch.float32) + 0.5
     return offs
 
 
 def _emit_cells(
-    cells: np.ndarray,  # i64[M, 3] (x, y, z) cell coords at this level
-    vals: np.ndarray,  # f32[M, 8] corner SDF values (CORNERS order)
-    offs: np.ndarray,  # f32[M, 12] canonical vertex offsets (fine units)
+    tables: dict,
+    cells: torch.Tensor,  # i32[M, 3] (x, y, z) cell coords at this level
+    signs: torch.Tensor,  # u8[M] corner signs, the table case (CORNERS order)
+    offs: torch.Tensor,  # f32[M, 12] canonical vertex offsets (fine units)
     scale: int,  # 2**(max_level - L)
     fine_res: int,  # 2**max_level
-) -> Tuple[np.ndarray, np.ndarray]:
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """Lookup-table triangles for a *list* of cells, with canonical vertex
     positions on the fine lattice.  Returns (vertex_keys i64[T, 3],
     fine_grid_pos f32[T, 3, 3]) — keys encode the doubled fine-lattice
     position (offsets are k+0.5, so doubling makes them integers), making
     welding exact across cells *and* levels."""
-    tri_edges, n_tris = triangle_table()
-    inside = vals < 0.0
-    cfg = (inside.astype(np.int64) << np.arange(8)[None, :]).sum(axis=1)
-    counts = n_tris[cfg]
+    device = cells.device
+    cfg = signs.long()
+    counts = tables["n_tris"][cfg]
     total = int(counts.sum())
     if total == 0:
-        return np.zeros((0, 3), np.int64), np.zeros((0, 3, 3), np.float32)
-    tri_cell = np.repeat(np.arange(cells.shape[0]), counts)
-    slot = np.concatenate([np.arange(c) for c in counts if c])
-    edges = tri_edges[cfg[tri_cell], slot]  # i64[T, 3]
-    axis = EDGE_AXIS[edges]
-    orig = EDGE_ORIGIN[edges]  # [T, 3, 3] lower-corner offsets (x, y, z)
-    base = (cells[tri_cell][:, None, :] + orig) * scale  # fine units
+        return (torch.zeros((0, 3), dtype=torch.int64, device=device),
+                torch.zeros((0, 3, 3), dtype=torch.float32, device=device))
+    tri_cell = torch.repeat_interleave(
+        torch.arange(cells.shape[0], device=device), counts, output_size=total)
+    # Each triangle's slot in its cell's table row: its place after the
+    # cell's first triangle.
+    first_tri = torch.cumsum(counts, 0) - counts
+    slot = torch.arange(total, device=device) - first_tri[tri_cell]
+    edges = tables["tri_edges"][cfg[tri_cell], slot]  # i64[T, 3]
+    orig = tables["edge_origin"][edges]  # [T, 3, 3] lower-corner offsets (x, y, z)
+    base = (cells[tri_cell].long()[:, None, :] + orig) * scale  # fine units
     off = offs[tri_cell[:, None], edges]  # [T, 3]
-    pos = base.astype(np.float32) + off[..., None] * np.eye(
-        3, dtype=np.float32
-    )[axis]
-    pos2 = np.round(pos * 2.0).astype(np.int64)
+    pos = base.to(torch.float32) + off[..., None] * tables["edge_step"][edges].to(torch.float32)
+    pos2 = torch.round(pos * 2.0).long()
     n2 = 2 * (fine_res + 1) + 2
     keys = (pos2[..., 2] * n2 + pos2[..., 1]) * n2 + pos2[..., 0]
     return keys, pos
 
 
-def _edge_angles(normals: np.ndarray) -> np.ndarray:
-    """f32[M] max angle between unit corner normals across the 12 cube edges
-    (the reference tests every edge, cut or not — mesh.hpp:242-258)."""
-    n0 = normals[:, EDGES[:, 0], :]
-    n1 = normals[:, EDGES[:, 1], :]
-    dots = np.clip((n0 * n1).sum(axis=-1), -1.0, 1.0)
-    angles = np.arccos(dots)
+# The complexity test's verdicts are numpy's: numpy's float32 arccos falls
+# monotonically with the dot product, so a cut in the float32 order decides
+# them, and a table of numpy's own verdicts for this many values either side
+# of the cut absorbs any wobble of its rounding there.
+_CUT_WINDOW = 1024
+# The complexity cuts on each device, per threshold.
+_CUTS: dict = {}
+
+
+def _numpy_complex(dots: np.ndarray, threshold: float) -> np.ndarray:
+    """bool: an edge whose unit corner normals' float32 dot product is
+    ``dots`` is complex, as numpy decides it: the angle ``arccos`` of the
+    clipped dot above ``threshold``, a NaN normal maximally complex
+    (mesh.hpp:242-258; the reference tests every edge, cut or not)."""
+    angles = np.arccos(np.clip(dots, -1.0, 1.0))
     # A NaN normal (zero-length FD gradient at a symmetry point / exact
     # surface corner) means the cell straddles something the normals cannot
     # resolve: treat as maximally complex so it refines, not as "flat".
-    return np.where(np.isnan(angles), np.pi, angles).max(axis=1)
+    return np.where(np.isnan(angles), np.pi, angles) > threshold
+
+
+def _order_key(bits):
+    """int32 keys of float32 bit patterns, in the floats' order (-0 and +0
+    alike); numpy arrays or tensors."""
+    return (bits < 0) * -(bits & 0x7FFFFFFF) + (bits >= 0) * bits
+
+
+def _complexity_cut(threshold: float, device: torch.device) -> Tuple[int, torch.Tensor, bool]:
+    """(first key of the window, its verdicts bool[2 * _CUT_WINDOW] on
+    ``device``, the NaN verdict) of :func:`_numpy_complex`: the window
+    centred where numpy's verdict turns from complex to flat, found by
+    bisection over the float32 order."""
+    cache = (str(device), float(threshold))
+    if cache not in _CUTS:
+        def floats(keys):
+            keys = np.asarray(keys, np.int64)
+            return np.where(keys < 0, -keys | (1 << 31), keys).astype(np.uint32).view(np.float32)
+
+        lo, hi = (int(_order_key(np.float32(x).view(np.int32))) for x in (-1.0, 1.0))
+        hi += 1
+        while lo < hi:  # the first key numpy finds flat
+            mid = (lo + hi) // 2
+            if _numpy_complex(floats([mid]), threshold)[0]:
+                lo = mid + 1
+            else:
+                hi = mid
+        first = lo - _CUT_WINDOW
+        table = _numpy_complex(floats(np.arange(first, first + 2 * _CUT_WINDOW)), threshold)
+        nan = bool(_numpy_complex(np.array([np.nan], np.float32), threshold)[0])
+        _CUTS[cache] = (first, to_device(table, device), nan)
+    return _CUTS[cache]
+
+
+def _complex_cells(tables: dict, normals: torch.Tensor, threshold: float) -> torch.Tensor:
+    """bool[M]: some cube edge's corner normals (f32[M, 8, 3]) lie further
+    apart than ``threshold``, bit for bit as :func:`_numpy_complex` judges
+    the dot products numpy's ``(n0 * n1).sum(-1)`` makes."""
+    first, table, nan = _complexity_cut(threshold, normals.device)
+    prod = normals[:, tables["edge_lo"]] * normals[:, tables["edge_hi"]]  # [M, 12, 3]
+    dots = ((prod[..., 0] + prod[..., 1]) + prod[..., 2]).clamp(-1.0, 1.0)
+    at = _order_key(dots.view(torch.int32)) - first
+    width = table.shape[0]
+    verdict = (at < 0) | ((at < width) & table[at.clamp(0, width - 1)])
+    isnan = torch.isnan(dots)
+    verdict = verdict | isnan if nan else verdict & ~isnan
+    return verdict.any(dim=1)
 
 
 def _ambiguous_edges(
     evaluator: BatchEvaluator,
-    cells: np.ndarray,  # i64[C, 3] candidate cells
-    vals: np.ndarray,  # f32[C, 8] their corner values
+    tables: dict,
+    cells: torch.Tensor,  # i32[C, 3] candidate cells
+    signs: torch.Tensor,  # u8[C] their corners' signs, bit k set iff corner k < 0
     lo: np.ndarray,
     cellsize: float,
     samples_per_edge: int,
-) -> np.ndarray:
+) -> torch.Tensor:
     """bool[C] — some edge's interior samples (at grid resolution) add sign
     transitions beyond what the endpoints imply (mesh.hpp:221-238's intent:
     a surface wiggle the corner signs cannot see)."""
     C = cells.shape[0]
     if C == 0 or samples_per_edge <= 0:
-        return np.zeros((C,), bool)
-    corner_pos = cells[:, None, :] + CORNERS[None, :, :]  # [C, 8, 3] int
-    a = corner_pos[:, EDGES[:, 0], :]  # [C, 12, 3] grid units (int)
-    b = corner_pos[:, EDGES[:, 1], :]
+        return torch.zeros((C,), dtype=torch.bool, device=cells.device)
+    a = cells[:, None, :].long() + tables["edge_origin"]  # [C, 12, 3] grid units (int)
     # Interior samples sit on the (samples+1)x-refined lattice: integer
     # indices there, evaluated through the lattice entry point.
     m = samples_per_edge + 1
-    ks = np.arange(1, samples_per_edge + 1)
-    idx = a[:, :, None, :] * m + (b - a)[:, :, None, :] * ks[None, None, :, None]
-    interior = evaluator.eval_sdf_at_lattice(
-        idx.reshape(-1, 3), lo, cellsize / m
+    ks = torch.arange(1, m, device=cells.device)
+    idx = a[:, :, None, :] * m + tables["edge_step"][:, None, :] * ks[:, None]
+    interior = evaluator.eval_sdf_at_lattice_on_device(
+        idx.reshape(-1, 3).to(torch.int32), lo, cellsize / m
     ).reshape(C, 12, samples_per_edge)
-    sign_a = vals[:, EDGES[:, 0], None] < 0.0
-    sign_b = vals[:, EDGES[:, 1], None] < 0.0
-    seq = np.concatenate([sign_a, interior < 0.0, sign_b], axis=2)
-    transitions = (seq[:, :, 1:] != seq[:, :, :-1]).sum(axis=2)
-    implied = (sign_a[:, :, 0] != sign_b[:, :, 0]).astype(np.int64)
-    return (transitions > implied).any(axis=1)
+    bit_a, bit_b = _edge_bits(tables, signs)
+    seq = torch.cat([bit_a[..., None], (interior < 0.0).long(), bit_b[..., None]], dim=2)
+    transitions = (seq[:, :, 1:] != seq[:, :, :-1]).sum(dim=2)
+    implied = (bit_a != bit_b).long()
+    return (transitions > implied).any(dim=1)
 
 
 def extract_surface_adaptive(
@@ -246,7 +326,7 @@ def extract_surface_adaptive(
         stats["level_seconds"] = level_seconds
 
     # Each level's cell list lives on the evaluator's device as int32
-    # (x, y, z), x fastest: only the surface cells come to the host.
+    # (x, y, z), x fastest: only the emitted triangles come to the host.
     device = evaluator.device
     n0 = 1 << min_l
     r = torch.arange(n0, dtype=torch.int32, device=device)
@@ -279,73 +359,74 @@ def extract_surface_adaptive(
             steps = {}
             with span("extract.corners") as steps["corners"]:
                 # 1. corner evaluation and classification on the device:
-                # mixed corner signs <=> straddles the surface.  Only the
-                # surface cells' rows, coordinates and sign bytes come
-                # down; the near-band flags stay for the descent.
-                # Classification and emission consume only corner SIGNS,
-                # so no float32 corner value leaves the device.
+                # mixed corner signs <=> straddles the surface.  The surface
+                # cells' rows, coordinates and sign bytes stay there, as do
+                # the near-band flags for the descent.  Classification and
+                # emission consume only corner SIGNS, so no float32 corner
+                # value is kept.
                 rows, scells, signs, near = evaluator.eval_surface_cells(
                     cells, lo, cellsize, CORNERS,
                     np.sqrt(3.0) * cellsize * _CULL_FACTOR,
                 )
-                steps["corners"].value = rows.shape[0]
-                level_cells[L] = (int(cells.shape[0]), int(rows.shape[0]))
-                # Synthetic +-1 corner values of the surface cells: every
-                # downstream consumer (_canonical_offsets, _ambiguous_edges,
-                # _emit_cells) reads only `vals < 0`, which the sign bits
-                # reproduce exactly.
-                inside_bits = (signs[:, None] >> np.arange(8, dtype=np.uint8)[None, :]) & 1
-                vals = np.where(inside_bits.astype(bool), np.float32(-1.0), np.float32(1.0))
+                n_surface = rows.shape[0]
+                steps["corners"].value = n_surface
+                level_cells[L] = (int(cells.shape[0]), n_surface)
+                tables = _tables(device)
 
             # 2. which surface cells emit at this level (all of them at
             # max_level); the others of the near band refine.
-            emit = np.ones(rows.shape, bool)
             if L < max_l:
+                emit = torch.ones((n_surface,), dtype=torch.bool, device=device)
                 with span("extract.normals") as steps["normals"]:
-                    if rows.size:
+                    if n_surface:
                         # Normals (6 SDF evals each) only at corners of
                         # SURFACE cells — the complexity test reads nothing
                         # else, and surface cells are a small fraction of
                         # the near-cull wave.
-                        norms = evaluator.eval_normal_at_cell_corners(
+                        norms = evaluator.eval_normal_at_cell_corners_on_device(
                             scells, lo, cellsize, CORNERS
                         )
-                        emit = ~(_edge_angles(norms) > threshold)  # complex cells refine
+                        emit = ~_complex_cells(tables, norms, threshold)  # complex cells refine
                 with span("extract.ambiguity") as steps["ambiguity"]:
-                    if emit.any():
+                    cand = torch.nonzero(emit).reshape(-1)
+                    steps["ambiguity"].value = cand.shape[0]
+                    if cand.shape[0]:
                         n_samples = min((1 << (grid_l - L)) - 1, _MAX_EDGE_SAMPLES)
-                        cand = np.nonzero(emit)[0]
-                        amb = _ambiguous_edges(
-                            evaluator, scells[cand], vals[cand], lo, cellsize, n_samples
-                        )
-                        emit[cand[amb]] = False
+                        emit[cand] = ~_ambiguous_edges(evaluator, tables, scells[cand],
+                                                       signs[cand], lo, cellsize, n_samples)
 
             # 3. emission at this level, vertices canonical on the fine
-            # lattice; then the next wave's cells, made on the device from
-            # the near cells that do not emit.
+            # lattice, on the device: only the triangles come down.  Then
+            # the next wave's cells, made there from the near cells that do
+            # not emit.
             with span("extract.emit") as steps["emit"]:
                 lvl_keys = np.zeros((0,), np.int64)
                 lvl_pos = np.zeros((0, 3), np.float32)
-                if emit.any():
-                    ecells, evals_ = scells[emit], vals[emit]
+                ecells, esigns = scells, signs
+                if L < max_l:
+                    emitted = torch.nonzero(emit).reshape(-1)
+                    ecells, esigns = scells[emitted], signs[emitted]
+                n_tris = 0
+                if ecells.shape[0]:
                     offs = _canonical_offsets(
-                        evaluator, ecells, evals_, scale, lo, fine_cell
+                        evaluator, tables, ecells, esigns, scale, lo, fine_cell
                     )
-                    keys, pos = _emit_cells(ecells, evals_, offs, scale, fine_res)
-                    if keys.shape[0]:
-                        lvl_keys = keys.reshape(-1)
-                        lvl_pos = pos.reshape(-1, 3)
+                    keys, pos = _emit_cells(tables, ecells, esigns, offs, scale, fine_res)
+                    n_tris = keys.shape[0]
+                    if n_tris:
+                        lvl_keys = to_host(keys.reshape(-1))
+                        lvl_pos = to_host(pos.reshape(-1, 3))
                         all_keys.append(lvl_keys)
                         all_pos.append(lvl_pos)
-                        level_tris[L] = int(keys.shape[0])
+                        level_tris[L] = n_tris
                         levels_emitted += 1
+                steps["emit"].value = n_tris
 
                 if L < max_l:
                     refine = near  # near & ~emit, in place
-                    refine[to_device(rows[emit], device)] = False
+                    refine[rows[emitted]] = False
                     rc = cells[refine]
-                    children = to_device(CORNERS.astype(np.int32), device)
-                    cells = (rc[:, None, :] * 2 + children[None, :, :]).reshape(-1, 3)
+                    cells = (rc[:, None, :] * 2 + tables["corners"][None, :, :]).reshape(-1, 3)
                 else:
                     cells = cells[:0]
                 if slab_store is not None:

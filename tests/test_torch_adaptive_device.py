@@ -77,7 +77,7 @@ def _case(kind, lo, res=32, n=5000):
 def _check_against_host(ev, cells, lo, cell, offsets):
     """``eval_surface_cells`` on the device list against
     ``eval_corner_signs_near`` on the host list: the same rows, cells, sign
-    bytes, near flags and evaluation count."""
+    bytes, near flags and evaluation count, all left on the device."""
     bound = np.sqrt(3.0) * cell * 1.1
     before = ev.sdf_eval_count
     signs, near = ev.eval_corner_signs_near(cells, lo, cell, offsets, bound)
@@ -88,11 +88,12 @@ def _check_against_host(ev, cells, lo, cell, offsets):
     before = ev.sdf_eval_count
     rows, scells, ssigns, dnear = ev.eval_surface_cells(dev_cells, lo, cell, offsets, bound)
     assert ev.sdf_eval_count - before == host_count == len(offsets) * len(cells)
-    assert rows.dtype == np.int64 and scells.dtype == np.int64 and ssigns.dtype == np.uint8
-    assert dnear.dtype == torch.bool and dnear.device.type == ev.device.type
-    np.testing.assert_array_equal(rows, want)
-    np.testing.assert_array_equal(scells, cells[want])
-    np.testing.assert_array_equal(ssigns, signs[want])
+    assert rows.dtype == torch.int64 and scells.dtype == torch.int32
+    assert ssigns.dtype == torch.uint8 and dnear.dtype == torch.bool
+    assert {t.device.type for t in (rows, scells, ssigns, dnear)} == {ev.device.type}
+    np.testing.assert_array_equal(rows.cpu().numpy(), want)
+    np.testing.assert_array_equal(scells.cpu().numpy(), cells[want])
+    np.testing.assert_array_equal(ssigns.cpu().numpy(), signs[want])
     np.testing.assert_array_equal(dnear.cpu().numpy(), near)
     return want
 

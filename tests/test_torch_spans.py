@@ -106,9 +106,8 @@ def test_an_export_records_its_tree(traced_export):
             assert spans[s[3]][1] <= s[1] and s[2] <= spans[s[3]][2]
         if s[0].startswith("evaluator."):
             assert spans[s[3]][0].startswith(("extract.", "export."))
-        if s[0].startswith("copy."):  # the evaluator's, or the sweep's emitted rows
-            assert (spans[s[3]][0].startswith("evaluator.")
-                    or spans[s[3]][0] == "extract.emit") and s[4] == 0
+        if s[0].startswith("copy."):  # the evaluator's, or a level step's
+            assert spans[s[3]][0].startswith(("evaluator.", "extract.")) and s[4] == 0
 
 
 def test_stage_and_level_seconds_are_their_spans(traced_export):
@@ -120,6 +119,44 @@ def test_stage_and_level_seconds_are_their_spans(traced_export):
     for L, i in zip(sorted(levels), [i for i, s in enumerate(spans) if s[0] == "extract.level"]):
         steps = {s[0][len("extract."):]: (s[2] - s[1]) * 1e-9 for s in spans if s[3] == i}
         assert levels[L] == steps
+
+
+def test_the_emit_spans_count_the_level_triangles(traced_export):
+    report, spans = traced_export
+    triangles = report.stats["level_triangles"]
+    values = {L: s[4] for L, s in zip(sorted(report.stats["level_seconds"]),
+                                      [s for s in spans if s[0] == "extract.emit"])}
+    assert values == {L: triangles.get(L, 0) for L in (3, 4, 5)}
+    assert sum(values.values()) == sum(triangles.values()) > 0
+
+
+def test_the_ambiguity_spans_count_the_candidates_tested(monkeypatch):
+    """The ``extract.ambiguity`` span's value is the number of surface
+    cells that the ambiguity test sampled: those the complexity test let
+    through, at most the level's surface cells."""
+    from designcsg_tpu_torch.export import adaptive
+
+    tested = []
+    ambiguous = adaptive._ambiguous_edges
+
+    def spy(evaluator, tables, cells, *args):
+        tested.append(cells.shape[0])
+        return ambiguous(evaluator, tables, cells, *args)
+
+    monkeypatch.setattr(adaptive, "_ambiguous_edges", spy)
+    scene = get_design("design1")
+    config = ExportConfig(bounding_box_half_diameter=10.0, minimum_octree_level=3,
+                          maximum_octree_level=5, grid_level=6, complex_surface_threshold=0.5,
+                          gradient_descent_steps=0)
+    with profiled():
+        export_mesh(scene, config, evaluator=BatchEvaluator(scene, device="cpu"),
+                    autodetect_resolution=32, strategy="adaptive")
+    spans = obs.spans()
+    values = [s[4] for s in spans if s[0] == "extract.ambiguity"]
+    surface = [s[4] for s in spans if s[0] == "extract.corners"]
+    assert values == tested and len(values) == 2
+    assert all(0 < v <= n for v, n in zip(values, surface))
+    assert values != surface[:2]  # the complexity test held some cells back
 
 
 @pytest.mark.parametrize("source, device, moved", [
