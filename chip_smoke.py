@@ -91,9 +91,7 @@ seconds and bank placement (the 512-ring's under 120 s), and holds their
 K1, K1-FD, K3, K2, K5 and K4 against the plain versions at small shapes and
 the 1,100-ring's culled grid bit for bit against its unculled grid.
 
-It times every kernel and its plain version with CUDA events (and Design1's
-renderer built with and without FMA contraction against each other), and
-prints:
+It times every kernel and its plain version with CUDA events, and prints:
 
 * the ``-Xptxas -v`` report of the build;
 * a ``{"kernels": [...]}`` JSON line, one entry per kernel, mode and design
@@ -174,6 +172,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from benchmark import peaks
 from designcsg_tpu_torch import cli, native, studio, viewer
 from designcsg_tpu_torch.camera import Camera
 from designcsg_tpu_torch.compiler import ExportConfig
@@ -241,9 +240,6 @@ from torch_scenes import custom_brush_scene, many_groups_scene, ring_scene  # no
 DESIGNS = ("design1", "design2", "logo")
 GOLDENS = ("design1", "design2")
 
-# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3.
-PEAK_FP32 = 67e12
-PEAK_BYTES = 3.35e12
 # An assumed L1 load rate of an SM, not a measured one: one 128 B wavefront
 # per cycle (a warp's 32 four-byte loads).  Only the ``k6_table_read_model``
 # line uses it, the time Logo's table reads alone would need at this rate.
@@ -444,8 +440,10 @@ def culled_ops(counts, full_ops: int, gops: list, chain_ops: int) -> int:
 
 
 def bound_ms(n_bytes: float, n_ops: float):
-    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_ops / PEAK_FP32
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+    """The roofline bound of the H100 SXM's peaks (benchmark/peaks.py) in
+    ms, and what sets it: "bytes" or "operations"."""
+    by_bytes = n_bytes / peaks.HBM_BYTES_PER_S >= n_ops / peaks.FP32_FLOPS
+    return peaks.bound_s(n_ops, n_bytes) * 1e3, ("bytes" if by_bytes else "operations")
 
 
 def enqueue_ms(fn, iters: int = 20) -> float:
@@ -1343,8 +1341,6 @@ def main() -> int:
         "ray_march", ray_march_kernel_source(scenes["design1"], FIT_OVERRELAX))
     units["design1 ray_march cli fit"] = (
         "ray_march", ray_march_kernel_source(scenes["design1"], cli.fit_config(64, 48)))
-    # Timing phase only: Design1's renderer with FMA contraction.
-    units["design1 march_fma"] = ("march_fma", march_kernel_source(scenes["design1"], EXACT))
     # Phase 6b's capacity rings.
     ring_units = capacity_units()
     units.update(ring_units)
@@ -2396,21 +2392,6 @@ def main() -> int:
             row["excess_ms_on_path"] = ref["steps"] * (row["point_eval_fd"]["ms"] - row["point_eval_fd"]["bound_ms"])
             batches[f"{label}[{start}:{start + n}]"] = row
     print(json.dumps({"k1_path_batches": batches}))
-
-    # Design1's renderer ships built with -fmad=false; the same source with
-    # nvcc's default FMA contraction is timed beside it (alternating, A B A
-    # B) and its error against the plain version reported, not checked.
-    a = arrays["design1"]
-    renderer = kernels["design1"]["renderer"]
-    renderer_fma = make_cuda_renderer(scenes["design1"], EXACT, fmad=True)
-    err = (renderer_fma(a, *cam) - renderer.plain(a, *cam)).abs()
-    ab = {"fmad_false": [], "fma": []}
-    for _ in range(2):
-        for key, fn in (("fmad_false", renderer), ("fma", renderer_fma)):
-            ab[key].append(device_ms(lambda: fn(a, *cam), "render_kernel", iters=20))
-    print(f"  design1 renderer -fmad=false vs FMA contraction, device ms (A B A B): "
-          f"{json.dumps(ab)}; FMA build max|d| vs plain {float(err.max()):.3g}, "
-          f"share of |d| > 1e-4 {float((err > 1e-4).float().mean()):.4%}")
 
     # One fit step at 640x480 (path D's), split by events: the ray march
     # alone, the loss with its backward (the march inside it subtracted: the

@@ -10,17 +10,15 @@ bodies, the exact tape for a scene whose kernels compute an approximate twin
 (Logo's baked letters), for a scene without CUDA bodies and on the CPU.
 
 The lattice and cell-corner entry points (evaluator.py:237-557 of the JAX
-package) take integer lattice indices and make the points on the device as
+package, under its names) take integer lattice indices, a host array or an
+int32 tensor on the device, and make the points on the device as
 ``lo + cell * idx``: one float32 product, then one float32 sum, as the grid
-kernel rounds its lattice.  Index tensors go up once per chunk; corner signs
-and the near-band flag are packed on the device, so two bytes per cell come
-back.  ``eval_surface_cells`` takes a cell list that already lies on the
-device and keeps the cells that straddle the surface there, and
-``eval_sdf_at_lattice_on_device`` and
-``eval_normal_at_cell_corners_on_device`` evaluate a lattice that lies on
-the device and leave their values there.  The JAX
-package's i16 up-link, chunk-tail buckets and asynchronous copy windows
-exist for its TPU host link and are not carried over.
+kernel rounds its lattice.  Their values stay on the device: the corner
+signs and the near-band flag are reduced there, and ``eval_surface_cells``
+keeps there the cells that straddle the surface.  The point entry points
+and the refine keep the reference's host arrays.  The JAX package's i16
+up-link, chunk-tail buckets and asynchronous copy windows exist for its TPU
+host link and are not carried over.
 """
 
 from __future__ import annotations
@@ -186,105 +184,61 @@ class BatchEvaluator:
 
     # -- lattice and cell-corner entry points ------------------------------
 
-    def _lattice_chunks(self, cells, offsets, lo, cellsize):
-        """Yield ``(start, take, points f32[take * K, 3])`` on the device:
-        ``lo + cellsize * (cells[n] + offsets[k])`` for the cells of each
-        chunk (K = 1 without offsets), ``chunk_size`` points at most.
-        ``cells`` is a host array, whose chunks go up as int32, or an int32
-        tensor on the device, which is sliced in place."""
+    def _run_lattice(self, fn, cells, offsets, lo, cellsize, per_cell=()) -> torch.Tensor:
+        """``fn`` at ``lo + cellsize * (cells[n] + offsets[k])`` (K = 1
+        without offsets), chunk by chunk, each chunk's values reshaped to
+        ``per_cell`` a cell and left on the device: ``[N, *per_cell]``.
+        Chunks of ``chunk_size`` points at most split cells, never a cell's
+        offsets.  ``cells`` is a host array, whose chunks go up as int32, or
+        an int32 tensor on the device, which is sliced in place."""
         if not isinstance(cells, torch.Tensor):
             cells = np.asarray(cells).reshape(-1, 3)
         k = 1 if offsets is None else len(offsets)
         lo32 = to_device(np.asarray(lo, np.float32).reshape(1, 3), self.device)
         cell32 = to_device(np.float32(cellsize), self.device)
-        offs = None
         if offsets is not None:
             offs = to_device(np.asarray(offsets, np.float32).reshape(1, k, 3), self.device)
         per = max(1, self.chunk_size // k)
+        out = []
         for start in range(0, cells.shape[0], per):
             idx = cells[start : start + per]
             if not isinstance(idx, torch.Tensor):
                 idx = to_device(idx.astype(np.int32), self.device)
             f = idx.to(torch.float32)
-            if offs is not None:
+            if offsets is not None:
                 f = (f[:, None, :] + offs).reshape(-1, 3)
-            yield start, idx.shape[0], lo32 + cell32 * f
+            values = fn(lo32 + cell32 * f, self.device_arrays)
+            out.append(values.reshape((idx.shape[0],) + tuple(per_cell)))
+        if not out:
+            return torch.empty((0,) + tuple(per_cell), device=self.device)
+        return out[0] if len(out) == 1 else torch.cat(out)
 
-    def _run_lattice(self, fn, cells, offsets, lo, cellsize, out_dim: int) -> np.ndarray:
-        n = np.asarray(cells).reshape(-1, 3).shape[0]
-        k = 1 if offsets is None else len(offsets)
-        shape = (n,) if offsets is None else (n, k)
-        out = np.empty(shape + ((out_dim,) if out_dim > 1 else ()), dtype=np.float32)
-        flat = out.reshape((n * k,) + out.shape[len(shape):])
-        for start, take, pts in self._lattice_chunks(cells, offsets, lo, cellsize):
-            flat[start * k : (start + take) * k] = to_host(fn(pts, self.device_arrays))
-        return out
-
-    def eval_sdf_at_lattice(self, idx, lo, cellsize) -> np.ndarray:
+    def eval_sdf_at_lattice(self, idx, lo, cellsize) -> torch.Tensor:
         """f32[N]: SDF at ``lo + cellsize * idx`` for integer lattice
         ``idx[N, 3]``."""
         with span("evaluator.eval_sdf_at_lattice"):
             self.sdf_eval_count += len(idx)
-            return self._run_lattice(self.point_eval, idx, None, lo, cellsize, 1)
+            return self._run_lattice(self.point_eval, idx, None, lo, cellsize)
 
-    def _run_lattice_on_device(self, fn, cells: torch.Tensor, offsets, lo, cellsize,
-                               out_dim: int) -> torch.Tensor:
-        """:meth:`_run_lattice` for int32 ``cells`` on the device, the
-        values left there."""
-        out = [fn(pts, self.device_arrays)
-               for _, _, pts in self._lattice_chunks(cells, offsets, lo, cellsize)]
-        if not out:
-            out = [torch.empty((0, out_dim), device=self.device)]
-        out = out[0] if len(out) == 1 else torch.cat(out)
-        shape = (cells.shape[0],) + ((len(offsets),) if offsets is not None else ())
-        return out.reshape(shape + ((out_dim,) if out_dim > 1 else ()))
-
-    def eval_sdf_at_lattice_on_device(self, idx: torch.Tensor, lo, cellsize) -> torch.Tensor:
-        """:meth:`eval_sdf_at_lattice` for an int32 ``idx[N, 3]`` on the
-        device, its f32[N] left there: the same points, chunks and count."""
-        with span("evaluator.eval_sdf_at_lattice_on_device"):
-            self.sdf_eval_count += idx.shape[0]
-            return self._run_lattice_on_device(self.point_eval, idx, None, lo, cellsize, 1)
-
-    def eval_normal_at_lattice(self, idx, lo, cellsize) -> np.ndarray:
+    def eval_normal_at_lattice(self, idx, lo, cellsize) -> torch.Tensor:
         """f32[N, 3]: normals at ``lo + cellsize * idx``."""
         with span("evaluator.eval_normal_at_lattice"):
             self.sdf_eval_count += self.normal_eval_cost * len(idx)
-            return self._run_lattice(self._normal, idx, None, lo, cellsize, 3)
+            return self._run_lattice(self._normal, idx, None, lo, cellsize, (3,))
 
-    def eval_sdf_at_cell_corners(self, cells, lo, cellsize, offsets) -> np.ndarray:
+    def eval_sdf_at_cell_corners(self, cells, lo, cellsize, offsets) -> torch.Tensor:
         """f32[N, K]: SDF at ``lo + cellsize * (cells[n] + offsets[k])``."""
         with span("evaluator.eval_sdf_at_cell_corners"):
             self.sdf_eval_count += len(offsets) * len(cells)
-            return self._run_lattice(self.point_eval, cells, offsets, lo, cellsize, 1)
+            return self._run_lattice(self.point_eval, cells, offsets, lo, cellsize,
+                                     (len(offsets),))
 
-    def eval_normal_at_cell_corners(self, cells, lo, cellsize, offsets) -> np.ndarray:
+    def eval_normal_at_cell_corners(self, cells, lo, cellsize, offsets) -> torch.Tensor:
         """f32[N, K, 3]: normals at the cells' ``offsets``."""
         with span("evaluator.eval_normal_at_cell_corners"):
             self.sdf_eval_count += self.normal_eval_cost * len(offsets) * len(cells)
-            return self._run_lattice(self._normal, cells, offsets, lo, cellsize, 3)
-
-    def eval_normal_at_cell_corners_on_device(self, cells: torch.Tensor, lo, cellsize,
-                                              offsets) -> torch.Tensor:
-        """:meth:`eval_normal_at_cell_corners` for int32 ``cells[N, 3]`` on
-        the device, its f32[N, K, 3] left there."""
-        with span("evaluator.eval_normal_at_cell_corners_on_device"):
-            self.sdf_eval_count += self.normal_eval_cost * len(offsets) * cells.shape[0]
-            return self._run_lattice_on_device(self._normal, cells, offsets, lo, cellsize, 3)
-
-    def _corner_signs_near(self, cells, lo, cellsize, offsets, near_bound, n: int):
-        """Yield ``(start, take, signs i32[take], near bool[take])`` on the
-        device, chunk by chunk, for :meth:`eval_corner_signs_near` and
-        :meth:`eval_surface_cells`; counts the ``K * n`` evaluations."""
-        k = len(offsets)
-        if k > 8:
-            raise ValueError(f"sign packing needs K <= 8, got {k}")
-        self.sdf_eval_count += k * n
-        bound = to_device(np.float32(near_bound), self.device)
-        weights = to_device(np.array([1 << i for i in range(k)], np.int32), self.device)
-        for start, take, pts in self._lattice_chunks(cells, offsets, lo, cellsize):
-            v = self.point_eval(pts, self.device_arrays).reshape(take, k)
-            yield start, take, ((v < 0.0).to(torch.int32) * weights).sum(1), v.abs().amin(1) <= bound
+            return self._run_lattice(self._normal, cells, offsets, lo, cellsize,
+                                     (len(offsets), 3))
 
     def eval_corner_signs_near(self, cells, lo, cellsize, offsets, near_bound: float):
         """(signs u8[N], near bool[N]) for the K <= 8 corner offsets: bit k of
@@ -294,32 +248,34 @@ class BatchEvaluator:
         compares against a float64 bound, its device path a float32 one:
         ROADMAP F3).  Marching cubes consumes exactly this (corner signs pick
         the table case, the near band drives the octree descent,
-        mesh.hpp:176-183); both are packed on the device."""
+        mesh.hpp:176-183).  Each chunk's values are reduced as they come,
+        so no corner value outlives its chunk."""
+        k = len(offsets)
+        if k > 8:
+            raise ValueError(f"sign packing needs K <= 8, got {k}")
+
+        def signs_near(points, arrays):
+            v = self.point_eval(points, arrays).reshape(-1, k)
+            signs = ((v < 0.0).to(torch.int32) * weights).sum(1)
+            return torch.stack([signs, v.abs().amin(1) <= bound], 1).to(torch.uint8)
+
         with span("evaluator.eval_corner_signs_near"):
-            n = np.asarray(cells).reshape(-1, 3).shape[0]
-            out = np.empty((n, 2), np.uint8)
-            for start, take, signs, near in self._corner_signs_near(
-                    cells, lo, cellsize, offsets, near_bound, n):
-                packed = torch.stack([signs, near.to(torch.int32)], 1).to(torch.uint8)
-                out[start : start + take] = to_host(packed)
-            return out[:, 0].copy(), out[:, 1].astype(bool)
+            self.sdf_eval_count += k * len(cells)
+            bound = to_device(np.float32(near_bound), self.device)
+            weights = to_device(np.array([1 << i for i in range(k)], np.int32), self.device)
+            packed = self._run_lattice(signs_near, cells, offsets, lo, cellsize, (2,))
+            return packed[:, 0].to(torch.uint8), packed[:, 1].bool()
 
     def eval_surface_cells(self, cells: torch.Tensor, lo, cellsize, offsets, near_bound: float):
         """:meth:`eval_corner_signs_near` for int32 ``cells[N, 3]`` on the
-        device, keeping there only the cells whose corner signs straddle the
+        device, keeping only the cells whose corner signs straddle the
         surface (some but not all of the K bits set): ``(rows i64[S],
-        surface cells i32[S, 3], signs u8[S], near bool[N])``, all on the
-        device, ``rows`` their ascending positions in ``cells``."""
+        surface cells i32[S, 3], signs u8[S], near bool[N])``, ``rows``
+        their ascending positions in ``cells``."""
         with span("evaluator.eval_surface_cells"):
-            n = cells.shape[0]
-            signs = torch.empty((n,), dtype=torch.int32, device=self.device)
-            near = torch.empty((n,), dtype=torch.bool, device=self.device)
-            for start, take, s, m in self._corner_signs_near(
-                    cells, lo, cellsize, offsets, near_bound, n):
-                signs[start : start + take] = s
-                near[start : start + take] = m
+            signs, near = self.eval_corner_signs_near(cells, lo, cellsize, offsets, near_bound)
             rows = torch.nonzero((signs != 0) & (signs != (1 << len(offsets)) - 1)).reshape(-1)
-            return rows, cells[rows], signs[rows].to(torch.uint8), near
+            return rows, cells[rows], signs[rows], near
 
     def refine_on_device(
         self, vertices: np.ndarray, steps: int, step_scale: float = 1.0

@@ -138,7 +138,7 @@ def _canonical_offsets(
     steps = torch.arange(scale + 1, device=device)
     unit = torch.eye(3, dtype=torch.int64, device=device)[uaxis]  # [U, 3]
     pts_fine = uorig[:, None, :] + steps[None, :, None] * unit[:, None, :]
-    v = evaluator.eval_sdf_at_lattice_on_device(
+    v = evaluator.eval_sdf_at_lattice(
         pts_fine.reshape(-1, 3).to(torch.int32), lo, fine_cell
     ).reshape(-1, scale + 1)
     s = v < 0.0
@@ -276,7 +276,7 @@ def _ambiguous_edges(
     m = samples_per_edge + 1
     ks = torch.arange(1, m, device=cells.device)
     idx = a[:, :, None, :] * m + tables["edge_step"][:, None, :] * ks[:, None]
-    interior = evaluator.eval_sdf_at_lattice_on_device(
+    interior = evaluator.eval_sdf_at_lattice(
         idx.reshape(-1, 3).to(torch.int32), lo, cellsize / m
     ).reshape(C, 12, samples_per_edge)
     bit_a, bit_b = _edge_bits(tables, signs)
@@ -383,7 +383,7 @@ def extract_surface_adaptive(
                         # SURFACE cells — the complexity test reads nothing
                         # else, and surface cells are a small fraction of
                         # the near-cull wave.
-                        norms = evaluator.eval_normal_at_cell_corners_on_device(
+                        norms = evaluator.eval_normal_at_cell_corners(
                             scells, lo, cellsize, CORNERS
                         )
                         emit = ~_complex_cells(tables, norms, threshold)  # complex cells refine

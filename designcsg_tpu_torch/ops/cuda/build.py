@@ -33,17 +33,17 @@ NVCC_FLAGS = (
 
 # Flags for some kernels only.  The renderer, the cone prepass and the fit's
 # ray march round every product and sum on their own (no FMA contraction), as
-# their plain versions do: a sphere trace is chaotic at creases, where one ulp decides the step a
-# ray stops at, and with contraction a 640x480 Design1 frame had a pixel
-# 1.16e-3 off its plain version on an H100 (PERF.md).  The point and grid
-# kernels keep contraction, and so does ``march_fma``, the same renderer
-# source built with contraction so that chip_smoke.py can time both.  K1's
-# FD form is the point unit's source built without contraction (``sdf_fd``):
-# its normal divides differences of the field by 2 * 0.005, and where the
-# gradient is small a contracted field, within 1e-6 of the plain one, moved
-# Design2's normals by up to 0.019 on an H100 (PERF.md); built so, it gives
-# its plain version's bits.  ``NO_FMA_CONTRACTION`` tells the source
-# (csrc/common.cuh ``madd``), whose sums written out would otherwise fuse.
+# their plain versions do (decision P1): a sphere trace is chaotic at
+# creases, where one ulp decides the step a ray stops at, and with
+# contraction a 640x480 Design1 frame had a pixel 1.16e-3 off its plain
+# version on an H100 (PERF.md).  The point and grid kernels keep
+# contraction.  K1's FD form is the point unit's source built without
+# contraction (``sdf_fd``): its normal divides differences of the field by
+# 2 * 0.005, and where the gradient is small a contracted field, within 1e-6
+# of the plain one, moved Design2's normals by up to 0.019 on an H100
+# (PERF.md); built so, it gives its plain version's bits.
+# ``NO_FMA_CONTRACTION`` tells the source (csrc/common.cuh ``madd``), whose
+# sums written out would otherwise fuse.
 NO_CONTRACTION = ("-fmad=false", "-DNO_FMA_CONTRACTION")
 EXTRA_FLAGS = {
     "march": NO_CONTRACTION, "cone": NO_CONTRACTION, "ray_march": NO_CONTRACTION,

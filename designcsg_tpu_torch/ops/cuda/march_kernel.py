@@ -55,23 +55,22 @@ _SCENE = [_P] * 7 + [_I, _P]
 
 
 def make_cuda_renderer(
-    scene: CompiledScene, config: Optional[RenderConfig] = None, fmad: bool = False,
-    cull_stats: bool = False,
+    scene: CompiledScene, config: Optional[RenderConfig] = None, cull_stats: bool = False,
 ):
     """``render(arrays, campos, rgt, upp, fwd, t0=None, rows=None) -> f32[H,
     W, 3]`` on the device of ``arrays``: the fused kernel on a CUDA device,
     the plain renderer on the CPU.  The march is exact, or over-relaxed when
     ``config.march_overrelax > 1``; ``t0`` f32[H, W] starts each pixel's
     march there.  ``rows=(row0, n)`` renders rows ``[row0, row0 + n)`` of the
-    frame alone (``t0`` then f32[n, W]), the sharded renderer's blocks.  With ``config.march_cull`` the kernel culls each warp's
-    tape by interval arithmetic (K7), hoisted or ``"dynamic"``, unless the
-    tape has nothing to cull.  ``render.plain`` is the plain version.
-    ``fmad=True`` takes a build of the kernel with nvcc's default FMA
-    contraction (library ``march_fma``) instead of the ``-fmad=false`` one;
-    chip_smoke.py times both.  ``cull_stats=True`` builds the dynamic culled
-    kernel with its counters (CULL_STATS, csrc/march.cuh; launches counted
-    with ``_stats`` appended) and makes ``render`` also return the frame's
-    ``evals``, ``group_evals`` (over all groups) and ``chains``."""
+    frame alone (``t0`` then f32[n, W]), the sharded renderer's blocks.  With
+    ``config.march_cull`` the kernel culls each warp's tape by interval
+    arithmetic (K7), hoisted or ``"dynamic"``, unless the tape has nothing to
+    cull.  ``render.plain`` is the plain version.  The kernel builds with
+    ``-fmad=false`` (ops/cuda/build.py ``EXTRA_FLAGS``), so that a ray stops
+    at its plain version's step.  ``cull_stats=True`` builds the dynamic
+    culled kernel with its counters (CULL_STATS, csrc/march.cuh; launches
+    counted with ``_stats`` appended) and makes ``render`` also return the
+    frame's ``evals``, ``group_evals`` (over all groups) and ``chains``."""
     config = config or RenderConfig()
     plain = make_renderer(scene, config)
     if cull_stats and (plain.culler is None or cull_mode(config) != 2):
@@ -86,8 +85,7 @@ def make_cuda_renderer(
     def library(device):
         if device not in libs:
             source = march_kernel_source(scene, config)
-            lib = load("march_fma" if fmad else "march",
-                       ("#define CULL_STATS 1\n" if cull_stats else "") + source, device)
+            lib = load("march", ("#define CULL_STATS 1\n" if cull_stats else "") + source, device)
             lib.launch_render.argtypes = [_P, _I, _I, _I, _I, _P, _P] + _SCENE
             lib.launch_render.restype = ctypes.c_int
             if cull_stats:

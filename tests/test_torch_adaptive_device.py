@@ -1,8 +1,11 @@
 """The adaptive export's level lists on the evaluator's device: the entry
-point ``BatchEvaluator.eval_surface_cells`` against ``eval_corner_signs_near``
-bit for bit, the sweep's per-level counts (``stats["level_cells"]`` and the
-``extract.corners`` spans' values), its resume files, and two exports held
-bit for bit to goldens.
+point ``BatchEvaluator.eval_surface_cells`` bit for bit against the JAX
+package's ``eval_corner_signs_near`` on the CPU off Design1's faces, and on
+its faces and on the card against the signs of the port's own corner values
+brought to the host; the sweep's
+per-level counts (``stats["level_cells"]`` and the ``extract.corners``
+spans' values), its resume files, and two exports held bit for bit to
+goldens.
 
 The goldens (``tests/goldens/<design>_adaptive_<min><max><grid>.npz``) hold
 the mesh, per-level triangles and SDF evaluations of :func:`_export` at
@@ -26,6 +29,7 @@ from designcsg_tpu_torch.compiler import ExportConfig
 from designcsg_tpu_torch.designs import get_design
 from designcsg_tpu_torch.evaluator import BatchEvaluator
 from designcsg_tpu_torch.export.pipeline import export_mesh
+from designcsg_tpu_torch.observability import to_host
 from designcsg_tpu_torch.ops.marching_cubes import CORNERS
 
 GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "goldens")
@@ -54,6 +58,26 @@ def design1_eval():
     return BatchEvaluator(get_design("design1"), device="cpu")
 
 
+@pytest.fixture(scope="module")
+def jax_signs():
+    """The JAX package's ``eval_corner_signs_near`` on Design1, imported
+    here: the card's case runs where JAX is absent."""
+    import designs
+    from designcsg_tpu.evaluator import BatchEvaluator as JBatchEvaluator
+
+    return JBatchEvaluator(designs.get_design("design1")).eval_corner_signs_near
+
+
+def _signs_of_values(ev):
+    """The sign bytes and near flags of ``ev``'s own corner values, made on
+    the host: the reference where the JAX package is absent."""
+    def reference(cells, lo, cell, offsets, bound):
+        vals = to_host(ev.eval_sdf_at_cell_corners(cells, lo, cell, offsets))
+        signs = ((vals < 0.0).astype(np.int64) << np.arange(len(offsets))).sum(1)
+        return signs.astype(np.uint8), np.abs(vals).min(1) <= np.float32(bound)
+    return reference
+
+
 def _random_cells(n=5000, seed=0, hi=32):
     return np.random.default_rng(seed).integers(0, hi, (n, 3)).astype(np.int64)
 
@@ -74,20 +98,19 @@ def _case(kind, lo, res=32, n=5000):
     return _edge_cells(res), lo * EDGE_SCALE, CELL * EDGE_SCALE * 32 / res
 
 
-def _check_against_host(ev, cells, lo, cell, offsets):
-    """``eval_surface_cells`` on the device list against
-    ``eval_corner_signs_near`` on the host list: the same rows, cells, sign
-    bytes, near flags and evaluation count, all left on the device."""
+def _check_surface_cells(ev, reference, cells, lo, cell, offsets):
+    """``eval_surface_cells`` on the device list against ``reference``'s
+    sign bytes and near flags of the host list: the same rows, cells, sign
+    bytes and near flags, all left on the device, and K evaluations a
+    cell."""
     bound = np.sqrt(3.0) * cell * 1.1
-    before = ev.sdf_eval_count
-    signs, near = ev.eval_corner_signs_near(cells, lo, cell, offsets, bound)
-    host_count = ev.sdf_eval_count - before
+    signs, near = reference(cells, lo, cell, offsets, bound)
     full = (1 << len(offsets)) - 1
     want = np.nonzero((signs != 0) & (signs != full))[0]
     dev_cells = torch.as_tensor(cells.astype(np.int32), device=ev.device)
     before = ev.sdf_eval_count
     rows, scells, ssigns, dnear = ev.eval_surface_cells(dev_cells, lo, cell, offsets, bound)
-    assert ev.sdf_eval_count - before == host_count == len(offsets) * len(cells)
+    assert ev.sdf_eval_count - before == len(offsets) * len(cells)
     assert rows.dtype == torch.int64 and scells.dtype == torch.int32
     assert ssigns.dtype == torch.uint8 and dnear.dtype == torch.bool
     assert {t.device.type for t in (rows, scells, ssigns, dnear)} == {ev.device.type}
@@ -100,24 +123,30 @@ def _check_against_host(ev, cells, lo, cell, offsets):
 
 @pytest.mark.parametrize("lo", [LO_OFF, LO_ROUND], ids=["off_faces", "round_box"])
 @pytest.mark.parametrize("kind", ["random", "lattice_edge"])
-def test_surface_cells_equal_host_signs(design1_eval, kind, lo):
+def test_surface_cells_equal_host_signs(design1_eval, jax_signs, kind, lo):
+    """Off the faces against the JAX package; on them against the port's
+    own corner values, signed on the host: at a lattice point on a face the
+    JAX package's SDF is exactly 0 and the port's -3e-8
+    (tests/test_torch_evaluator.py), and the sign byte reads that zero."""
+    reference = jax_signs if lo is LO_OFF else _signs_of_values(design1_eval)
     cells, lo, cell = _case(kind, lo)
-    rows = _check_against_host(design1_eval, cells, lo, cell, CORNERS)
+    rows = _check_surface_cells(design1_eval, reference, cells, lo, cell, CORNERS)
     assert 0 < rows.size < cells.shape[0]
 
 
-def test_surface_cells_chunked_and_fewer_offsets(design1_eval):
+def test_surface_cells_chunked_and_fewer_offsets(design1_eval, jax_signs):
     """Chunks split cells, never a cell's corners; with K < 8 offsets the
     surface is every mix of the K bits."""
     small = BatchEvaluator(get_design("design1"), device="cpu", chunk_size=100)
     cells = _random_cells(777, seed=3)
-    np.testing.assert_array_equal(_check_against_host(small, cells, LO_OFF, CELL, CORNERS),
-                                  _check_against_host(design1_eval, cells, LO_OFF, CELL, CORNERS))
-    assert _check_against_host(design1_eval, cells, LO_OFF, CELL, CORNERS[:4]).size
+    np.testing.assert_array_equal(
+        _check_surface_cells(small, jax_signs, cells, LO_OFF, CELL, CORNERS),
+        _check_surface_cells(design1_eval, jax_signs, cells, LO_OFF, CELL, CORNERS))
+    assert _check_surface_cells(design1_eval, jax_signs, cells, LO_OFF, CELL, CORNERS[:4]).size
     empty = torch.zeros((0, 3), dtype=torch.int32)
     rows, scells, signs, near = design1_eval.eval_surface_cells(empty, LO_OFF, CELL, CORNERS, 1.0)
     assert rows.shape == (0,) and scells.shape == (0, 3) and signs.shape == (0,)
-    assert near.shape == (0,)
+    assert near.shape == (0,) and signs.dtype == torch.uint8 and near.dtype == torch.bool
 
 
 def _config(name, levels, steps=2):
@@ -183,8 +212,9 @@ def _assert_next_level(prev, near, nxt):
 
 def test_level_cells_are_the_surface_counts(tmp_path):
     """``stats["level_cells"]`` holds each level's cells and the surface
-    cells among them, recomputed here from host signs of the lists the
-    sweep held; the ``extract.corners`` spans carry the same counts."""
+    cells among them, recomputed here from the signs of the lists the
+    sweep held, brought to the host; the ``extract.corners`` spans carry
+    the same counts."""
     scene, config = _config("design1", (3, 5, 5), steps=0)
     ev = BatchEvaluator(scene, device="cpu")
     spy = _Spy(ev)
@@ -194,7 +224,7 @@ def test_level_cells_are_the_surface_counts(tmp_path):
                                 stl_path=str(tmp_path / "a.stl"))
     counts = report.stats["level_cells"]
     assert sorted(counts) == [3, 4, 5]
-    host = BatchEvaluator(scene, device="cpu")
+    second = BatchEvaluator(scene, device="cpu")
     half = report.bounding_box_half_diameter
     lo = np.asarray(report.bounding_box_center, np.float64) - half
     for L, cells in zip(sorted(counts), spy.lists):
@@ -203,8 +233,8 @@ def test_level_cells_are_the_surface_counts(tmp_path):
             gz, gy, gx = np.meshgrid(g, g, g, indexing="ij")
             np.testing.assert_array_equal(cells, np.stack([gx, gy, gz], -1).reshape(-1, 3))
         cellsize = 2.0 * half / (1 << L)
-        signs, _ = host.eval_corner_signs_near(cells, lo, cellsize, CORNERS,
-                                               np.sqrt(3.0) * cellsize * 1.1)
+        signs = to_host(second.eval_corner_signs_near(cells, lo, cellsize, CORNERS,
+                                                      np.sqrt(3.0) * cellsize * 1.1)[0])
         assert counts[L] == (cells.shape[0], int(((signs != 0) & (signs != 255)).sum()))
     for prev, near, nxt in zip(spy.lists, spy.near, spy.lists[1:]):
         _assert_next_level(prev, near, nxt)
@@ -272,10 +302,11 @@ def cuda_device():
 @pytest.mark.parametrize("kind", ["random", "lattice_edge"])
 def test_surface_cells_equal_host_signs_on_card(cuda_device, kind):
     """K1 on the card: the device list's surface cells and near flags bit
-    for bit those of ``eval_corner_signs_near``, in chunks of 2^20 points
-    and of 1,000."""
+    for bit those of the card's corner values, signed on the host, in chunks
+    of 2^20 points and of 1,000."""
     for chunk in (1 << 20, 1000):
         ev = BatchEvaluator(get_design("design1"), device=cuda_device, chunk_size=chunk)
         assert ev.sdf_field == "cuda-exact"
         for lo in (LO_OFF, LO_ROUND):
-            assert _check_against_host(ev, *_case(kind, lo, res=128, n=300_000), CORNERS).size
+            case = _case(kind, lo, res=128, n=300_000)
+            assert _check_surface_cells(ev, _signs_of_values(ev), *case, CORNERS).size

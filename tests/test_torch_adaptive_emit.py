@@ -25,6 +25,7 @@ from designcsg_tpu_torch.designs import get_design
 from designcsg_tpu_torch.evaluator import BatchEvaluator
 from designcsg_tpu_torch.export import adaptive
 from designcsg_tpu_torch.export.pipeline import export_mesh
+from designcsg_tpu_torch.observability import to_host
 from designcsg_tpu_torch.ops.marching_cubes import (
     CORNERS,
     EDGE_AXIS,
@@ -68,7 +69,8 @@ def _np_canonical_offsets(evaluator, cells, vals, scale, lo, fine_cell):
     steps = np.arange(scale + 1, dtype=np.int64)
     unit = np.eye(3, dtype=np.int64)[uaxis]
     pts_fine = uorig[:, None, :] + steps[None, :, None] * unit[:, None, :]
-    v = evaluator.eval_sdf_at_lattice(pts_fine.reshape(-1, 3), lo, fine_cell).reshape(-1, scale + 1)
+    v = to_host(evaluator.eval_sdf_at_lattice(pts_fine.reshape(-1, 3), lo, fine_cell)).reshape(
+        -1, scale + 1)
     s = v < 0.0
     trans = s[:, 1:] != s[:, :-1]
     first = np.where(trans.any(axis=1), trans.argmax(axis=1), scale // 2)
@@ -112,7 +114,7 @@ def _np_ambiguous_edges(evaluator, cells, vals, lo, cellsize, samples_per_edge):
     m = samples_per_edge + 1
     ks = np.arange(1, samples_per_edge + 1)
     idx = a[:, :, None, :] * m + (b - a)[:, :, None, :] * ks[None, None, :, None]
-    interior = evaluator.eval_sdf_at_lattice(idx.reshape(-1, 3), lo, cellsize / m).reshape(
+    interior = to_host(evaluator.eval_sdf_at_lattice(idx.reshape(-1, 3), lo, cellsize / m)).reshape(
         C, 12, samples_per_edge)
     sign_a = vals[:, EDGES[:, 0], None] < 0.0
     sign_b = vals[:, EDGES[:, 1], None] < 0.0
@@ -130,6 +132,17 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+class _HostValues:
+    """The port's evaluator as the JAX package's numpy helpers call it: its
+    lattice values brought to the host, its evaluations counted on it."""
+
+    def __init__(self, ev):
+        self.ev = ev
+
+    def eval_sdf_at_lattice(self, *args):
+        return to_host(self.ev.eval_sdf_at_lattice(*args))
 
 
 @pytest.fixture(scope="module")
@@ -151,7 +164,7 @@ def surface():
     gz, gy, gx = np.meshgrid(r, r, r, indexing="ij")
     grid = np.stack([gx, gy, gz], -1).reshape(-1, 3).astype(np.int64)
     cellsize = 2.0 * HALF / (1 << LEVEL)
-    signs, _ = ev.eval_corner_signs_near(grid, LO, cellsize, CORNERS, 1.0)
+    signs = to_host(ev.eval_corner_signs_near(grid, LO, cellsize, CORNERS, 1.0)[0])
     real = np.nonzero((signs != 0) & (signs != 255))[0]
     assert 100 < real.size < grid.shape[0] // 4
     every = real[np.arange(254) % real.size]
@@ -192,8 +205,8 @@ def test_canonical_offsets_equal_the_numpy_helpers(surface, jax_helpers, scale):
     ev, cells, signs = surface
     _, fine_cell, _ = _geometry(scale)
     vals = _vals(signs)
-    want, want_n = _counted(ev, jax_helpers._canonical_offsets, ev, cells, vals, scale, LO,
-                            fine_cell)
+    want, want_n = _counted(ev, jax_helpers._canonical_offsets, _HostValues(ev), cells, vals,
+                            scale, LO, fine_cell)
     got, got_n = _counted(ev, adaptive._canonical_offsets, ev, adaptive._tables("cpu"),
                           *_on_device(cells, signs), scale, LO, fine_cell)
     assert got.dtype == torch.float32 and got_n == want_n
@@ -209,7 +222,7 @@ def test_emitted_triangles_equal_the_numpy_helpers(surface, jax_helpers, scale):
     ev, cells, signs = surface
     _, fine_cell, fine_res = _geometry(scale)
     vals = _vals(signs)
-    offs = jax_helpers._canonical_offsets(ev, cells, vals, scale, LO, fine_cell)
+    offs = jax_helpers._canonical_offsets(_HostValues(ev), cells, vals, scale, LO, fine_cell)
     want_keys, want_pos = jax_helpers._emit_cells(cells, vals, offs, scale, fine_res)
     keys, pos = adaptive._emit_cells(adaptive._tables("cpu"), *_on_device(cells, signs),
                                      torch.as_tensor(offs), scale, fine_res)
@@ -244,7 +257,7 @@ def test_complexity_verdicts_equal_the_numpy_helpers(surface, jax_helpers, thres
     ev, cells, _ = surface
     cellsize, _, _ = _geometry(1)
     ulps = np.r_[-5000:-4990, -1100:-1000, -40:41, 1000:1100, 4990:5000]
-    normals = np.concatenate([ev.eval_normal_at_cell_corners(cells, LO, cellsize, CORNERS),
+    normals = np.concatenate([to_host(ev.eval_normal_at_cell_corners(cells, LO, cellsize, CORNERS)),
                               _near_cut_normals(threshold, ulps)])
     want = jax_helpers._edge_angles(normals) > threshold
     got = adaptive._complex_cells(adaptive._tables("cpu"), torch.as_tensor(normals), threshold)
@@ -263,7 +276,8 @@ def test_ambiguity_verdicts_equal_the_numpy_helpers(surface, jax_helpers, scale)
     cellsize, _, _ = _geometry(scale)
     vals = _vals(signs)
     n = SAMPLES[scale]
-    want, want_n = _counted(ev, jax_helpers._ambiguous_edges, ev, cells, vals, LO, cellsize, n)
+    want, want_n = _counted(ev, jax_helpers._ambiguous_edges, _HostValues(ev), cells, vals, LO,
+                            cellsize, n)
     got, got_n = _counted(ev, adaptive._ambiguous_edges, ev, adaptive._tables("cpu"),
                           *_on_device(cells, signs), LO, cellsize, n)
     assert got.dtype == torch.bool and got_n == want_n == cells.shape[0] * 12 * n
@@ -275,22 +289,26 @@ def test_ambiguity_verdicts_equal_the_numpy_helpers(surface, jax_helpers, scale)
 @pytest.mark.parametrize("chunk", [1 << 20, 100])
 @pytest.mark.parametrize("entry", ["sdf", "normal"])
 def test_device_lattice_entry_points_equal_the_host_ones(surface, entry, chunk):
-    """The evaluator's device entry points give the host entry points'
-    values bit for bit, in one chunk or many, and count the same."""
-    _, cells, _ = surface
+    """A lattice entry point given its cells as a host array and as an int32
+    tensor on the device gives the same bits and counts the same, in one
+    chunk or many, and the bits of one chunk."""
+    one, cells, _ = surface
     ev = BatchEvaluator(get_design("design1"), device="cpu", chunk_size=chunk)
     cellsize, _, _ = _geometry(1)
     if entry == "sdf":
         idx = cells * 3 + 1
-        host = _counted(ev, ev.eval_sdf_at_lattice, idx, LO, cellsize / 3)
-        dev = _counted(ev, ev.eval_sdf_at_lattice_on_device,
-                       torch.as_tensor(idx.astype(np.int32)), LO, cellsize / 3)
+        args = (LO, cellsize / 3)
+        call, one_call = ev.eval_sdf_at_lattice, one.eval_sdf_at_lattice
     else:
-        host = _counted(ev, ev.eval_normal_at_cell_corners, cells, LO, cellsize, CORNERS)
-        dev = _counted(ev, ev.eval_normal_at_cell_corners_on_device,
-                       torch.as_tensor(cells.astype(np.int32)), LO, cellsize, CORNERS)
+        idx = cells
+        args = (LO, cellsize, CORNERS)
+        call, one_call = ev.eval_normal_at_cell_corners, one.eval_normal_at_cell_corners
+    host = _counted(ev, call, idx, *args)
+    dev = _counted(ev, call, torch.as_tensor(idx.astype(np.int32)), *args)
     assert dev[1] == host[1] > 0 and dev[0].shape == host[0].shape
-    assert np.array_equal(_bits(dev[0].numpy()), _bits(host[0]))
+    assert dev[0].device == host[0].device == ev.device
+    assert np.array_equal(_bits(to_host(dev[0])), _bits(to_host(host[0])))
+    assert np.array_equal(_bits(to_host(dev[0])), _bits(to_host(one_call(idx, *args))))
 
 
 def test_empty_lists_make_nothing(surface):
@@ -303,8 +321,8 @@ def test_empty_lists_make_nothing(surface):
     assert adaptive._canonical_offsets(ev, tables, cells, signs, 4, LO, 0.25).shape == (0, 12)
     keys, pos = adaptive._emit_cells(tables, cells, signs, torch.zeros((0, 12)), 4, 64)
     assert keys.shape == (0, 3) and pos.shape == (0, 3, 3)
-    assert ev.eval_sdf_at_lattice_on_device(cells, LO, 1.0).shape == (0,)
-    assert ev.eval_normal_at_cell_corners_on_device(cells, LO, 1.0, CORNERS).shape == (0, 8, 3)
+    assert ev.eval_sdf_at_lattice(cells, LO, 1.0).shape == (0,)
+    assert ev.eval_normal_at_cell_corners(cells, LO, 1.0, CORNERS).shape == (0, 8, 3)
     assert ev.sdf_eval_count == before
 
 

@@ -1,6 +1,8 @@
 """The evaluator's lattice and cell-corner entry points, its gizmo option,
 its normal modes and its route by scene capability, against the JAX
-package's ``BatchEvaluator`` and Pallas point kernel on the CPU.
+package's ``BatchEvaluator`` and Pallas point kernel on the CPU.  The
+lattice entry points leave their values on the device; they come down with
+``to_host`` to be compared.
 
 The lattice is offset off Design1's faces (``LO``): at a lattice point on a
 face the SDF is exactly 0 in the JAX package and -3e-8 in the port (XLA
@@ -21,6 +23,7 @@ from designcsg_tpu.ops.pallas import make_pallas_point_eval
 from designcsg_tpu_torch.config import RenderConfig
 from designcsg_tpu_torch.designs import get_design
 from designcsg_tpu_torch.evaluator import BatchEvaluator, default_use_kernels
+from designcsg_tpu_torch.observability import to_host
 from designcsg_tpu_torch.ops.cuda.brushes_kernel import supports_scene
 from designcsg_tpu_torch.ops.cuda.sdf_kernel import make_point_eval
 from designcsg_tpu_torch.ops.marching_cubes import CORNERS
@@ -59,13 +62,14 @@ def _cells(n=3000, seed=0, hi=32):
 def test_sdf_at_lattice_and_corners_match_jax(evaluators):
     jev, tev = evaluators
     cells = _cells()
-    assert _close(tev.eval_sdf_at_lattice(cells, LO, CELL), jev.eval_sdf_at_lattice(cells, LO, CELL))
-    got = tev.eval_sdf_at_cell_corners(cells, LO, CELL, CORNERS)
+    assert _close(to_host(tev.eval_sdf_at_lattice(cells, LO, CELL)),
+                  jev.eval_sdf_at_lattice(cells, LO, CELL))
+    got = to_host(tev.eval_sdf_at_cell_corners(cells, LO, CELL, CORNERS))
     assert got.shape == (3000, 8)
     assert _close(got, jev.eval_sdf_at_cell_corners(cells, LO, CELL, JCORNERS))
     # Non-integer offsets: the midpoints of a cell's faces.
     half = np.array([[0.5, 0.5, 0.0], [0.0, 0.5, 0.5]])
-    assert _close(tev.eval_sdf_at_cell_corners(cells, LO, CELL, half),
+    assert _close(to_host(tev.eval_sdf_at_cell_corners(cells, LO, CELL, half)),
                   jev.eval_sdf_at_cell_corners(cells, LO, CELL, half))
 
 
@@ -77,7 +81,8 @@ def test_lattice_points_round_as_the_grid_kernel(evaluators):
     cells = _cells(500, seed=3)
     lo32, cell32 = LO.astype(np.float32), np.float32(CELL)
     pts = lo32[None, :] + cell32 * cells.astype(np.float32)
-    np.testing.assert_array_equal(tev.eval_sdf_at_lattice(cells, LO, CELL), tev.eval_sdf_at_points(pts))
+    np.testing.assert_array_equal(to_host(tev.eval_sdf_at_lattice(cells, LO, CELL)),
+                                  tev.eval_sdf_at_points(pts))
 
 
 def test_normals_at_lattice_and_corners_match_jax(evaluators):
@@ -88,9 +93,9 @@ def test_normals_at_lattice_and_corners_match_jax(evaluators):
     cells = _cells(4000, seed=1)
     vals = jev.eval_sdf_at_lattice(cells, LO, CELL)
     near = cells[np.abs(vals) < 0.5][:400]
-    np.testing.assert_allclose(tev.eval_normal_at_lattice(near, LO, CELL),
+    np.testing.assert_allclose(to_host(tev.eval_normal_at_lattice(near, LO, CELL)),
                                jev.eval_normal_at_lattice(near, LO, CELL), atol=1e-4)
-    got = tev.eval_normal_at_cell_corners(near, LO, CELL, CORNERS)
+    got = to_host(tev.eval_normal_at_cell_corners(near, LO, CELL, CORNERS))
     assert got.shape == (near.shape[0], 8, 3)
     np.testing.assert_allclose(got, jev.eval_normal_at_cell_corners(near, LO, CELL, JCORNERS), atol=1e-4)
 
@@ -99,14 +104,14 @@ def test_corner_signs_near_match_jax(evaluators):
     jev, tev = evaluators
     cells = _cells(6000, seed=2)
     bound = np.sqrt(3.0) * CELL * 1.1
-    signs, near = tev.eval_corner_signs_near(cells, LO, CELL, CORNERS, bound)
+    signs, near = map(to_host, tev.eval_corner_signs_near(cells, LO, CELL, CORNERS, bound))
     jsigns, jnear = jev.eval_corner_signs_near(cells, LO, CELL, JCORNERS, bound)
     assert signs.dtype == np.uint8 and near.dtype == bool
     np.testing.assert_array_equal(signs, jsigns)
     np.testing.assert_array_equal(near, jnear)
     assert ((signs != 0) & (signs != 255)).any() and near.any() and not near.all()
     # The bound is compared in float32 (ROADMAP F3).
-    vals = tev.eval_sdf_at_cell_corners(cells, LO, CELL, CORNERS)
+    vals = to_host(tev.eval_sdf_at_cell_corners(cells, LO, CELL, CORNERS))
     np.testing.assert_array_equal(near, np.abs(vals).min(1) <= np.float32(bound))
     with pytest.raises(ValueError, match="K <= 8"):
         tev.eval_corner_signs_near(cells, LO, CELL, np.zeros((9, 3)), bound)
@@ -133,11 +138,11 @@ def test_chunked_entry_points_equal_unchunked(evaluators):
     _, tev = evaluators
     small = BatchEvaluator(get_design("design1"), device="cpu", chunk_size=100)
     cells = _cells(333, seed=5)
-    np.testing.assert_array_equal(small.eval_sdf_at_cell_corners(cells, LO, CELL, CORNERS),
-                                  tev.eval_sdf_at_cell_corners(cells, LO, CELL, CORNERS))
+    np.testing.assert_array_equal(to_host(small.eval_sdf_at_cell_corners(cells, LO, CELL, CORNERS)),
+                                  to_host(tev.eval_sdf_at_cell_corners(cells, LO, CELL, CORNERS)))
     for a, b in zip(small.eval_corner_signs_near(cells, LO, CELL, CORNERS, 0.4),
                     tev.eval_corner_signs_near(cells, LO, CELL, CORNERS, 0.4)):
-        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(to_host(a), to_host(b))
 
 
 @pytest.mark.parametrize("name", ["design1", "design2"])
