@@ -24,6 +24,7 @@ from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import native
 from ..ops.marching_cubes import Mesh
 
 
@@ -124,11 +125,53 @@ def stitch_boundary_loops(
     longer than ``max_loop`` vertices are left open as a safety valve
     (a real crack sliver is local); every loop left open that way is
     *counted and logged* (``stats['open_loops']`` + a warning), so a
-    degenerate run cannot silently claim "healed" while leaking cracks."""
-    bedges = boundary_edges(mesh)
-    if bedges.shape[0] == 0:
-        return mesh
+    degenerate run cannot silently claim "healed" while leaking cracks.
 
+    The boundary edges, the walk and the caps run in one pass of the native
+    library (``native.stitch_loops``) when it is available, and in numpy
+    otherwise: the same faces either way."""
+    if native.available():
+        caps, n_boundary, open_loops, closed_loops, degenerate = native.stitch_loops(
+            mesh.faces, mesh.vertices, domain_lo, domain_hi, eps, max_loop)
+        if not n_boundary:
+            return mesh
+    else:
+        bedges = boundary_edges(mesh)
+        if bedges.shape[0] == 0:
+            return mesh
+        flat, lengths, open_loops = _walk_loops(mesh, bedges, domain_lo, domain_hi, eps,
+                                                max_loop)
+        closed_loops, degenerate = len(lengths), True
+        if lengths:
+            caps = _min_area_caps(np.asarray(flat, dtype=np.int64), np.asarray(lengths),
+                                  mesh.vertices)
+
+    if stats is not None:
+        stats["open_loops"] = stats.get("open_loops", 0) + open_loops
+        stats["closed_loops"] = stats.get("closed_loops", 0) + closed_loops
+    if open_loops:
+        logging.getLogger("designcsg_tpu_torch").warning(
+            "stitch_boundary_loops left %d crack loop(s) longer than %d "
+            "vertices open (healing is incomplete for this mesh)",
+            open_loops,
+            max_loop,
+        )
+    if not closed_loops:
+        return mesh
+    # Faces with a repeated vertex go; the native caps come without them.
+    faces = np.concatenate([mesh.faces, caps])
+    if degenerate:
+        faces = faces[(faces[:, 0] != faces[:, 1])
+                      & (faces[:, 1] != faces[:, 2])
+                      & (faces[:, 0] != faces[:, 2])]
+    return Mesh(vertices=mesh.vertices, faces=faces)
+
+
+def _walk_loops(mesh: Mesh, bedges: np.ndarray, domain_lo, domain_hi, eps: float,
+                max_loop: int) -> Tuple[List[int], List[int], int]:
+    """:func:`stitch_boundary_loops`' walk of the boundary edges in numpy:
+    (the loops to cap, reversed, one after another; their lengths; the
+    loops left open for exceeding ``max_loop``)."""
     on_domain = None
     if domain_lo is not None and domain_hi is not None:
         v = mesh.vertices
@@ -183,28 +226,7 @@ def stitch_boundary_loops(
         # present the matching orientation.
         flat.extend(reversed(loop))
         lengths.append(len(loop))
-    closed_loops = len(lengths)
-
-    if stats is not None:
-        stats["open_loops"] = stats.get("open_loops", 0) + open_loops
-        stats["closed_loops"] = stats.get("closed_loops", 0) + closed_loops
-    if open_loops:
-        logging.getLogger("designcsg_tpu_torch").warning(
-            "stitch_boundary_loops left %d crack loop(s) longer than %d "
-            "vertices open (healing is incomplete for this mesh)",
-            open_loops,
-            max_loop,
-        )
-    if not lengths:
-        return mesh
-    caps = _min_area_caps(np.asarray(flat, dtype=np.int64), np.asarray(lengths), mesh.vertices)
-    faces = np.concatenate([mesh.faces, caps])
-    ok_tri = (
-        (faces[:, 0] != faces[:, 1])
-        & (faces[:, 1] != faces[:, 2])
-        & (faces[:, 0] != faces[:, 2])
-    )
-    return Mesh(vertices=mesh.vertices, faces=faces[ok_tri])
+    return flat, lengths, open_loops
 
 
 def strip_triangulate(polygon: Sequence[int]) -> List[Tuple[int, int, int]]:

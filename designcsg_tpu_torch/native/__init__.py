@@ -4,7 +4,8 @@ The port's copy of the JAX package's designcsg_tpu/native: marching-cubes
 triangles of a corner slab (``mc_slab``) or of gathered corner blocks
 (``mc_blocks``), the triangle edge keys of compacted cells
 (``cells_to_tri_keys``), exact vertex welding (``weld``) and the binary STL
-writer (``write_stl_soup``).  The library is built with g++ at first use into
+writer (``write_stl_soup``); the port's own crack-loop stitch
+(``stitch_loops``).  The library is built with g++ at first use into
 ``build/torch_native/`` of the checkout (keyed by the source's hash, written
 atomically, so parallel processes agree) and never beside the source.  Every
 caller checks :func:`available` and takes the numpy implementation without a
@@ -33,6 +34,7 @@ _tried = False
 
 _I64P = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _F32P = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+_F64P = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 _U8P = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
 _LL = ctypes.c_longlong
 _TABLE = [_I64P, _I64P, _LL, _I64P, _I64P]  # tri_edges, n_tris, maxt, edge_axis, edge_origin
@@ -81,6 +83,9 @@ def _load() -> Optional[ctypes.CDLL]:
         lib.cells_to_tri_keys.argtypes = [_I64P, _U8P, _LL, _LL, *_TABLE, _LL, _I64P]
         lib.weld.restype = _LL
         lib.weld.argtypes = [_I64P, _LL, _I64P, _I64P]
+        lib.stitch_loops.restype = _LL
+        lib.stitch_loops.argtypes = [_I64P, _LL, _F64P, _LL, ctypes.c_int, _F64P, _F64P,
+                                     ctypes.c_double, _LL, _I64P, _I64P]
         lib.write_stl_soup.restype = _LL
         lib.write_stl_soup.argtypes = [ctypes.c_char_p, _F32P, _LL]
         _lib = lib
@@ -183,6 +188,33 @@ def weld(keys: np.ndarray) -> tuple[int, np.ndarray, np.ndarray]:
     first_idx = np.empty((n,), dtype=np.int64)
     num = lib.weld(keys, n, inverse, first_idx)
     return int(num), inverse, first_idx[:num]
+
+
+def stitch_loops(faces: np.ndarray, vertices: np.ndarray, domain_lo: Optional[np.ndarray],
+                 domain_hi: Optional[np.ndarray], eps: float,
+                 max_loop: int) -> tuple[np.ndarray, int, int, int, int]:
+    """Native twin of export.retopo.stitch_boundary_loops' boundary edges,
+    loop walk and caps.  Returns (the caps without a repeated vertex,
+    i64[C, 3] in loop order; boundary edges; open loops; closed loops; the
+    faces given with a repeated vertex); the domain box applies when both
+    of its corners are given."""
+    lib = _load()
+    assert lib is not None
+    faces = np.ascontiguousarray(faces, dtype=np.int64)
+    verts = np.ascontiguousarray(vertices, dtype=np.float64)  # exact from float32
+    if faces.ndim != 2 or faces.shape[1] != 3 or verts.ndim != 2 or verts.shape[1] != 3:
+        raise ValueError(f"faces {faces.shape} and vertices {verts.shape} must be [N, 3]")
+    has_domain = domain_lo is not None and domain_hi is not None
+    lo = np.ascontiguousarray(domain_lo if has_domain else np.zeros(3), dtype=np.float64)
+    hi = np.ascontiguousarray(domain_hi if has_domain else np.zeros(3), dtype=np.float64)
+    caps = np.empty((3 * faces.shape[0], 3), dtype=np.int64)  # a loop of m edges: m - 2 caps
+    counts = np.zeros(4, dtype=np.int64)
+    n = lib.stitch_loops(faces.reshape(-1), faces.shape[0], verts.reshape(-1), verts.shape[0],
+                         int(has_domain), lo, hi, float(eps), int(max_loop), caps.reshape(-1),
+                         counts)
+    if n < 0:
+        raise IndexError("a face names a vertex outside the mesh")
+    return (caps[:n], *(int(c) for c in counts))
 
 
 def write_stl_soup(path: str, tris: np.ndarray) -> int:

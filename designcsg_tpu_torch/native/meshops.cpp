@@ -1,22 +1,99 @@
 // Native mesh post-processing ops of the export (a copy of the JAX
 // package's designcsg_tpu/native/meshops.cpp, kept apart so that the port
-// imports nothing of that package).
+// imports nothing of that package; stitch_loops is the port's own).
 //
 // Counterpart of the reference's C++ mesh pipeline (cms/main/Headers/
 // {mesh,utils}.hpp): the SDF math runs on the card (the CUDA kernels); what
 // is host work -- sparse marching-cubes cell assembly, exact vertex welding,
-// mesh file IO -- runs here instead of vectorized-but-allocating numpy.
+// the crack loops' caps, mesh file IO -- runs here instead of
+// vectorized-but-allocating numpy.
 // Exposed as a C ABI for ctypes; every entry point has a numpy fallback in
 // Python (the tests compare the two).
 //
 // Build: g++ -O3 -shared -fPIC meshops.cpp -o libmeshops.so  (native/__init__.py
 // builds it at first use into build/torch_native/).
 
+#include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
 #include <unordered_map>
 #include <vector>
+
+namespace {
+
+// The minimal-area triangulation of one loop of m >= 3 vertex ids (the cap
+// of export/retopo.py _cap_block), written as m - 2 triangles to out.  For
+// each span j - i the best split k, the first of equal costs, costs the
+// triangle (p_i, p_k, p_j) by half the norm of (p_k - p_i) x (p_j - p_i),
+// in float64 and in numpy's order of operations; the triangles come out in
+// the recursion's order: the split's triangle, the part below, the part
+// above.  Contraction into FMAs is off here: it would change the areas'
+// last bits, and with them the ties.
+__attribute__((optimize("fp-contract=off")))
+void cap_loop(const long long* ids, long long m, const double* verts,
+              std::vector<double>& p, std::vector<double>& cost,
+              std::vector<long long>& split, std::vector<long long>& stack, long long* out)
+{
+    p.resize((size_t)(m * 3));
+    cost.assign((size_t)(m * m), 0.0);
+    split.resize((size_t)(m * m));
+    for (long long a = 0; a < m; a++)
+        for (int d = 0; d < 3; d++) p[a * 3 + d] = verts[ids[a] * 3 + d];
+    for (long long span = 2; span < m; span++) {
+        for (long long i = 0; i + span < m; i++) {
+            const long long j = i + span;
+            const double* pi = &p[i * 3];
+            const double* pj = &p[j * 3];
+            const double bx = pj[0] - pi[0], by = pj[1] - pi[1], bz = pj[2] - pi[2];
+            double best = 0.0;
+            long long arg = -1;
+            for (long long k = i + 1; k < j; k++) {
+                const double* pk = &p[k * 3];
+                const double ax = pk[0] - pi[0], ay = pk[1] - pi[1], az = pk[2] - pi[2];
+                const double cx = ay * bz - az * by;
+                const double cy = az * bx - ax * bz;
+                const double cz = ax * by - ay * bx;
+                const double area = 0.5 * std::sqrt(cx * cx + cy * cy + cz * cz);
+                const double c = (cost[i * m + k] + cost[k * m + j]) + area;
+                // np.argmin: the first minimum, or the first NaN.
+                if (arg < 0 || c < best || (std::isnan(c) && !std::isnan(best))) {
+                    best = c;
+                    arg = k;
+                }
+            }
+            cost[i * m + j] = best;
+            split[i * m + j] = arg;
+        }
+    }
+    // The recursion from (0, m - 1) on a stack of (i, j): pop (i, j), emit
+    // its triangle, push (k, j), then (i, k) on top of it.
+    stack.resize((size_t)(2 * m));
+    long long top = 0;
+    stack[0] = 0;
+    stack[1] = m - 1;
+    for (long long n = 0; n < m - 2; n++) {
+        const long long i = stack[top * 2], j = stack[top * 2 + 1];
+        const long long k = split[i * m + j];
+        out[n * 3 + 0] = ids[i];
+        out[n * 3 + 1] = ids[k];
+        out[n * 3 + 2] = ids[j];
+        top--;
+        if (j - k >= 2) {
+            top++;
+            stack[top * 2] = k;
+            stack[top * 2 + 1] = j;
+        }
+        if (k - i >= 2) {
+            top++;
+            stack[top * 2] = i;
+            stack[top * 2 + 1] = k;
+        }
+    }
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -264,6 +341,156 @@ long long weld(const long long* keys, long long n, long long* inverse,
         }
     }
     return next;
+}
+
+// Close a mesh's crack loops (export/retopo.py stitch_boundary_loops, which
+// is the numpy twin of this pass, face for face).
+//
+// Boundary edges are the directed edges (a, b) of the faces -- every face's
+// (0,1) edge, then every (1,2), then every (2,0) -- whose undirected edge
+// occurs once; each is counted in a bucket of its smaller end.  The walk
+// starts at each unused boundary edge in order and follows, at each vertex,
+// its first unused outgoing edge (edges in index order, a head per vertex
+// past the used ones) until it returns to its start; it abandons a loop
+// that grows past max_loop vertices (counted open) or reaches a vertex with
+// nothing left to follow.  A loop of 3 or more vertices not all on the
+// domain box (has_domain: |v - lo| < eps or |v - hi| < eps on an axis) is
+// reversed and capped by cap_loop, caps in loop order, those with a
+// repeated vertex dropped.
+//
+// faces: i64[F * 3]; verts: f64[nv * 3]; out_caps: i64[3 * F * 3] (a loop
+// of m edges gives m - 2 triangles); out_counts: boundary edges, open
+// loops, closed loops, and the faces given with a repeated vertex.  Returns
+// the cap triangles written, or -1 if a face names a vertex outside [0, nv).
+long long stitch_loops(const long long* faces, long long F, const double* verts, long long nv,
+                       int has_domain, const double* lo, const double* hi, double eps,
+                       long long max_loop, long long* out_caps, long long* out_counts)
+{
+    const long long E = 3 * F;
+    long long degenerate = 0;
+    for (long long f = 0; f < F; f++) {
+        const long long* t = faces + f * 3;
+        for (int q = 0; q < 3; q++)
+            if (t[q] < 0 || t[q] >= nv) return -1;
+        degenerate += t[0] == t[1] || t[1] == t[2] || t[0] == t[2];
+    }
+
+    // Directed edge e = q * F + f runs from corner q of face f to corner
+    // q + 1 (mod 3).  Each is counted in the bucket of its smaller end,
+    // beside its larger end; buckets fill in edge order.
+    std::vector<long long> off((size_t)(nv + 1), 0);
+    for (long long q = 0; q < 3; q++)
+        for (long long f = 0; f < F; f++) {
+            const long long a = faces[f * 3 + q], b = faces[f * 3 + (q + 1) % 3];
+            off[std::min(a, b) + 1]++;
+        }
+    for (long long v = 0; v < nv; v++) off[v + 1] += off[v];
+    std::vector<long long> bucket_edge((size_t)E), bucket_end((size_t)E);
+    {
+        std::vector<long long> fill(off.begin(), off.end() - 1);
+        for (long long q = 0; q < 3; q++)
+            for (long long f = 0; f < F; f++) {
+                const long long a = faces[f * 3 + q], b = faces[f * 3 + (q + 1) % 3];
+                const long long s = fill[std::min(a, b)]++;
+                bucket_edge[s] = q * F + f;
+                bucket_end[s] = std::max(a, b);
+            }
+    }
+    std::vector<unsigned char> once((size_t)E, 0);
+    {
+        std::vector<long long> stamp((size_t)nv, -1), count((size_t)nv, 0);
+        for (long long u = 0; u < nv; u++) {
+            for (long long s = off[u]; s < off[u + 1]; s++) {
+                const long long v = bucket_end[s];
+                if (stamp[v] != u) {
+                    stamp[v] = u;
+                    count[v] = 0;
+                }
+                count[v]++;
+            }
+            for (long long s = off[u]; s < off[u + 1]; s++)
+                once[bucket_edge[s]] = count[bucket_end[s]] == 1;
+        }
+    }
+    std::vector<long long> src, dst;
+    for (long long q = 0; q < 3; q++)
+        for (long long f = 0; f < F; f++) {
+            if (!once[q * F + f]) continue;
+            src.push_back(faces[f * 3 + q]);
+            dst.push_back(faces[f * 3 + (q + 1) % 3]);
+        }
+    const long long nb = (long long)src.size();
+
+    // The boundary edges leaving each vertex, in index order: by_start
+    // positions head[v] .. tail[v] - 1; head moves past used ones.
+    std::vector<long long> head((size_t)(nv + 1), 0);
+    for (long long e = 0; e < nb; e++) head[src[e] + 1]++;
+    for (long long v = 0; v < nv; v++) head[v + 1] += head[v];
+    std::vector<long long> tail(head.begin() + 1, head.end());
+    std::vector<long long> by_start((size_t)nb);
+    {
+        std::vector<long long> fill(head.begin(), head.end() - 1);
+        for (long long e = 0; e < nb; e++) by_start[fill[src[e]]++] = e;
+    }
+    std::vector<unsigned char> used((size_t)nb, 0);
+    std::vector<long long> loop, ids;
+    std::vector<double> p, cost;
+    std::vector<long long> split, stack, tris;
+    long long n_caps = 0, open_loops = 0, closed_loops = 0;
+    for (long long start = 0; start < nb; start++) {
+        if (used[start]) continue;
+        loop.assign(1, src[start]);
+        used[start] = 1;
+        long long cur = dst[start];
+        bool ok = true;
+        while (cur != loop[0]) {
+            loop.push_back(cur);
+            long long h = head[cur];
+            while (h < tail[cur] && used[by_start[h]]) h++;
+            head[cur] = h;
+            if (h == tail[cur] || (long long)loop.size() > max_loop) {
+                ok = false;
+                break;
+            }
+            const long long next = by_start[h];
+            used[next] = 1;
+            cur = dst[next];
+        }
+        const long long m = (long long)loop.size();
+        if (!ok || m < 3) {
+            if (m > max_loop) open_loops++;
+            continue;
+        }
+        if (has_domain) {
+            bool all_on = true;
+            for (long long a = 0; a < m && all_on; a++) {
+                bool on = false;
+                for (int d = 0; d < 3; d++) {
+                    const double x = verts[loop[a] * 3 + d];
+                    on = on || std::fabs(x - lo[d]) < eps || std::fabs(x - hi[d]) < eps;
+                }
+                all_on = on;
+            }
+            if (all_on) continue;  // clip boundary, not a crack
+        }
+        // Capped with winding opposite the traversal: boundary edges run as
+        // their faces wind them, so the cap runs reversed.
+        ids.assign(loop.rbegin(), loop.rend());
+        tris.resize((size_t)((m - 2) * 3));
+        cap_loop(ids.data(), m, verts, p, cost, split, stack, tris.data());
+        for (long long t = 0; t < m - 2; t++) {
+            const long long* c = &tris[t * 3];
+            if (c[0] == c[1] || c[1] == c[2] || c[0] == c[2]) continue;
+            std::memcpy(out_caps + n_caps * 3, c, 3 * sizeof(long long));
+            n_caps++;
+        }
+        closed_loops++;
+    }
+    out_counts[0] = nb;
+    out_counts[1] = open_loops;
+    out_counts[2] = closed_loops;
+    out_counts[3] = degenerate;
+    return n_caps;
 }
 
 // Binary STL with the reference's conventions: zero normals, vertices
