@@ -153,9 +153,11 @@ HD float sdf_fd_normal(const Field& field, float x, float y, float z, float& nx,
     }
     const float norm = sqrt_rn(add_rn(add_rn(mul_rn(g[0], g[0]), mul_rn(g[1], g[1])),
                                       mul_rn(g[2], g[2])));
-    nx = div_rn(g[0], norm);
-    ny = div_rn(g[1], norm);
-    nz = div_rn(g[2], norm);
+    // A zero gradient gives a zero normal, as OpenCL's normalize does.
+    const float length = norm > 0.0f ? norm : 1.0f;
+    nx = div_rn(g[0], length);
+    ny = div_rn(g[1], length);
+    nz = div_rn(g[2], length);
     return s;
 }
 

@@ -38,6 +38,7 @@ import torch
 
 from .. import api
 from ..api import Transform
+from ..observability import span
 from ..ops.cuda.tape import f32_literal
 from ..ops.cull import (
     f32,
@@ -421,11 +422,18 @@ def _make_letter_brush(curve_start: int, n_curves: int, mask_start: int):
     It carries :func:`plate_proxy` as ``__proxy_fn__``, as the JAX brush
     does."""
     r = LETTER_RESOLUTION
+    n_samples = n_curves * SUBSEGMENTS
     offs = curve_start + 11 * np.arange(n_curves)
     t_host = torch.from_numpy((np.arange(SUBSEGMENTS, dtype=np.float32) / SUBSEGMENTS)[None, :, None])
     per_device = {}
 
     def letter_fn(v, ctx):
+        # A host span only: its value, the call's point-sample pairs, comes
+        # from the shape.
+        with span("brush.letter", v.shape[:-1].numel() * n_samples):
+            return letter_field(v, ctx)
+
+    def letter_field(v, ctx):
         ad = ctx.ad
         if ad.device not in per_device:
             per_device[ad.device] = (torch.as_tensor(offs, device=ad.device), t_host.to(ad.device))

@@ -34,7 +34,7 @@ from .compiler import CompiledScene, SceneArrays
 from .observability import span, to_device, to_host
 from .ops.cuda.brushes_kernel import supports_scene
 from .ops.cuda.sdf_kernel import make_grid_eval, make_point_eval
-from .ops.interpreter import make_normal_fn, make_primary_sdf
+from .ops.interpreter import make_normal_fn, make_primary_sdf, make_sdf_fd_normal
 
 logger = logging.getLogger("designcsg_tpu_torch")
 
@@ -127,11 +127,13 @@ class BatchEvaluator:
         )
         normal = make_normal_fn(self.point_eval, mode=normal_mode)
         # The SDF and its FD normal: on the kernels' field one launch of K1's
-        # FD form per chunk (ops/cuda/sdf_kernel.py), else the composition
-        # that launch equals.
+        # FD form per chunk (ops/cuda/sdf_kernel.py), on the tape one call at
+        # the seven points that launch reads, else the composition.
         point_eval = self.local_point_eval = self.point_eval
         if self.use_kernels:
             self._sdf_normal = point_eval.fd
+        elif normal_mode == "fd":
+            self._sdf_normal = make_sdf_fd_normal(point_eval)
         else:
             self._sdf_normal = lambda points, arrays: (point_eval(points, arrays),
                                                        normal(points, arrays))
@@ -283,8 +285,9 @@ class BatchEvaluator:
         """The Newton-projection loop ``p <- p - n(p)*sdf(p)`` (the reference's
         "gradient descent", mesh.hpp:540-590), with the vertices kept on the
         device across steps: each step is one SDF evaluation and one normal
-        (7 point evaluations with FD normals; on the kernels' field one
-        launch of K1's FD form), chunk by chunk."""
+        (7 point evaluations with FD normals: on the kernels' field one
+        launch of K1's FD form, on the tape one call at the seven points),
+        chunk by chunk."""
         with span("evaluator.refine_on_device"):
             v = np.asarray(vertices, dtype=np.float32)
             n = v.shape[0]

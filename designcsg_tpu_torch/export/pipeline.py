@@ -187,13 +187,14 @@ def autodetect_bounding_box(
     mins = np.zeros(3)
     maxs = np.zeros(3)
     slab = max(1, (1 << 22) // (resolution * resolution))
-    for z0 in range(0, resolution, slab):
-        g = np.meshgrid(coords, coords, coords[z0 : z0 + slab], indexing="ij")
-        pts = np.stack([g[0].ravel(), g[1].ravel(), g[2].ravel()], axis=-1)
-        interior = pts[evaluator.eval_sdf_at_points(pts) < eps]
-        if interior.size:
-            mins = np.minimum(mins, interior.min(axis=0))
-            maxs = np.maximum(maxs, interior.max(axis=0))
+    with span("evaluator.autodetect_bounding_box", resolution**3):
+        for z0 in range(0, resolution, slab):
+            g = np.meshgrid(coords, coords, coords[z0 : z0 + slab], indexing="ij")
+            pts = np.stack([g[0].ravel(), g[1].ravel(), g[2].ravel()], axis=-1)
+            interior = pts[evaluator.eval_sdf_at_points(pts) < eps]
+            if interior.size:
+                mins = np.minimum(mins, interior.min(axis=0))
+                maxs = np.maximum(maxs, interior.max(axis=0))
     center = (mins + maxs) / 2.0
     return center, float((maxs - mins).max()) / 2.0
 

@@ -14,8 +14,10 @@ span is timed, and it is kept in :func:`spans` only while a torch profiler
 runs: the viewer's ``viewer.frame`` (``viewer.render``, ``copy.d2h``), the
 export's ``export.mesh`` (its stages, the adaptive extract's
 ``extract.level`` and ``extract.mesh_ops``), the evaluator's
-``evaluator.<entry>`` calls and every ``copy.h2d``/``copy.d2h`` with the
-bytes it moved.
+``evaluator.<entry>`` calls (the host-point autodetect's
+``evaluator.autodetect_bounding_box`` with the points it scans), Logo's
+exact letter brush's ``brush.letter`` with its point-sample pairs, and
+every ``copy.h2d``/``copy.d2h`` with the bytes it moved.
 """
 
 from __future__ import annotations

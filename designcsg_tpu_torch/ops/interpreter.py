@@ -224,6 +224,26 @@ def brute_force_min_sdf(scene: CompiledScene, points, arrays: Optional[SceneArra
     return best
 
 
+def _normalize(g):
+    """``g / |g|``, the norm's square root taken through float64.  A zero
+    vector stays zero, as OpenCL's normalize leaves it (k2.cl's refine),
+    where ``g / |g|`` would be NaN: the six differences cancel at a point on
+    one of Logo's outline samples."""
+    norm = torch.sqrt(dot3(g, g).double()).to(g.dtype)[..., None]
+    return g / torch.where(norm > 0.0, norm, torch.ones_like(norm))
+
+
+def _fd_offsets(points, epsilon: float):
+    """The FD step as a tensor and its three axis offsets."""
+    e = torch.tensor(epsilon, dtype=points.dtype, device=points.device)
+    offsets = []
+    for axis in range(3):
+        offset = torch.zeros(3, dtype=points.dtype, device=points.device)
+        offset[axis] = e
+        offsets.append(offset)
+    return e, offsets
+
+
 def make_normal_fn(sdf_fn: Callable, mode: str = "fd", epsilon: float = NORMAL_EPSILON) -> Callable:
     """Surface normals ``normals(points, arrays) -> f32[..., 3]``.
 
@@ -241,17 +261,10 @@ def make_normal_fn(sdf_fn: Callable, mode: str = "fd", epsilon: float = NORMAL_E
     if mode not in ("fd", "analytic"):
         raise ValueError(f"unknown normal mode {mode!r}")
 
-    def normalize(g):
-        return g / torch.sqrt(dot3(g, g).double()).to(g.dtype)[..., None]
-
     def fd_normals(points, arrays=None):
-        e = torch.tensor(epsilon, dtype=points.dtype, device=points.device)
-        g = []
-        for axis in range(3):
-            offset = torch.zeros(3, dtype=points.dtype, device=points.device)
-            offset[axis] = e
-            g.append(sdf_fn(points + offset, arrays) - sdf_fn(points - offset, arrays))
-        return normalize(torch.stack(g, dim=-1) / (2.0 * e))
+        e, offsets = _fd_offsets(points, epsilon)
+        g = [sdf_fn(points + o, arrays) - sdf_fn(points - o, arrays) for o in offsets]
+        return _normalize(torch.stack(g, dim=-1) / (2.0 * e))
 
     def analytic_normals(points, arrays=None):
         banks = arrays.fields() if arrays is not None else ()
@@ -260,6 +273,24 @@ def make_normal_fn(sdf_fn: Callable, mode: str = "fd", epsilon: float = NORMAL_E
         with torch.enable_grad():
             q = points if points.requires_grad else points.detach().requires_grad_()
             (g,) = torch.autograd.grad(sdf_fn(q, arrays).sum(), q, create_graph=keep)
-        return normalize(g)
+        return _normalize(g)
 
     return fd_normals if mode == "fd" else analytic_normals
+
+
+def make_sdf_fd_normal(sdf_fn: Callable, epsilon: float = NORMAL_EPSILON) -> Callable:
+    """``sdf_normal(points, arrays) -> (f32[...], f32[..., 3])``: the field
+    and its FD normal from one call of ``sdf_fn`` at the seven points K1's
+    FD form reads (csrc/common.cuh ``sdf_fd_normal``): each point, then its
+    neighbours at +-epsilon along x, y and z.  The tape is pointwise, so the
+    values, and the normal's bits, are those of ``sdf_fn`` and
+    ``make_normal_fn(sdf_fn)`` called apart, in a seventh of the calls."""
+
+    def sdf_normal(points, arrays=None):
+        e, offsets = _fd_offsets(points, epsilon)
+        probes = torch.stack([points] + [q for o in offsets for q in (points + o, points - o)])
+        v = sdf_fn(probes.reshape(-1, 3), arrays).reshape(probes.shape[:-1])
+        g = torch.stack([v[1] - v[2], v[3] - v[4], v[5] - v[6]], dim=-1) / (2.0 * e)
+        return v[0], _normalize(g)
+
+    return sdf_normal

@@ -356,6 +356,25 @@ def test_host_point_eval_fd_matches_point_eval_and_normal(host_libs, name, gizmo
     np.testing.assert_allclose(np.linalg.norm(normal, axis=1), 1.0, atol=1e-5)
 
 
+def test_host_fd_normal_of_a_flat_field_is_zero(host_libs):
+    """Far from the part every brush passes the empty brush's 64, so the
+    field is flat and its six differences are 0: K1's FD form and the plain
+    glue both give a zero normal there, as OpenCL's normalize does, where
+    g / |g| would be NaN, and a refine step leaves the point where it is."""
+    scenes, libs = host_libs
+    scene, lib = scenes["design1"], libs[("design1", "sdf")]
+    pts = np.random.default_rng(9).uniform(900.0, 1000.0, (64, 3)).astype(np.float32)
+    out, normal = np.empty(len(pts), np.float32), np.empty((len(pts), 3), np.float32)
+    bank, ex = _bank(scene.arrays), _extras(scene)
+    lib.host_point_eval_fd(pts.ctypes.data, out.ctypes.data, normal.ctypes.data, len(pts),
+                           bank.ctypes.data, scene.arrays.ad.ctypes.data, _ptr(ex))
+    assert (out == 64.0).all() and (normal == 0.0).all()
+    plain = make_normal_fn(make_primary_sdf(scene))(torch.from_numpy(pts)).numpy()
+    assert (plain == 0.0).all()
+    ev = BatchEvaluator(scene, device="cpu", use_kernels=True)
+    np.testing.assert_array_equal(ev.refine_on_device(pts, steps=2), pts)
+
+
 @pytest.mark.parametrize("name", ["design1", "logo"])
 def test_refine_through_fd_wrapper_equals_point_and_normal_loop(host_libs, name):
     """``BatchEvaluator.refine_on_device`` on the kernels' field takes K1's
